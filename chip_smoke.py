@@ -1,0 +1,511 @@
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py [--profile]
+
+Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
+
+1. device: the card's name and power limit; builds the CUDA kernels
+   (`pocketsphinx_tpu_torch/csrc/*.cu`, one nvcc per source, in
+   parallel) into build/torch_kernels/;
+2. the fan kernel against its plain torch version at the main path's
+   shapes (B=8), ties on and off, bit-equal; both timed with CUDA events
+   as device time (calls captured in a CUDA graph and replayed) and as
+   per call through the Python wrapper;
+3. the chain kernel the same way for every depth bucket of the 20k-word
+   decoder, with and without variants; a frame's launches are timed
+   together;
+4. torch's argmax / max(dim) / stable sort tie order on CUDA (first
+   maximum, lower index first), which the scan's exactness relies on;
+5. the main path at full width: a seeded synthetic acoustic model at
+   en-us's shapes over bench_data/bench-20k.dic and bench-20k.lm.bin
+   (LM mode B), seeded PCM -> MFCC -> features -> senone scores -> fused
+   n-gram scan -> backtrace: 3 utterances through `decode`, one B=8
+   batch through `decode_batch(keep_records=False)`; the kernels' launch
+   counts over that run; the first utterance's records, hypothesis and
+   segments held bit-equal against the same port run on the CPU with the
+   plain kernels, from the same cost matrix;
+6. with --profile only: torch.profiler over 64 scan steps of the B=8
+   decode, device time by kernel and the device's busy share.
+
+Prints the kernels' JSON line, then as its last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Any failed check raises; without CUDA it exits non-zero before any
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BENCH = os.path.join(HERE, "bench_data")
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
+F32_OPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# helpers (importable without CUDA)
+# ---------------------------------------------------------------------------
+
+def fan_inputs(rng, B, NRC, W, LP, ties):
+    """Random fan-step inputs in the style of tests/test_pallas_fan.py."""
+    S = rng.uniform(-50, 0, (B, 3, NRC, W)).astype(np.float32)
+    pred = rng.uniform(-50, 0, (B, W)).astype(np.float32)
+    tp = rng.uniform(-12, 0, (12, W)).astype(np.float32)
+    if ties:
+        S, pred, tp = np.round(S), np.round(pred), np.round(tp)
+    S[:, 0, :, : W // 7] = NEG_INF
+    pred[:, ::5] = NEG_INF
+    tp[3] = NEG_INF
+    return dict(
+        S=S, TF=rng.integers(0, 400, (B, 3, NRC, W)).astype(np.int32),
+        CX=rng.integers(0, 1 << 20, (B, 3, NRC, W)).astype(np.int32),
+        pred=pred, ptf=rng.integers(0, 400, (B, W)).astype(np.int32),
+        pcx=rng.integers(0, 1 << 20, (B, W)).astype(np.int32),
+        pre=rng.uniform(0, 60, (B, 3, NRC, LP)).astype(np.float32),
+        lp=rng.integers(0, LP, W).astype(np.int32), tp=tp)
+
+
+def chain_inputs(rng, B, NST, D, W, RF, NFD, has_var, ties):
+    """Random chain-step inputs in the style of tests/test_pallas_chain.py
+    (RF/NFD unused without variants)."""
+    S = (rng.standard_normal((B, NST, D, W)) * 30).astype(np.float32)
+    tp = -(rng.random((NST * (NST + 1), D, W)) * 5).astype(np.float32)
+    if ties:
+        S, tp = np.round(S), np.round(tp)
+    fd = rng.integers(0, D, W)
+    out = dict(
+        S=S, TF=rng.integers(0, 99, (B, NST, D, W)).astype(np.int32),
+        CTX=rng.integers(0, 999, (B, NST, D, W)).astype(np.int32),
+        VAR=None, pre=(rng.random((B, NST, D, W)) * 80).astype(np.float32),
+        prevd=None, fd_idx=None, tp=tp,
+        fm=np.arange(D)[:, None] == fd[None, :], nv=None,
+        pip=float(np.float32(-0.7)))
+    if has_var:
+        out.update(
+            VAR=rng.integers(0, RF, (B, NST, W)).astype(np.int32),
+            prevd=(rng.random((B, NST, RF, NFD)) * 80).astype(np.float32),
+            fd_idx=rng.integers(0, NFD, W).astype(np.int32),
+            nv=rng.integers(1, RF + 1, W).astype(np.int32))
+    return out
+
+
+def to_device(args, device):
+    import torch
+    return {k: (torch.as_tensor(v, device=device) if isinstance(v, np.ndarray)
+                else v) for k, v in args.items()}
+
+
+def nbytes(args, outs):
+    """Bytes a step must move: every input read once, every output
+    written once."""
+    tot = sum(v.nbytes for v in args.values() if isinstance(v, np.ndarray))
+    return tot + sum(o.numel() * o.element_size() for o in outs)
+
+
+def compare(outs, refs, what):
+    """Bit-equality of kernel and plain outputs; returns max |diff|."""
+    import torch
+    err = 0.0
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        o, r = o.cpu(), r.cpu()
+        if o.shape != r.shape or o.dtype != r.dtype:
+            raise AssertionError(f"{what}: output {i} {o.shape}/{o.dtype} "
+                                 f"!= {r.shape}/{r.dtype}")
+        if not torch.equal(o, r):
+            bad = int((o != r).sum())
+            raise AssertionError(f"{what}: output {i} differs at {bad} "
+                                 f"elements")
+        if o.is_floating_point():
+            err = max(err, float((o.double() - r.double()).abs().max())
+                      if o.numel() else 0.0)
+    return err
+
+
+def time_ms(fn, reps=20, trials=21, graph=False):
+    """Milliseconds per call of fn() on the card: CUDA events around
+    `reps` back-to-back calls, after a warm-up; the median of `trials`
+    such runs.  With `graph`, the `reps` calls are captured once in a
+    CUDA graph and the events time its replay: the device time of the
+    calls' kernels, without the host's cost of issuing them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                       # warm-up
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    run = lambda: [fn() for _ in range(reps)]           # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+    times = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def timings(fn, plain):
+    """Kernel and plain version, each as device time (graph replay) and
+    as per call through Python: (ms, plain_ms, wrapper_ms,
+    plain_wrapper_ms)."""
+    return (time_ms(fn, graph=True), time_ms(plain, graph=True),
+            time_ms(fn), time_ms(plain))
+
+
+def bound_ms(n_bytes, n_ops):
+    """(least time, what bounds it): bytes over the memory rate vs
+    float32 operations over the card's float32 rate."""
+    tb = n_bytes / HBM_BYTES_PER_S * 1e3
+    to = n_ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def build_decoder(dic, lmfile, workdir, device, n_sen=None, n_density=None,
+                  **dec_kw):
+    """Seeded synthetic en-us-shaped model over `dic` + the LM file ->
+    (port NgramFusedDecoder on `device`, frontend); `dec_kw` go to the
+    decoder."""
+    from pocketsphinx_tpu_torch.frontend.mfcc import MelFrontend
+    from pocketsphinx_tpu_torch.testing import synth
+
+    kw = {k: v for k, v in (("n_sen", n_sen), ("n_density", n_density))
+          if v is not None}
+    spec = synth.make_model([dic], seed=0, **kw)
+    dec = synth.build_decoder(spec, workdir, dic, lmfile, device=device,
+                              **dec_kw)
+    # en-us feat.params
+    fe = MelFrontend(nfilt=25, lowerf=130, upperf=6800, transform="dct",
+                     lifter_val=22, remove_noise=True)
+    return dec, fe
+
+
+def pcm_batch(seeds, seconds):
+    from pocketsphinx_tpu_torch.testing import synth
+    pcms = [synth.make_pcm(s, sec) for s, sec in zip(seeds, seconds)]
+    n = max(len(p) for p in pcms)
+    out = np.zeros((len(pcms), n), np.float32)
+    for i, p in enumerate(pcms):
+        out[i, :len(p)] = p
+    return out, np.array([len(p) for p in pcms], np.int32)
+
+
+def features(fe, pcm, n_samps, device):
+    from pocketsphinx_tpu_torch.frontend.feat import compute_feats
+    cep, nf = fe.process_batch(pcm, n_samps, device=device)
+    return compute_feats(cep, nf), nf
+
+
+def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
+              check_cpu=True, log=print):
+    """Drive the port's main path: `n_single` utterances through
+    `decode`, then one B=`batch` batch through `decode_batch` `repeats`
+    times (the spread of its time).  Returns a dict of what it measured
+    and counts the kernels' launches over exactly this run."""
+    import torch
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+    from pocketsphinx_tpu_torch.ops import chain, fan
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    ch = dec.CHUNK
+    n_blocks = len(dec.chains) + len(dec.ci_chains)
+    fan.reset_launches()
+    chain.reset_launches()
+    frames = 0
+    res = {"utts": []}
+    first = None
+    for i in range(n_single):
+        pcm, ns = pcm_batch([1 + i], [2.0 + 1.5 * i])
+        feats, nf = features(fe, pcm, ns, device)
+        T = int(nf[0])
+        if i == 0:
+            costs = senone_scores(dec.am.scoring_tensors(dec.device),
+                                  feats[:, :T])[0]
+            hyp, segs = dec.decode(None, costs=costs)
+            first = (costs, dec.raw_records, hyp, segs, dec.hyp_score)
+        else:
+            hyp, segs = dec.decode(feats[0, :T])
+        if not np.isfinite(dec.hyp_score):
+            raise AssertionError(f"utterance {i}: hyp_score {dec.hyp_score}")
+        res["utts"].append({"frames": T, "hyp": hyp, "n_segs": len(segs),
+                            "hyp_score": dec.hyp_score})
+        frames += -(-T // ch) * ch
+    pcm, ns = pcm_batch(list(range(10, 10 + batch)),
+                        list(np.linspace(2.0, 5.0, batch)))
+    audio_s = float(ns.sum()) / fe.samprate
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(repeats):
+        t0 = sync()
+        feats, nf = features(fe, pcm, ns, device)
+        t1 = sync()
+        timings = {}
+        out = dec.decode_batch(feats, nf, keep_records=False,
+                               timings=timings)
+        t2 = sync()
+        frames += -(-feats.shape[1] // ch) * ch
+        runs.append(dict(frontend=t1 - t0, **timings, seconds=t2 - t0,
+                         audio_s_per_s=audio_s / (t2 - t0)))
+        if not all(np.isfinite(dec.hyp_scores)):
+            raise AssertionError(f"batch hyp scores {dec.hyp_scores}")
+        hyps = [h for h, _ in out]
+        if runs[0].setdefault("hyps", hyps) != hyps:
+            raise AssertionError("repeated batch decode changed its result")
+    hyps = runs[0].pop("hyps")
+    res["launches"] = {"fan": fan.launches, "chain": chain.launches}
+    if cuda:
+        want = {"fan": frames, "chain": frames * n_blocks}
+        if res["launches"] != want:
+            raise AssertionError(f"launch counts {res['launches']} != "
+                                 f"expected {want}")
+        res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rates = sorted(r["audio_s_per_s"] for r in runs)
+    res["batch"] = {"B": batch, "audio_s": audio_s, "frames": int(nf.max()),
+                    "runs": runs, "audio_s_per_s": rates[len(rates) // 2],
+                    "hyps": hyps,
+                    "guard_violations": dec.guard_violations}
+    if check_cpu:
+        costs, raw, hyp, segs, score = first
+        cpu = dec.to("cpu")
+        hyp_c, segs_c = cpu.decode(None, costs=costs.cpu())
+        names = "escore etf etgt ecx entry eprw erw1 erw2 m nviol".split()
+        for n, a, b in zip(names, raw, cpu.raw_records):
+            if a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError(f"{device} vs cpu records differ: {n}")
+        key = lambda s: [(x.word, x.start, x.end) for x in s]  # noqa: E731
+        if (hyp, key(segs), score) != (hyp_c, key(segs_c), cpu.hyp_score):
+            raise AssertionError(f"{device} vs cpu hypothesis differs: "
+                                 f"{hyp!r} / {hyp_c!r}")
+        res["cpu_check"] = {"frames": int(costs.shape[0]), "hyp": hyp,
+                            "records_equal": True}
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases (need CUDA)
+# ---------------------------------------------------------------------------
+
+def profile_scan(dec, fe, log, frames=64, batch=8):
+    """torch.profiler over `frames` scan steps of a B=`batch` minimal-
+    record decode: device time by kernel and the device's busy share of
+    the wall time (the profiler's own overhead lowers that share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+
+    pcm, ns = pcm_batch(list(range(10, 10 + batch)),
+                        list(np.linspace(2.0, 5.0, batch)))
+    feats, _ = features(fe, pcm, ns, "cuda")
+    costs = senone_scores(dec.am.scoring_tensors(dec.device),
+                          feats[:, :frames], time_chunk=16)
+    valid = torch.ones(costs.shape[:2], dtype=torch.bool, device=dec.device)
+    dec.scan(costs, valid, minimal=True)                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec.scan(costs, valid, minimal=True)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dec.scan(costs, valid, minimal=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    # kernels only: the aten ops' own rows repeat their kernels' time
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[2])
+    dev_us = sum(r[2] for r in rows)
+    log(f"profile: {frames} frames at B={batch}: wall {plain_wall * 1e3:.1f} "
+        f"ms unprofiled ({plain_wall / frames * 1e3:.3f} ms/frame), "
+        f"{wall * 1e3:.1f} ms profiled; device busy {dev_us / 1e3:.1f} ms "
+        f"= {dev_us / 1e6 / wall:.3f} of the profiled wall, "
+        f"{dev_us / 1e6 / plain_wall:.3f} of the unprofiled one")
+    for key, count, us in rows[:15]:
+        log(f"  {us / 1e3:9.3f} ms {count:6d}x {us / dev_us:6.3f}  {key[:90]}")
+    return dict(frames=frames, batch=batch, wall_s=plain_wall,
+                device_s=dev_us / 1e6, top=rows[:15])
+
+
+def check_fan(B, NRC, W, LP, log):
+    import torch
+    from pocketsphinx_tpu_torch.ops import fan
+    rng = np.random.default_rng(0)
+    err = 0.0
+    for ties in (False, True):
+        args = fan_inputs(rng, B, NRC, W, LP, ties)
+        dev = to_device(args, "cuda")
+        outs = fan.fan_step(**dev)
+        torch.cuda.synchronize()
+        refs = fan.fan_step_ref(**dev)
+        err = max(err, compare(outs, refs, f"fan ties={ties}"))
+    ms, plain, wms, wplain = timings(lambda: fan.fan_step(**dev),
+                                     lambda: fan.fan_step_ref(**dev))
+    n_ops = 18 * B * NRC * W
+    bms, by = bound_ms(nbytes(args, outs), n_ops)
+    log(f"fan B={B} NRC={NRC} W={W} LP={LP}: bit-equal; device time: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms; through Python: kernel "
+        f"{wms:.4f} ms, plain {wplain:.4f} ms; bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain)
+
+
+def check_chain(B, buckets, log):
+    """buckets: (NST, D, W, RF, NFD, has_var) per launch of one frame."""
+    import torch
+    from pocketsphinx_tpu_torch.ops import chain
+    rng = np.random.default_rng(1)
+    err = tot_bytes = tot_ops = 0.0
+    frame = []                      # one frame's launches, last inputs
+    for NST, D, W, RF, NFD, has_var in buckets:
+        for ties in (False, True):
+            args = chain_inputs(rng, B, NST, D, W, RF, NFD, has_var, ties)
+            dev = to_device(args, "cuda")
+            outs = chain.chain_step(**dev)
+            torch.cuda.synchronize()
+            refs = chain.chain_step_ref(**dev)
+            err = max(err, compare(outs, refs, f"chain D={D} W={W} "
+                                               f"var={has_var} ties={ties}"))
+        frame.append(dev)
+        k = time_ms(lambda: chain.chain_step(**dev), graph=True)
+        p = time_ms(lambda: chain.chain_step_ref(**dev), graph=True)
+        tot_bytes += nbytes(args, outs)
+        tot_ops += 12 * B * NST * D * W
+        log(f"chain B={B} NST={NST} D={D} W={W} RF={RF} NFD={NFD} "
+            f"var={has_var}: bit-equal; device time: kernel {k:.4f} ms, "
+            f"plain {p:.4f} ms")
+    ms, plain, wms, wplain = timings(
+        lambda: [chain.chain_step(**a) for a in frame],
+        lambda: [chain.chain_step_ref(**a) for a in frame])
+    bms, by = bound_ms(tot_bytes, tot_ops)
+    log(f"chain, all {len(buckets)} launches of a frame: device time: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms; through Python: kernel "
+        f"{wms:.4f} ms, plain {wplain:.4f} ms; bound {bms:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain)
+
+
+def check_ties(log):
+    """argmax / max(dim) give the first maximum and a stable descending
+    sort keeps ties in index order, on CUDA, as on the CPU."""
+    import torch
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 4, (64, 2000)).astype(np.float32)
+    x[::7] = NEG_INF                                   # all-dead rows
+    xc = torch.as_tensor(x, device="cuda")
+    want_am = np.argmax(x, axis=1)
+    for name, got in (("argmax", torch.argmax(xc, dim=1)),
+                      ("max(dim)", torch.max(xc, dim=1).indices)):
+        if not np.array_equal(got.cpu().numpy(), want_am):
+            raise AssertionError(f"{name} is not first-max on CUDA")
+    want_am0 = np.argmax(x, axis=0)
+    if not np.array_equal(torch.max(xc, dim=0).indices.cpu().numpy(),
+                          want_am0):
+        raise AssertionError("max(dim=0) is not first-max on CUDA")
+    order = torch.sort(xc, dim=1, descending=True, stable=True).indices
+    if not np.array_equal(order.cpu().numpy(),
+                          np.argsort(-x, axis=1, kind="stable")):
+        raise AssertionError("stable descending sort tie order differs")
+    log("ties: argmax, max(dim) first-max; stable sort lower index first")
+
+
+def smi_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv):
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    import pocketsphinx_tpu_torch  # noqa: F401  (precision setup)
+    from pocketsphinx_tpu_torch.ops import _build
+    log = lambda *x: print(*x, flush=True)  # noqa: E731
+    kind = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    log(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    secs = _build.build(["fan", "chain"], verbose=True)
+    log(f"built kernels in {time.perf_counter() - t0:.1f} s: {secs}")
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        dec, fe = build_decoder(os.path.join(BENCH, "bench-20k.dic"),
+                                os.path.join(BENCH, "bench-20k.lm.bin"),
+                                work, "cuda")
+    log(f"20k decoder: W={dec.W} n_multi={dec.n_multi} E={dec.nE} "
+        f"n_rc={dec.n_rcp} LM mode {dec.lm_mode}, chain buckets "
+        f"{[(c.D, c.Wb, c.RF) for c in dec.chains]}, CI buckets "
+        f"{[(c.D, c.Wb) for c in dec.ci_chains]}; host build "
+        f"{time.perf_counter() - t0:.1f} s")
+    if dec.lm_mode != "sparse":
+        raise AssertionError(f"20k LM mode {dec.lm_mode} != sparse")
+    B = 8
+    fan_res = check_fan(B, dec.n_rcp, dec.n_multi,
+                        dec.senid_fin_d.shape[-1], log)
+    buckets = [(dec.NST, c.D, c.Wb, c.RF, c.senid_first_d.shape[-1], True)
+               for c in dec.chains]
+    buckets += [(dec.NST, c.D, c.Wb, 0, 0, False) for c in dec.ci_chains]
+    chain_res = check_chain(B, buckets, log)
+    check_ties(log)
+    t0 = time.perf_counter()
+    res = main_path(dec, fe, "cuda", log=log)
+    log(f"main path ({time.perf_counter() - t0:.1f} s): "
+        + json.dumps(res, default=float))
+    bt = res["batch"]
+    log(f"B={bt['B']} batch: {bt['audio_s_per_s']:.2f} audio-s/s "
+        f"(median of {len(bt['runs'])}: "
+        f"{[round(r['audio_s_per_s'], 2) for r in bt['runs']]}), "
+        f"peak memory {res['peak_mem_bytes'] / 2**30:.2f} GiB on {smi}")
+    if "--profile" in argv:
+        profile_scan(dec, fe, log)
+    kernels = []
+    for name, r, src, rep in (
+            ("fan", fan_res, "pocketsphinx_tpu_torch/csrc/fan.cu",
+             "pocketsphinx_tpu/ops/pallas_fan.py:43"),
+            ("chain", chain_res, "pocketsphinx_tpu_torch/csrc/chain.cu",
+             "pocketsphinx_tpu/ops/pallas_chain.py:35")):
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=rep,
+                            launches=res["launches"][name],
+                            library_ms=None, **r))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,33 @@
+"""pocketsphinx-tpu-torch: the recognizer's main path in PyTorch and CUDA.
+
+A port of `pocketsphinx_tpu` (JAX) to PyTorch on NVIDIA Hopper.  The
+layout mirrors the JAX package: each module sits at the same relative
+path as its counterpart.  Host-side model and LM loading are NumPy
+copies; device compute is torch, and the two per-frame search blocks
+that the JAX package wrote as Pallas kernels are hand-written CUDA
+kernels (`csrc/`, bound in `ops/`).
+
+Entry points run on CUDA unless the caller passes `device="cpu"`; they
+raise when CUDA is absent and the CPU was not asked for.  Float32
+matrix products run at full precision (no TF32), as the JAX package
+scores at `Precision.HIGHEST`.
+"""
+
+import torch
+
+__version__ = "0.1.0"
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless `device` says
+    otherwise.  Raises when CUDA was implied but is not available."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,1311 @@
+"""Exact-trigram fused Viterbi n-gram search ("ngram_fused") in torch.
+
+Port of `pocketsphinx_tpu.search.ngram_fused`.  The host-side network
+build (`_build`, `_lm_tables`, `_guard_tables` and the table assembly of
+the JAX `_make_scan`) is a NumPy copy; the per-frame scan step, its
+chunked senone pre-gather, `init_carry`, the records and the 1-best
+backtraces are torch, with the batch axis written out ([B, ...]) where
+the JAX package used `jax.vmap`.
+
+The network (see the JAX module's docstring for the design):
+  * right-aligned chain buckets [NST, D, Wb] for the first and interior
+    phones of every multi-phone word, with the mpx first phone's variant
+    carried as a VAR plane -- stepped by the chain kernel
+    (`ops/chain.py`, CUDA on the card);
+  * the word-final right-context fan [3, n_rc, n_multi] -- stepped by the
+    fan kernel (`ops/fan.py`, CUDA on the card);
+  * single-phone words as explicit left-context columns, CI/filler words
+    as chains without variants (chain kernel);
+  * top-K word exits per frame, exact trigram successor rows (LM mode
+    "rows": one dense row per history; mode "sparse" (B): dense bigram
+    rows + per-context trigram overrides), first-winner entries.
+
+Every one-hot matrix product of the JAX step picks exactly one element
+per output and is an index gather here; `jax.lax.top_k` is a stable
+descending sort (ties to the lower index, like top_k); argmax is
+first-max.  Given the same cost matrix the records are bit-equal to the
+JAX package's (tests/test_torch_ngram_fused.py).
+
+Not ported in this slice (each raises NotImplementedError): LM mode C
+(CSR), the PS_GUARD_TOPM guard refinement, 5-state models, and the
+streaming carry (`with_carry`/`mask_carry`).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import warnings
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..convert import scan_tables
+from ..models.dict2pid import Dict2Pid
+from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
+from ..lm.ngram import NgramModel
+from ..ops.chain import chain_step
+from ..ops.fan import fan_step
+from ..ops.hmm import hmm_step_sm
+
+NEG_INF = -1e30
+SHIFT = 1 << 10
+#: predecessors per column in the exit guard's top-J bonus tables
+GUARD_TOPJ = 8
+
+
+@dataclass
+class Seg:
+    """One word segment of a hypothesis (frames inclusive)."""
+    word: str
+    start: int
+    end: int
+
+
+@dataclass
+class _Chain:
+    """One right-aligned chain bucket: words [w_lo, w_hi) with padded
+    depth D (covers first + interior phones; finals live elsewhere for
+    real words, in-chain for CI-filler chains)."""
+
+    w_lo: int
+    w_hi: int
+    D: int
+    senid: np.ndarray = None          # [3, D, Wb] int32
+    tp: np.ndarray = None             # [D, Wb, NST, NST+1] f32
+    fd: np.ndarray = None             # [Wb] first depth per word
+    firstmask: np.ndarray = None      # [D, Wb] bool
+    # mpx first-phone variants (real multi-phone words only)
+    senid_first: np.ndarray = None    # [3, RF, Wb] int32
+    n_var: np.ndarray = None          # [Wb]
+    RF: int = 0
+
+    @property
+    def Wb(self):
+        return self.w_hi - self.w_lo
+
+
+class _LazyBatchRecords:
+    """List-like view of per-utterance adapted records that copies a
+    batch's raw device records to the host only for the utterances a
+    consumer indexes."""
+
+    def __init__(self, dec, raw_dev, nf):
+        self._dec = dec
+        self._raw = raw_dev      # tuple of [B, T, ...] tensors
+        self._nf = nf
+        self._cache = {}
+
+    def __len__(self):
+        return len(self._nf)
+
+    def __getitem__(self, b):
+        if b not in self._cache:
+            per_utt = tuple(r[b].cpu().numpy() for r in self._raw)
+            self._cache[b] = self._dec.adapt_records(
+                per_utt, int(self._nf[b]))
+        return self._cache[b]
+
+    def __iter__(self):
+        return (self[b] for b in range(len(self)))
+
+
+class NgramFusedDecoder:
+    """Exact-trigram full-vocabulary Viterbi with a fused per-frame step."""
+
+    LM_TABLE_BUDGET = None   # default: env PS_LM_TABLE_BYTES or 2 GiB
+    #: senone pre-gather chunk (frames)
+    CHUNK = 16
+
+    def __init__(self, am: AcousticModel, d2p: Dict2Pid, lm: NgramModel,
+                 silprob: float = 0.005, fillprob: float = 1e-8,
+                 pip: float = 1.0, nwpen: float = 1.0,
+                 topk: int = 96, depth_buckets: tuple = (), device=None):
+        self.device = resolve_device(device)
+        self.am = am
+        self.d2p = d2p
+        self.dict = d2p.dict
+        self.lm = lm
+        self.mdef = am.mdef
+        ln = lambda p: math.log(p) / UNIT_NATS  # noqa: E731 shifted units
+        self.pip = ln(pip)
+        self.nwpen = ln(nwpen)
+        self.silpen = self.pip + ln(silprob)
+        self.fillpen = self.pip + ln(fillprob)
+        self.topk = topk
+        self.depth_buckets = tuple(depth_buckets)
+        self._build()
+        self.host_tables = self._host_tables()
+        self.tables = scan_tables(self.host_tables, self.device,
+                                  self.seg_shapes)
+
+    def to(self, device) -> "NgramFusedDecoder":
+        """A decoder sharing this one's host network, with its tables on
+        `device` (e.g. to check a CUDA run against the CPU)."""
+        other = object.__new__(type(self))
+        other.__dict__.update(self.__dict__)
+        other.device = torch.device(device)
+        other.tables = scan_tables(self.host_tables, other.device,
+                                   self.seg_shapes)
+        return other
+
+    # -- static structure ----------------------------------------------------
+
+
+    def _select_words(self):
+        """Word list identical in membership to ngram_flat._build, but
+        reordered [multi (by length) | single-phone | CI chains]."""
+        d, lm, mdef = self.dict, self.lm, self.mdef
+        sil = mdef.sil
+        picked = []                 # (class, sortkey, wid, lm_wid, fill)
+        for wid in range(len(d)):
+            base = d.basestr(wid)
+            lw = lm.wid(base)
+            pron = [int(x) for x in d.pron(wid)]
+            is_ci = d.is_filler(wid) or (len(pron) == 1 and pron[0] == sil)
+            if d.is_filler(wid) and wid not in (d.startwid, d.finishwid):
+                picked.append((2, len(pron), wid, -1, True))
+            elif lw >= 0:
+                cls = 2 if is_ci else (1 if len(pron) == 1 else 0)
+                picked.append((cls, len(pron), wid, lw, False))
+        picked.sort(key=lambda t: (t[0], t[1], t[2]))
+        self.words = [t[2] for t in picked]
+        self.lm_wid = np.array([t[3] for t in picked], np.int32)
+        self.is_fill = np.array([t[4] for t in picked], bool)
+        self.W = len(picked)
+        self.widx = {w: i for i, w in enumerate(self.words)}
+        self.n_multi = sum(1 for t in picked if t[0] == 0)
+        self.n_single = sum(1 for t in picked if t[0] == 1)
+        self.n_ci = self.W - self.n_multi - self.n_single
+
+    def _depth_for(self, length_minus: int) -> int:
+        for d in self._depth_buckets:
+            if length_minus <= d:
+                return d
+        return length_minus
+
+    def _build(self):
+        self._lm_rows = None
+        self.lm_mode = None
+        d, mdef, d2p = self.dict, self.mdef, self.d2p
+        sseq = mdef.sseq
+        tmat_tp = self.am.tmat.tp      # [n_tmat, NST, NST+1] uint8
+        NST = mdef.n_emit_state
+        self.NST = NST
+        sil = mdef.sil
+        self._select_words()
+        W, n_multi, n_single = self.W, self.n_multi, self.n_single
+        prons = [[int(x) for x in d.pron(w)] for w in self.words]
+
+        def tp_of(ci):
+            t = tmat_tp[mdef.phone_tmat[ci]].astype(np.float32)
+            return np.where(t == 255, NEG_INF, -t)
+
+        # resolve depth buckets: empty tuple = automatic (the JAX
+        # package's rule, so both build the same network).  Small W: one
+        # bucket per class.  Large W: quantile buckets of the length
+        # distribution, since a single bucket pads every word to the
+        # longest chain (~3x padding at 20k cmudict words).
+        self._depth_buckets = self.depth_buckets
+        if not self._depth_buckets:
+            need = [len(d.pron(w)) - 1 for w in self.words[:n_multi]] \
+                + [len(d.pron(w))
+                   for w in self.words[n_multi + n_single:]]
+            if not need:
+                self._depth_buckets = (1,)
+            elif n_multi <= 4000:
+                self._depth_buckets = (max(need),)
+            else:
+                qs = np.quantile(np.array(need), [0.4, 0.75, 0.92, 1.0])
+                self._depth_buckets = tuple(sorted(
+                    {int(q) for q in qs} | {max(need)}))
+
+        # occurring right contexts: word-initial phones + SIL
+        rc_set = sorted({p[0] for p in prons} | {sil})
+        self.rc_list = np.array(rc_set, np.int32)
+        n_rc = len(rc_set)
+        self.n_rcp = n_rc
+        rc_plane = np.full(mdef.n_ciphone, -1, np.int32)
+        rc_plane[rc_set] = np.arange(n_rc)
+        self.f0_plane = np.array([rc_plane[p[0]] for p in prons], np.int32)
+        self.fb_ci = np.array([p[-1] for p in prons], np.int32)
+
+        # ---- multi-phone words: chain buckets + finals fan ----
+        chains: list[_Chain] = []
+        lo = 0
+        while lo < n_multi:
+            D = self._depth_for(len(prons[lo]) - 1)
+            hi = lo
+            while hi < n_multi and self._depth_for(len(prons[hi]) - 1) == D:
+                hi += 1
+            chains.append(_Chain(w_lo=lo, w_hi=hi, D=D))
+            lo = hi
+        lc_cls = np.zeros((n_multi, mdef.n_ciphone), np.int32)
+        for ch in chains:
+            Wb, D = ch.Wb, ch.D
+            senid = np.zeros((NST, D, Wb), np.int32)
+            tp = np.tile(tp_of(sil)[None, None], (D, Wb, 1, 1))
+            fd = np.zeros(Wb, np.int64)
+            nvar = np.ones(Wb, np.int64)
+            RF = 1
+            var_ssids = []
+            for k in range(Wb):
+                pron = prons[ch.w_lo + k]
+                L = len(pron)
+                fd[k] = D - (L - 1)
+                uniq = np.unique(d2p.ldiph_lc[pron[0], pron[1]])
+                var_ssids.append(uniq)
+                nvar[k] = len(uniq)
+                RF = max(RF, len(uniq))
+                inv = np.searchsorted(uniq, d2p.ldiph_lc[pron[0], pron[1]])
+                lc_cls[ch.w_lo + k] = inv
+                senid[:, fd[k], k] = sseq[int(uniq[0])]
+                tp[fd[k], k] = tp_of(pron[0])
+                internal = d2p.internal_ssids(self.words[ch.w_lo + k])
+                for j in range(1, L - 1):
+                    senid[:, fd[k] + j, k] = sseq[int(internal[j - 1])]
+                    tp[fd[k] + j, k] = tp_of(pron[j])
+            senid_first = np.zeros((NST, RF, Wb), np.int32)
+            for k in range(Wb):
+                u = var_ssids[k]
+                for v in range(RF):
+                    senid_first[:, v, k] = sseq[int(u[min(v, len(u) - 1)])]
+            ch.senid, ch.tp, ch.fd = senid, tp, fd
+            ch.firstmask = (np.arange(ch.D)[:, None] == fd[None, :])
+            ch.senid_first, ch.n_var, ch.RF = senid_first, nvar, RF
+            # Shared per-first-diphone variant planes: the variant ssid
+            # set is a function of (p0, p1) alone (ldiph_lc[p0][p1],
+            # src/dict2pid.c), so the per-frame senone pre-gather only
+            # needs one plane per DISTINCT first diphone; expansion to
+            # words is a gather by fd_idx in the chain kernel.
+            bpairs = [(prons[ch.w_lo + k][0], prons[ch.w_lo + k][1])
+                      for k in range(Wb)]
+            fd_list = sorted(set(bpairs))
+            fd_of = {p: i for i, p in enumerate(fd_list)}
+            n_fd = len(fd_list)
+            senid_first_d = np.zeros((NST, RF, n_fd), np.int32)
+            for fi, (a, b) in enumerate(fd_list):
+                u = np.unique(d2p.ldiph_lc[a, b])
+                for v in range(RF):
+                    senid_first_d[:, v, fi] = \
+                        sseq[int(u[min(v, len(u) - 1)])]
+            ch.senid_first_d = senid_first_d
+            ch.fd_idx = np.array([fd_of[p_] for p_ in bpairs], np.int32)
+        self.chains = chains
+        self.lc_cls = lc_cls
+
+        # finals fan [3, n_rc, n_multi]
+        senid_fin = np.zeros((NST, n_rc, max(n_multi, 1)), np.int32)
+        tp_fin = np.tile(tp_of(sil)[None], (max(n_multi, 1), 1, 1))
+        for k in range(n_multi):
+            pron = prons[k]
+            ss = d2p.rdiph_rc[pron[-1], pron[-2]][rc_set]
+            senid_fin[:, :, k] = sseq[ss.astype(np.int64)].T
+            tp_fin[k] = tp_of(pron[-1])
+        self.senid_fin, self.tp_fin = senid_fin, tp_fin
+        # shared per-final-diphone fan planes (rdiph_rc[last, penult] is
+        # a function of the final diphone alone; same sharing trick as
+        # senid_first_d above)
+        lp_pairs = [(prons[k][-1], prons[k][-2]) for k in range(n_multi)]
+        lp_list = sorted(set(lp_pairs))
+        lp_of = {p: i for i, p in enumerate(lp_list)}
+        n_lp = max(len(lp_list), 1)
+        senid_fin_d = np.zeros((NST, n_rc, n_lp), np.int32)
+        for li_, (a, b) in enumerate(lp_list):
+            ss = d2p.rdiph_rc[a, b][rc_set]
+            senid_fin_d[:, :, li_] = sseq[ss.astype(np.int64)].T
+        self.senid_fin_d = senid_fin_d
+        # per-word final-diphone index (the fan kernel's expansion)
+        self.lp_idx = np.array([lp_of[p_] for p_ in lp_pairs],
+                               np.int32) if n_multi else \
+            np.zeros(0, np.int32)
+
+        # ---- single-phone real words: explicit (lc-class) columns ----
+        # Rectangular layout: every single word owns exactly Cmax
+        # columns (dead pad columns accept no left context and stay at
+        # NEG_INF), so the per-word exit reduction in the scan is ONE
+        # vectorized [Cmax, n_single] argmax instead of a Python loop of
+        # per-word reductions (kernel-count, see _depth_buckets note).
+        word_variants = []    # (word index, uniq ssid-rows, inv)
+        Cmax = 1
+        for k in range(n_multi, n_multi + n_single):
+            p0 = prons[k][0]
+            table = d2p.lrdiph_rc[p0]
+            uniq, inv = np.unique(table, axis=0, return_inverse=True)
+            word_variants.append((k, uniq, inv))
+            Cmax = max(Cmax, len(uniq))
+        sp_cols = []          # (word index, variant, rep lc, live)
+        accept_sp = []        # [n_ci] bool per column
+        for k, uniq, inv in word_variants:
+            for v in range(Cmax):
+                if v < len(uniq):
+                    rep = int(np.nonzero(inv == v)[0][0])
+                    sp_cols.append((k, v, rep))
+                    accept_sp.append(inv == v)
+                else:
+                    sp_cols.append((k, 0, int(np.nonzero(inv == 0)[0][0])))
+                    accept_sp.append(np.zeros(mdef.n_ciphone, bool))
+        SP = len(sp_cols)
+        self.SP = SP
+        self.sp_cmax = Cmax
+        senid_sp = np.zeros((NST, n_rc, max(SP, 1)), np.int32)
+        tp_sp = np.tile(tp_of(sil)[None], (max(SP, 1), 1, 1))
+        col_word = np.zeros(max(SP, 1), np.int64)
+        for c, (k, v, rep) in enumerate(sp_cols):
+            p0 = prons[k][0]
+            ss = d2p.lrdiph_rc[p0, rep][rc_set]
+            senid_sp[:, :, c] = sseq[ss.astype(np.int64)].T
+            tp_sp[c] = tp_of(p0)
+            col_word[c] = k
+        self.senid_sp, self.tp_sp, self.sp_col_word = senid_sp, tp_sp, col_word
+        self.accept_sp = (np.stack(accept_sp)
+                          if SP else np.zeros((0, mdef.n_ciphone), bool))
+        # column ranges per single word (rectangular: width Cmax each)
+        self.sp_ranges = [(n_multi + i, i * Cmax, (i + 1) * Cmax)
+                          for i in range(n_single)]
+
+        # ---- CI chains (fillers, <s>, </s>) ----
+        ci0 = n_multi + n_single
+        ci_chains: list[_Chain] = []
+        lo = ci0
+        while lo < W:
+            D = self._depth_for(len(prons[lo]))
+            hi = lo
+            while hi < W and self._depth_for(len(prons[hi])) == D:
+                hi += 1
+            ci_chains.append(_Chain(w_lo=lo, w_hi=hi, D=D))
+            lo = hi
+        for ch in ci_chains:
+            Wb, D = ch.Wb, ch.D
+            senid = np.zeros((NST, D, Wb), np.int32)
+            tp = np.tile(tp_of(sil)[None, None], (D, Wb, 1, 1))
+            fd = np.zeros(Wb, np.int64)
+            for k in range(Wb):
+                pron = prons[ch.w_lo + k]
+                L = len(pron)
+                fd[k] = D - L
+                for j, ci in enumerate(pron):
+                    senid[:, fd[k] + j, k] = sseq[int(mdef.phone_ssid[ci])]
+                    tp[fd[k] + j, k] = tp_of(ci)
+            ch.senid, ch.tp, ch.fd = senid, tp, fd
+            ch.firstmask = (np.arange(D)[:, None] == fd[None, :])
+        self.ci_chains = ci_chains
+
+        # ---- entry-target axis E = [multi | single cols | ci words] ----
+        nE = n_multi + SP + self.n_ci
+        self.nE = nE
+        e2w = np.concatenate([
+            np.arange(n_multi, dtype=np.int64),
+            col_word[:SP],
+            np.arange(ci0, W, dtype=np.int64)])
+        self.e2w = e2w
+        self.isfill_E = self.is_fill[e2w]
+        self.f0p_E = self.f0_plane[e2w]
+        fillpen_w = np.where(
+            np.array([self.words[i] == d.silwid for i in range(W)]),
+            self.silpen, self.fillpen).astype(np.float32)
+        self.fillpen_E = fillpen_w[e2w]
+        # accept matrix: 1 everywhere except single columns (lc class)
+        acc = np.ones((nE, mdef.n_ciphone), np.float32)
+        if SP:
+            acc[n_multi:n_multi + SP] = self.accept_sp.astype(np.float32)
+        self.accept_E = acc
+        self.lmwid_E = np.where(self.lm_wid[e2w] >= 0,
+                                self.lm_wid[e2w], 0).astype(np.int64)
+
+        # per-word static exit-target index (E index of the word's
+        # chain/fan; singles are resolved at runtime to the winning col)
+        etgt0 = np.zeros(W, np.int64)
+        etgt0[:n_multi] = np.arange(n_multi)
+        for k, c0, c1 in self.sp_ranges:
+            etgt0[k] = n_multi + c0
+        etgt0[ci0:] = n_multi + SP + np.arange(W - ci0)
+        self.etgt0 = etgt0
+
+        self.col_lm = np.where(self.lm_wid >= 0, self.lm_wid, 0)
+        self.V = self.lm.counts[0]
+        self.start_idx = (self.widx.get(d.startwid)
+                          if d.startwid in self.widx else None)
+        self.finish_idx = (self.widx.get(d.finishwid)
+                           if d.finishwid in self.widx else None)
+        # diagnostics: padded node count of the dense network
+        self.P = int(sum(ch.D * ch.Wb for ch in chains + ci_chains)
+                     + n_rc * (n_multi + SP))
+
+    # -- LM tables -----------------------------------------------------------
+
+    def _lm_tables(self):
+        """(rows [R, E] f32, ctx_next [V+1, E] f32, ctx2h1 [R] i32).
+
+        rows[r, e] = exact weighted Katz score of entry target e's word
+        under history class r (r = 0 empty, 1+h unigram context h,
+        1+V+b bigram-entry context b; lm/ngram.py dense_context_rows).
+        ctx_next[h1, e] = context row carried after entering e's word
+        with previous real word h1.  ctx2h1[r] = newest history word of
+        class r (V for the empty class)."""
+        if getattr(self, "lm_mode", None) is not None:
+            return (self._lm_rows, self._ctx_next, self._ctx2h1,
+                    self._ctx2h2)
+        lm, V = self.lm, self.V
+        budget = self.LM_TABLE_BUDGET
+        if budget is None:
+            budget = int(os.environ.get("PS_LM_TABLE_BYTES", 2 << 30))
+        cols_E = self.col_lm[self.e2w]
+        n_bg = lm.counts[1] if lm.order >= 2 else 0
+        R = 1 + V + n_bg
+        # Exactness bound: LM context ids (1+V+n_bg), word ids and entry
+        # targets ride as f32 payload columns / one-hot matmul payloads
+        # in the scan, which is exact only for integers < 2^24.  Refuse
+        # loudly rather than silently corrupt contexts/backtraces.
+        if R >= (1 << 24) or self.nE >= (1 << 24):
+            raise ValueError(
+                f"LM too large for the fused scan's f32 payload channels:"
+                f" 1+V+n_bigrams={R}, E={self.nE} must be < 2^24 for"
+                f" exact f32 integer arithmetic (ngram_fused payload"
+                f" matmuls). Use a smaller LM or shard the model.")
+        force = os.environ.get("PS_LM_MODE")
+        sparse_budget = int(os.environ.get("PS_LM_SPARSE_BYTES", 6 << 30))
+        if force == "rows":
+            pass
+        elif force == "csr" or (force != "sparse"
+                                and lm.order >= 3 and n_bg
+                                and R * self.nE * 4 > budget
+                                and 2 * (V + 1) * self.nE * 4
+                                > sparse_budget):
+            # mode C (reference scale): fully sparse CSR tables
+            raise NotImplementedError(
+                "LM mode C (CSR) is not ported yet: force "
+                "PS_LM_MODE=sparse or raise PS_LM_SPARSE_BYTES")
+        if lm.order < 3 or n_bg == 0 or (
+                force != "sparse" and R * self.nE * 4 <= budget):
+            # mode A: one dense successor row per history class
+            self.lm_mode = "rows"
+            rows, with_tri = lm.dense_context_rows(cols_E, budget)
+            rows = rows / SHIFT
+            rows[:, self.isfill_E] = 0.0
+            self.lm_order_used = 3 if with_tri else \
+                (2 if lm.order >= 2 else 1)
+            R = rows.shape[0]
+        else:
+            # mode B (scale): dense bigram rows [V+1, E] + sparse
+            # per-context trigram overrides -- exact trigram at
+            # O(V*E) memory instead of O((V+n_bigrams)*E)
+            self.lm_mode = "sparse"
+            rows = None
+            bg = lm.bigram_rows_dense(cols_E) / SHIFT
+            bg[:, self.isfill_E] = 0.0
+            tgc_next, tg_cols, tg_vals, bo2w = \
+                lm.trigram_corrections(cols_E)
+            S_max = int(np.max(tgc_next[1:] - tgc_next[:-1])) \
+                if n_bg else 0
+            self._lm_sparse = dict(
+                bg=bg, tgc_next=tgc_next.astype(np.int32),
+                tg_cols=np.concatenate(
+                    [tg_cols, np.zeros(S_max, np.int32)]),
+                tg_vals=np.concatenate(
+                    [tg_vals / SHIFT, np.zeros(S_max, np.float32)]),
+                bo2w=bo2w / SHIFT, S_max=S_max, n_bg=n_bg)
+            self.lm_order_used = 3 if len(tg_cols) else 2
+            with_tri = n_bg > 0
+        ctx_next = np.empty((V + 1, self.nE), dtype=np.float32)
+        ctx_next[:, :] = (1 + cols_E)[None, :].astype(np.float32)
+        ctx2h1 = np.full(R, V, np.int32)
+        ctx2h1[1:1 + V] = np.arange(V)
+        ctx2h2 = np.full(R, V, np.int32)
+        if with_tri:
+            ho, hn = lm.bigram_entries()
+            ctx2h1[1 + V:] = hn
+            ctx2h2[1 + V:] = ho
+            # vectorized scatter of trigram-context successors (no
+            # per-bigram Python loop)
+            real_cols = np.nonzero(~self.isfill_E)[0]
+            key = cols_E[real_cols]
+            order = np.argsort(key, kind="stable")
+            skey = key[order]
+            beg = np.searchsorted(skey, hn)
+            end = np.searchsorted(skey, hn, side="right")
+            cnt = end - beg
+            if cnt.sum():
+                r_idx = np.repeat(ho, cnt)
+                v_idx = np.repeat(1 + V + np.arange(len(ho)), cnt)
+                base = np.repeat(beg, cnt)
+                within = (np.arange(cnt.sum())
+                          - np.repeat(np.cumsum(cnt) - cnt, cnt))
+                c_idx = real_cols[order[base + within]]
+                ctx_next[r_idx, c_idx] = v_idx.astype(np.float32)
+        self._lm_rows, self._ctx_next = rows, ctx_next
+        self._ctx2h1, self._ctx2h2 = ctx2h1, ctx2h2
+        return rows, ctx_next, ctx2h1, ctx2h2
+    # -- guard tables --------------------------------------------------------
+
+    def _guard_tables(self, rows_np, ctx2h1, maxb_np, J):
+        """Per-column top-J predecessor-bonus tables for the tightened
+        top-K exactness guard (see _make_scan).  BMAX[h, e] bounds the
+        successor score into column e of ANY context whose newest word
+        is h; a real word's exit context always has h = that word
+        (erw1 assignment in the scan), so excluded real exits are
+        bounded by their own live exit score + BMAX[w].  Returns
+        (gw [J, E] word-axis ids, gval [J, E], grest [E] floor for all
+        other words + the empty-history class, fill_w word-axis filler
+        ids) or None when the mode/size doesn't support it."""
+        V, E, W = self.V, self.nE, self.W
+        if self.lm_mode == "rows":
+            R = rows_np.shape[0]
+            BMAX = np.full((V + 1, E), -1e30, np.float32)
+            np.maximum.at(BMAX, np.minimum(ctx2h1[:R], V), rows_np)
+            empty_row = BMAX[V].copy()
+        elif self.lm_mode == "sparse":
+            sp = self._lm_sparse
+            bg = sp["bg"]                               # [V+1, E]
+            n_bg = sp["n_bg"]
+            addv = np.zeros(V + 1, np.float32)
+            if n_bg:
+                ho, hn = self.lm.bigram_entries()
+                np.maximum.at(addv, hn, sp["bo2w"].astype(np.float32))
+            BMAX = bg + addv[:, None]
+            if n_bg:
+                tgcn = sp["tgc_next"].astype(np.int64)
+                n_tg = int(tgcn[-1])
+                if n_tg:
+                    h1_rep = np.repeat(hn, tgcn[1:] - tgcn[:-1])
+                    np.maximum.at(
+                        BMAX, (h1_rep, sp["tg_cols"][:n_tg]),
+                        sp["tg_vals"][:n_tg])
+            empty_row = BMAX[V].copy()
+        else:
+            return None                                 # mode C: fallback
+        self._guard_bmax = BMAX                         # [V+1, E] f32
+        cand = BMAX[np.minimum(self.col_lm, V)]         # [W, E]
+        cand[self.is_fill] = -np.inf
+        cand[self.lm_wid < 0] = -np.inf
+        Jc = min(J, max(int((~self.is_fill).sum()) - 1, 1))
+        part = np.argpartition(-cand, Jc, axis=0)[:Jc + 1]   # [J+1, E]
+        vals = np.take_along_axis(cand, part, axis=0)
+        order = np.argsort(-vals, axis=0, kind="stable")
+        part = np.take_along_axis(part, order, axis=0)
+        vals = np.take_along_axis(vals, order, axis=0)
+        gw = part[:Jc].astype(np.int32)
+        gval = np.nan_to_num(vals[:Jc], neginf=-1e30).astype(np.float32)
+        grest = np.maximum(
+            np.nan_to_num(vals[Jc], neginf=-1e30), empty_row
+        ).astype(np.float32)
+        fillw = np.nonzero(self.is_fill)[0].astype(np.int32)
+        return gw, gval, grest, fillw
+
+    # -- scan tables (host) --------------------------------------------------
+
+    def _host_tables(self) -> dict:
+        """NumPy tables of the scan: the JAX `_make_scan` table assembly
+        with every key it shares equal to the JAX `_dev_tables`, except
+        that one-hot expansion tables are kept as indices (`fd_idx{b}`
+        for `fd_oh{b}`, `lp_idx` for `lp_oh`, `f0p_E` for `f0_onehot`)
+        and the finals use the fan kernel's layout (`tp_fin12`).  Also
+        fixes the scan's static layout (K, LM mode, senone segments)."""
+        NST = self.NST
+        if NST != 3:
+            raise NotImplementedError(
+                f"{NST}-state models: the fan (finals) path is 3-state "
+                f"only in this port; the 5-state finals block is later work")
+        W, n_multi, SP = self.W, self.n_multi, self.SP
+        n_rc = self.n_rcp
+        self.K = K = min(self.topk, W)
+        rows_np, ctxn_np, ctx2h1_np, ctx2h2_np = self._lm_tables()
+        mode_rows = self.lm_mode == "rows"
+        tabs = {"ctx_next": ctxn_np}
+        self.S_TRI = self.N_BG = 0
+        if mode_rows:
+            # rows + [h1, h2] as two appended f32 columns (exact < 2^24)
+            tabs["rows"] = np.concatenate(
+                [rows_np, ctx2h1_np[:, None].astype(np.float32),
+                 ctx2h2_np[:, None].astype(np.float32)], axis=1)
+        else:
+            sp = self._lm_sparse
+            self.S_TRI = S_TRI = sp["S_max"]
+            self.N_BG = N_BG = sp["n_bg"]
+            tg2d_budget = int(os.environ.get("PS_TG2D_BYTES", 1 << 30))
+            if S_TRI and N_BG and N_BG * S_TRI * 8 <= tg2d_budget:
+                tgcn = sp["tgc_next"].astype(np.int64)
+                n_tg = int(tgcn[-1])
+                cnts = tgcn[1:] - tgcn[:-1]
+                rows_i = np.repeat(np.arange(N_BG), cnts)
+                within = np.arange(n_tg) - np.repeat(tgcn[:-1], cnts)
+                tg2c = np.zeros((N_BG, S_TRI), np.int32)
+                tg2v = np.zeros((N_BG, S_TRI), np.float32)
+                tg2c[rows_i, within] = sp["tg_cols"][:n_tg]
+                tg2v[rows_i, within] = sp["tg_vals"][:n_tg]
+                tabs["tg2c"] = tg2c
+                tabs["tg2v"] = tg2v
+            else:
+                tabs["tg_cols"] = sp["tg_cols"]
+                tabs["tg_vals"] = sp["tg_vals"]
+            tabs["bg"] = sp["bg"]                          # [V+1, E] f32
+            # per-bigram-context metadata rows [n_bg, 8] i32:
+            # (h1, h2, bo2w bits, tgc_start, tgc_count, pad...)
+            bgmeta = np.zeros((max(N_BG, 1), 8), np.int32)
+            if N_BG:
+                tgcn = sp["tgc_next"].astype(np.int64)
+                bgmeta[:, 0] = ctx2h1_np[1 + self.V:]
+                bgmeta[:, 1] = ctx2h2_np[1 + self.V:]
+                bgmeta[:, 2] = sp["bo2w"].astype(np.float32).view(np.int32)
+                bgmeta[:, 3] = tgcn[:-1]
+                bgmeta[:, 4] = (tgcn[1:] - tgcn[:-1])
+            tabs["bgmeta"] = bgmeta
+        # top-K guard bound: maxb[e] = max over every LM context of column
+        # e's weighted successor score (see the JAX _make_scan)
+        if mode_rows:
+            maxb_np = rows_np[:, :self.nE].max(axis=0)
+        else:
+            sp_ = self._lm_sparse
+            maxb_np = sp_["bg"].max(axis=0).astype(np.float64)
+            if sp_["n_bg"]:
+                maxb_np = maxb_np + max(float(sp_["bo2w"].max()), 0.0)
+                n_tg = int(sp_["tgc_next"][-1])
+                if n_tg:
+                    tgmax = np.full(self.nE, -np.inf)
+                    np.maximum.at(tgmax, sp_["tg_cols"][:n_tg],
+                                  sp_["tg_vals"][:n_tg].astype(np.float64))
+                    maxb_np = np.maximum(maxb_np, tgmax)
+        # tightened per-predecessor guard (default; PS_GUARD_TOPM is not
+        # ported)
+        if int(os.environ.get("PS_GUARD_TOPM", "0")) > 0:
+            raise NotImplementedError(
+                "PS_GUARD_TOPM (the guard's dynamic-rank refinement) is not "
+                "ported yet")
+        guard_budget = int(os.environ.get("PS_GUARD_BYTES", 3 << 30))
+        GJ = GUARD_TOPJ
+        guard_np = None
+        if K < W and GJ > 0 and self.W * self.nE * 4 <= guard_budget:
+            guard_np = self._guard_tables(rows_np, ctx2h1_np, maxb_np, GJ)
+        if guard_np is not None:
+            gw_t, gv_t, grest_t, fillw_t = guard_np
+            tabs["guard_w"] = gw_t                    # [J, E] i32
+            tabs["guard_v"] = gv_t                    # [J, E] f32
+            tabs["guard_rest"] = grest_t              # [E] f32
+            tabs["guard_fillw"] = fillw_t             # [n_fill] i32
+            tabs["guard_wf"] = (
+                self.f0p_E[None, :].astype(np.int64) * W
+                + gw_t.astype(np.int64)).astype(np.int32)
+            self._guard_bmax = None                   # free the host copy
+            if len(fillw_t):
+                tabs["guard_fillwf"] = (
+                    self.f0p_E[None, :].astype(np.int64) * W
+                    + fillw_t[:, None].astype(np.int64)).astype(np.int32)
+        tabs["f0p_E"] = self.f0p_E.astype(np.int32)
+        tabs["maxb_E"] = maxb_np.astype(np.float32)
+        tabs["accept_E"] = self.accept_E                 # [E, n_ciph]
+        tabs["isfill_E"] = self.isfill_E
+        tabs["fillpen_E"] = self.fillpen_E
+        tabs["lmwid_E"] = self.lmwid_E.astype(np.float32)
+        tabs["isreal_E"] = ~self.isfill_E
+        tabs["lc_cls_T"] = self.lc_cls.T.astype(np.int32).copy()
+        tabs["etgt0"] = self.etgt0.astype(np.int32)
+        tabs["fb_ci"] = self.fb_ci.astype(np.float32)
+
+        # flat senone-id list for the per-chunk pre-gather, in segments:
+        # chain buckets, their first-diphone variant planes, the finals
+        # fan, the single-phone columns, the CI chains
+        seg_ids, seg_shapes = [], []
+
+        def add_seg(arr):
+            seg_shapes.append(arr.shape)
+            seg_ids.append(arr.reshape(-1))
+
+        for ch in self.chains:
+            add_seg(ch.senid)
+        for ch in self.chains:
+            add_seg(ch.senid_first_d)
+        if n_multi:
+            add_seg(self.senid_fin_d)
+        if SP:
+            add_seg(self.senid_sp[:, :, :SP])
+        for ch in self.ci_chains:
+            add_seg(ch.senid)
+        tabs["senid_all"] = (np.concatenate(seg_ids) if seg_ids
+                             else np.zeros(0, int)).astype(np.int32)
+        self.seg_shapes = seg_shapes
+
+        for bi, ch in enumerate(self.chains):
+            tabs[f"fd_idx{bi}"] = ch.fd_idx
+            tabs[f"ch_tp{bi}"] = ch.tp
+            tabs[f"ch_fm{bi}"] = ch.firstmask
+            tabs[f"ch_nv{bi}"] = ch.n_var.astype(np.int32)
+        for bi, ch in enumerate(self.ci_chains):
+            tabs[f"ci_tp{bi}"] = ch.tp
+            tabs[f"ci_fm{bi}"] = ch.firstmask
+        if n_multi:
+            tabs["lp_idx"] = self.lp_idx
+            tabs["tp_fin12"] = np.ascontiguousarray(
+                self.tp_fin[:n_multi].transpose(1, 2, 0).reshape(
+                    12, n_multi))
+        if SP:
+            tabs["tp_sp"] = self.tp_sp[:SP]
+        return tabs
+
+    # -- the scan (device) ---------------------------------------------------
+
+    def init_carry(self, B: int) -> dict:
+        """The scan carry for B utterances at frame 0: every token dead
+        except <s> entered at its first node (JAX `init_carry`)."""
+        dev, NST, n_rc = self.device, self.NST, self.n_rcp
+
+        def planes(*shape):
+            return dict(
+                S=torch.full((B, NST) + shape, NEG_INF, dtype=torch.float32,
+                             device=dev),
+                TF=torch.zeros((B, NST) + shape, dtype=torch.int32,
+                               device=dev),
+                CTX=torch.zeros((B, NST) + shape, dtype=torch.int32,
+                                device=dev))
+
+        c = {"ch": [], "ci": []}
+        for ch in self.chains:
+            e = planes(ch.D, ch.Wb)
+            e["VAR"] = torch.zeros((B, NST, ch.Wb), dtype=torch.int32,
+                                   device=dev)
+            c["ch"].append(e)
+        c["fin"] = planes(n_rc, self.n_multi) if self.n_multi else None
+        c["sp"] = planes(n_rc, self.SP) if self.SP else None
+        c["ci"] = [planes(ch.D, ch.Wb) for ch in self.ci_chains]
+        if self.start_idx is not None:
+            s_lm = self.lm.wid("<s>")
+            for bi, ch in enumerate(self.ci_chains):
+                if ch.w_lo <= self.start_idx < ch.w_hi:
+                    k = self.start_idx - ch.w_lo
+                    dep = int(ch.fd[k])
+                    c["ci"][bi]["S"][:, 0, dep, k] = 0.0
+                    if s_lm >= 0:
+                        c["ci"][bi]["CTX"][:, 0, dep, k] = 1 + s_lm
+        return c
+
+    def _step(self, carry, g, t, valid, minimal):
+        """One frame for B utterances.  g: this frame's senone costs per
+        segment (see `_host_tables`); t: frame index; valid [B] bool.
+        Returns (new carry, records)."""
+        tb = self.tables
+        NST, n_rc, W, nE, K = self.NST, self.n_rcp, self.W, self.nE, self.K
+        n_multi, SP, V = self.n_multi, self.SP, self.V
+        n_ch = len(self.chains)
+        B = valid.shape[0]
+        dev = valid.device
+        pip = float(np.float32(self.pip))
+        wpen = float(np.float32(self.nwpen + self.pip))
+        g_ch, g_fv = g[:n_ch], g[n_ch:2 * n_ch]
+        gi = 2 * n_ch
+        g_fin = g[gi] if n_multi else None
+        gi += bool(n_multi)
+        g_sp = g[gi] if SP else None
+        g_ci = g[gi + bool(SP):]
+        newc = {"ch": [], "ci": []}
+
+        # ---------- chain buckets (multi first + interior phones) ----------
+        outs_last, tf_last, cx_last = [], [], []
+        for bi in range(n_ch):
+            e = carry["ch"][bi]
+            nS, nTF, nCX, nVAR, es, etf, ecx = chain_step(
+                e["S"], e["TF"], e["CTX"], e["VAR"], g_ch[bi], g_fv[bi],
+                tb[f"fd_idx{bi}"], tb[f"ch_tp{bi}"], tb[f"ch_fm{bi}"],
+                tb[f"ch_nv{bi}"], pip)
+            newc["ch"].append(dict(S=nS, TF=nTF, CTX=nCX, VAR=nVAR))
+            outs_last.append(es)
+            tf_last.append(etf)
+            cx_last.append(ecx)
+        # ---------- finals fan ----------
+        if n_multi:
+            e = carry["fin"]
+            pred = torch.cat(outs_last, 1) + pip               # [B, Wm]
+            nSf, nTFf, nCXf, sv_m, esc_m, etf_m, ecx_m = fan_step(
+                e["S"], e["TF"], e["CTX"], pred, torch.cat(tf_last, 1),
+                torch.cat(cx_last, 1), g_fin, tb["lp_idx"], tb["tp_fin12"])
+            fin_new = dict(S=nSf, TF=nTFf, CTX=nCXf)
+        else:
+            fin_new = None
+            sv_m = torch.zeros((B, n_rc, 0), device=dev)
+            esc_m = torch.zeros((B, 0), device=dev)
+            etf_m = ecx_m = torch.zeros((B, 0), dtype=torch.int32, device=dev)
+        # ---------- single-phone columns ----------
+        if SP:
+            e = carry["sp"]
+            sen = tuple(-g_sp[:, j] for j in range(NST))
+            newS, (nTF, nCX), out_s, _, (oTF_s, oCX_s) = hmm_step_sm(
+                tuple(e["S"].unbind(1)), sen, tb["tp_sp"],
+                metas=(tuple(e["TF"].unbind(1)), tuple(e["CTX"].unbind(1))))
+            sp_new = dict(S=torch.stack(newS, 1), TF=torch.stack(nTF, 1),
+                          CTX=torch.stack(nCX, 1))
+            colb, am = torch.max(out_s, dim=1)                 # [B, SP]
+            coltf = torch.gather(oTF_s, 1, am[:, None])[:, 0]
+            colcx = torch.gather(oCX_s, 1, am[:, None])[:, 0]
+            nS_, Cm = self.n_single, self.sp_cmax
+            esc_s, am2 = torch.max(colb.view(B, nS_, Cm), dim=2)
+            etf_s = torch.gather(coltf.view(B, nS_, Cm), 2, am2[..., None])[..., 0]
+            ecx_s = torch.gather(colcx.view(B, nS_, Cm), 2, am2[..., None])[..., 0]
+            etg_s = (n_multi + torch.arange(nS_, device=dev)[None, :] * Cm
+                     + am2).to(torch.int32)
+            sv_s = out_s.view(B, n_rc, nS_, Cm).amax(dim=3)
+        else:
+            sp_new = None
+            sv_s = torch.zeros((B, n_rc, 0), device=dev)
+            esc_s = torch.zeros((B, 0), device=dev)
+            etf_s = ecx_s = etg_s = torch.zeros((B, 0), dtype=torch.int32,
+                                                device=dev)
+        # ---------- CI chains ----------
+        esc_c, etf_c, ecx_c = [], [], []
+        for bi in range(len(self.ci_chains)):
+            e = carry["ci"][bi]
+            nS, nTF, nCX, _, es, etf, ecx = chain_step(
+                e["S"], e["TF"], e["CTX"], None, g_ci[bi], None, None,
+                tb[f"ci_tp{bi}"], tb[f"ci_fm{bi}"], None, pip)
+            newc["ci"].append(dict(S=nS, TF=nTF, CTX=nCX))
+            esc_c.append(es)
+            etf_c.append(etf)
+            ecx_c.append(ecx)
+        cat1 = lambda xs, dt: (torch.cat(xs, 1) if xs  # noqa: E731
+                               else torch.zeros((B, 0), dtype=dt, device=dev))
+        esc_c = cat1(esc_c, torch.float32)
+        etf_c = cat1(etf_c, torch.int32)
+        ecx_c = cat1(ecx_c, torch.int32)
+
+        # ---------- word transitions ----------
+        escore = torch.cat([esc_m, esc_s, esc_c], 1)              # [B, W]
+        etf_w = torch.cat([etf_m, etf_s, etf_c], 1)
+        ecx_w = torch.cat([ecx_m, ecx_s, ecx_c], 1)
+        etgt0 = tb["etgt0"][None].expand(B, W)
+        etgt_w = (torch.cat([etgt0[:, :n_multi], etg_s,
+                             etgt0[:, n_multi + self.n_single:]], 1)
+                  if SP else etgt0)
+        sv = torch.cat([sv_m, sv_s, esc_c[:, None, :].expand(
+            B, n_rc, esc_c.shape[1])], 2)                        # [B,n_rc,W]
+        # top-K exits: stable descending sort = jax.lax.top_k tie order
+        kv, ki = torch.sort(escore, dim=1, descending=True, stable=True)
+        kv, ki = kv[:, :K], ki[:, :K]
+        ctx_k = torch.gather(ecx_w, 1, ki)                        # [B, K]
+        fb_k = tb["fb_ci"][ki]
+        svk = torch.gather(sv, 2, ki[:, None, :].expand(B, n_rc, K))
+        exg = svk.transpose(1, 2)[:, :, tb["f0p_E"]]              # [B, K, E]
+        if self.lm_mode == "rows":
+            lmfull = tb["rows"][ctx_k.long()]                     # [B,K,E+2]
+            lmrow = lmfull[..., :nE]
+            rw1_k = lmfull[..., nE].to(torch.int32)
+            rw2_k = lmfull[..., nE + 1].to(torch.int32)
+        else:
+            # mode B: bigram row of the context's newest word (+ trigram
+            # backoff), then the sparse per-context trigram overrides
+            is_tri = ctx_k > V
+            bidx = torch.clamp(ctx_k - 1 - V, 0, max(self.N_BG - 1, 0)).long()
+            meta = tb["bgmeta"][bidx]                             # [B, K, 8]
+            rw1_k = torch.where(is_tri, meta[..., 0],
+                                torch.where(ctx_k > 0, ctx_k - 1, V)
+                                .to(torch.int32))
+            rw2_k = torch.where(is_tri, meta[..., 1], V).to(torch.int32)
+            bo2w_v = meta[..., 2].contiguous().view(torch.float32)
+            h1c = torch.clamp(rw1_k, max=V).long()
+            lmrow = tb["bg"][h1c] + torch.where(is_tri, bo2w_v, 0.0)[..., None]
+            if self.S_TRI:
+                S_TRI = self.S_TRI
+                if "tg2c" in tb:
+                    wc, wv = tb["tg2c"][bidx], tb["tg2v"][bidx]   # [B, K, S]
+                else:
+                    pos0 = (meta[..., 3:4].long()
+                            + torch.arange(S_TRI, device=dev))
+                    wc, wv = tb["tg_cols"][pos0], tb["tg_vals"][pos0]
+                pos = torch.arange(S_TRI, device=dev)
+                ok = (pos < meta[..., 4:5]) & is_tri[..., None]
+                idx = torch.where(ok, wc, nE).long()
+                lmp = torch.cat([lmrow, lmrow.new_zeros((B, K, 1))], 2)
+                lmp.scatter_(2, idx, torch.where(ok, wv, 0.0))
+                lmrow = lmp[..., :nE]
+        ctxrow = tb["ctx_next"][torch.clamp(rw1_k, min=0).long()]  # [B,K,E]
+        accm = tb["accept_T"][fb_k]                               # [B, K, E]
+        cand = (exg + torch.where(tb["isfill_E"], tb["fillpen_E"],
+                                  lmrow + wpen)
+                + (accm - 1.0) * 1e30
+                + torch.where(kv > NEG_INF / 2, 0.0, NEG_INF)[..., None])
+        # first-winner entry per column: one argmax over K, payload gathers
+        entry, am = torch.max(cand, dim=1)                        # [B, E]
+        prw_e = torch.gather(ki, 1, am)
+        srcctx = torch.gather(ctx_k, 1, am)
+        srcrw1 = torch.gather(rw1_k, 1, am)
+        srcrw2 = torch.gather(rw2_k, 1, am)
+        fb_e = torch.gather(fb_k, 1, am)
+        ctxsel = torch.gather(ctxrow, 1, am[:, None, :])[:, 0]
+        ctx_new = torch.where(tb["isfill_E"], srcctx,
+                              ctxsel.to(torch.int32))
+        erw1 = torch.where(tb["isreal_E"], tb["lmwid_E"], srcrw1)
+        # fillers inherit the source's full history; real words shift it
+        erw2 = torch.where(tb["isreal_E"], srcrw1, srcrw2)
+        # new left-context class per multi word from the winner's final
+        # base phone
+        var_new = tb["lc_cls_T"][fb_e[:, :n_multi],
+                                 torch.arange(n_multi, device=dev)]
+        tf_new = t + 1
+
+        # ---------- apply entries ----------
+        inc_segs = []           # pre-entry first-state incumbents
+        off = 0
+        for bi, ch in enumerate(self.chains):
+            e = newc["ch"][bi]
+            self._enter_chain(e, entry, ctx_new, tf_new, off, ch.Wb,
+                              tb[f"ch_fm{bi}"], tb[f"ch_fd{bi}"], inc_segs,
+                              var_new=var_new[:, off:off + ch.Wb])
+            off += ch.Wb
+        if SP:
+            ent = entry[:, n_multi:n_multi + SP]
+            S0 = sp_new["S"][:, 0]
+            inc_segs.append(S0.amin(dim=1))
+            win = ent[:, None, :] > S0
+            sp_new["S"][:, 0] = torch.where(win, ent[:, None, :], S0)
+            sp_new["TF"][:, 0] = torch.where(win, tf_new, sp_new["TF"][:, 0])
+            sp_new["CTX"][:, 0] = torch.where(
+                win, ctx_new[:, None, n_multi:n_multi + SP],
+                sp_new["CTX"][:, 0])
+        off = n_multi + SP
+        for bi, ch in enumerate(self.ci_chains):
+            self._enter_chain(newc["ci"][bi], entry, ctx_new, tf_new, off,
+                              ch.Wb, tb[f"ci_fm{bi}"], tb[f"ci_fd{bi}"],
+                              inc_segs)
+            off += ch.Wb
+        newc["fin"] = fin_new
+        newc["sp"] = sp_new
+
+        # ---------- top-K exactness guard ----------
+        if K < W:
+            best_alt = torch.maximum(entry, torch.cat(inc_segs, 1))
+            kvK = kv[:, K - 1:K]
+            if "guard_w" in tb:
+                intop = torch.zeros((B, W), dtype=torch.bool, device=dev)
+                intop.scatter_(1, ki, True)
+                svf = sv.reshape(B, n_rc * W)
+                ce = svf[:, tb["guard_wf"]]                       # [B, J, E]
+                live = ~intop[:, tb["guard_w"]]
+                breal = torch.where(live, ce + tb["guard_v"],
+                                    NEG_INF).amax(dim=1)
+                sv_excl = torch.where(intop[:, None, :], NEG_INF, sv)
+                plane_E = sv_excl.amax(dim=2)[:, tb["f0p_E"]]     # [B, E]
+                breal = torch.maximum(
+                    breal, torch.minimum(plane_E, kvK) + tb["guard_rest"])
+                if "guard_fillwf" in tb:
+                    fsv = svf[:, tb["guard_fillwf"]]              # [B,nf,E]
+                    flive = ~intop[:, tb["guard_fillw"]][..., None]
+                    fbest = torch.where(flive, fsv, NEG_INF).amax(dim=1)
+                    breal = torch.maximum(breal, fbest + tb["maxb_E"])
+                bound = torch.where(tb["isfill_E"], kvK + tb["fillpen_E"],
+                                    breal + wpen)
+            else:
+                bound = kvK + torch.where(tb["isfill_E"], tb["fillpen_E"],
+                                          tb["maxb_E"] + wpen)
+            nviol = ((bound > best_alt) & (best_alt > NEG_INF / 2)
+                     & valid[:, None]).sum(dim=1, dtype=torch.int32)
+        else:
+            nviol = torch.zeros(B, dtype=torch.int32, device=dev)
+
+        # ---------- renormalize ----------
+        groups = newc["ch"] + newc["ci"] + [x for x in (fin_new, sp_new)
+                                            if x is not None]
+        m = torch.stack([x["S"].amax(dim=(1, 2, 3)) for x in groups],
+                        1).amax(dim=1)
+        m = torch.clamp(m, min=NEG_INF)
+        for x in groups:
+            x["S"].sub_(m[:, None, None, None])
+
+        if minimal:
+            # top-(K+1) exit records + [E] winner-rank map; slot K pins
+            # the finish word's exit
+            fi = self.finish_idx if self.finish_idx is not None else 0
+            rec = (torch.cat([kv, escore[:, fi:fi + 1]], 1),
+                   torch.cat([ki.to(torch.int32),
+                              torch.full((B, 1), fi, dtype=torch.int32,
+                                         device=dev)], 1),
+                   torch.cat([torch.gather(etf_w, 1, ki),
+                              etf_w[:, fi:fi + 1]], 1),
+                   torch.cat([torch.gather(etgt_w, 1, ki),
+                              etgt_w[:, fi:fi + 1]], 1),
+                   torch.where(entry > NEG_INF / 2, am, 255).to(torch.uint8),
+                   m, nviol)
+        else:
+            rec = (escore, etf_w, etgt_w, ecx_w, entry,
+                   prw_e.to(torch.int32), erw1, erw2, m, nviol)
+        return newc, rec
+
+    @staticmethod
+    def _enter_chain(e, entry, ctx_new, tf_new, off, Wb, fm, fd, inc_segs,
+                     var_new=None):
+        """Word entries into a chain bucket's first nodes (state 0,
+        strict '>'), in place on the step's fresh planes."""
+        ent = entry[:, off:off + Wb]
+        S0 = e["S"][:, 0]                                          # [B,D,Wb]
+        B = S0.shape[0]
+        inc_segs.append(torch.gather(
+            S0, 1, fd[None, None, :].expand(B, 1, Wb))[:, 0])
+        cand0 = torch.where(fm, ent[:, None, :], NEG_INF)
+        win = cand0 > S0
+        e["S"][:, 0] = torch.where(win, cand0, S0)
+        e["TF"][:, 0] = torch.where(win, tf_new, e["TF"][:, 0])
+        e["CTX"][:, 0] = torch.where(win, ctx_new[:, None, off:off + Wb],
+                                     e["CTX"][:, 0])
+        if var_new is not None:
+            winv = (win & fm).any(dim=1)
+            e["VAR"][:, 0] = torch.where(winv, var_new, e["VAR"][:, 0])
+
+    def scan(self, costs, valid, minimal=False):
+        """Run the scan over costs [B, T, n_sen] (tensor on the decoder's
+        device) with valid [B, T] bool.  T is padded to a multiple of
+        CHUNK; returns the per-frame records stacked to [B, Tp, ...]:
+        full (escore, etf, etgt, ecx, entry, eprw, erw1, erw2, m, nviol)
+        or minimal (kv, ki, etf, etgt, rank, m, nviol)."""
+        B, T, _ = costs.shape
+        CH = self.CHUNK
+        Tp = -(-T // CH) * CH
+        costs = torch.nn.functional.pad(costs, (0, 0, 0, Tp - T))
+        valid = torch.nn.functional.pad(valid, (0, Tp - T))
+        carry = self.init_carry(B)
+        segs = self.tables["senid_segs"]
+        recs = None
+        for c0 in range(0, Tp, CH):
+            # chunked pre-gather: this chunk's costs of every node's
+            # senones, one contiguous [CH, B, n] block per segment
+            cch = costs[:, c0:c0 + CH]
+            gs = [cch[:, :, ids].transpose(0, 1).contiguous() for ids in segs]
+            for i in range(CH):
+                g = [x[i].view((B,) + shape)
+                     for x, shape in zip(gs, self.seg_shapes)]
+                carry, rec = self._step(carry, g, c0 + i, valid[:, c0 + i],
+                                        minimal)
+                if recs is None:
+                    recs = tuple(torch.empty((B, Tp) + r.shape[1:],
+                                             dtype=r.dtype, device=r.device)
+                                 for r in rec)
+                for buf, r in zip(recs, rec):
+                    buf[:, c0 + i] = r
+        return recs
+
+    def with_carry(self, costs, valid, carry=None, t0=0):
+        """The JAX scan's streaming entry (carry kept across calls, with
+        padding frames masked out of it): not ported yet."""
+        raise NotImplementedError(
+            "streaming carry (with_carry / mask_carry) is not ported yet; "
+            "decode whole utterances with decode / decode_batch")
+
+    # -- 1-best backtrace (device) -------------------------------------------
+
+    def _walk(self, step, t, key, T):
+        """Batched segment walk shared by both backtraces: `step(t, key)`
+        gives (word, start, next key, done) per utterance.  Returns the
+        [B, T, 3] (word, start, end) table (reverse order) and the
+        per-utterance segment counts."""
+        B = t.shape[0]
+        dev = t.device
+        out = torch.full((B, T, 3), -1, dtype=torch.int32, device=dev)
+        n = torch.zeros(B, dtype=torch.int32, device=dev)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        for i in range(T):
+            if bool(done.all()):
+                break
+            w, s, nxt, fin = step(t, key)
+            row = torch.stack([w, s, t], 1).to(torch.int32)
+            out[:, i] = torch.where(done[:, None], out[:, i], row)
+            n += (~done).to(torch.int32)
+            new_done = done | fin
+            t = torch.where(new_done, t, s - 1)
+            key = torch.where(new_done, key, nxt)
+            done = new_done
+        return out, n
+
+    def backtrace(self, escore, etf, etgt, eprw, nf):
+        """1-best backtrace over full records [B, T, W|E] (JAX
+        `_make_backtrace_jax`, batched).  nf [B] frame counts.
+        Returns (table [B, T, 3], n [B], final score [B])."""
+        B, T = escore.shape[:2]
+        ar = torch.arange(B, device=escore.device)
+        nf = torch.as_tensor(nf, device=escore.device).long()
+        last = escore[ar, nf - 1]                                  # [B, W]
+        w0 = torch.argmax(last, dim=1)
+        if self.finish_idx is not None:
+            fi = self.finish_idx
+            w0 = torch.where(last[:, fi] > NEG_INF / 2, fi, w0)
+
+        def step(t, w):
+            s = etf[ar, t, w].long()
+            tg = etgt[ar, t, w].long()
+            p = torch.where(s > 0, eprw[ar, torch.clamp(s - 1, min=0), tg]
+                            .long(), -1)
+            return w, s, p, (s <= 0) | (p < 0)
+
+        table, n = self._walk(step, nf - 1, w0, T)
+        return table, n, last[ar, w0]
+
+    def backtrace_min(self, kv, ki, etf, etgt, rank, nf):
+        """Backtrace over minimal records (JAX `_make_backtrace_min`,
+        batched): the walk carries the top-K rank instead of the word."""
+        B, T, K1 = kv.shape
+        ar = torch.arange(B, device=kv.device)
+        nf = torch.as_tensor(nf, device=kv.device).long()
+        last = kv[ar, nf - 1]                                      # [B, K1]
+        r0 = torch.argmax(last[:, :K1 - 1], dim=1)
+        if self.finish_idx is not None:
+            r0 = torch.where(last[:, K1 - 1] > NEG_INF / 2, K1 - 1, r0)
+
+        def step(t, r):
+            w = ki[ar, t, r].long()
+            s = etf[ar, t, r].long()
+            tg = etgt[ar, t, r].long()
+            pr = torch.where(s > 0, rank[ar, torch.clamp(s - 1, min=0), tg]
+                             .long(), 255)
+            return w, s, pr, (s <= 0) | (pr >= K1 - 1)
+
+        table, n = self._walk(step, nf - 1, r0, T)
+        return table, n, last[ar, r0]
+
+    # -- decode --------------------------------------------------------------
+
+    def decode(self, feats, costs=None):
+        """Decode one utterance: feats [T, F, L] (or costs [T, n_sen]
+        given directly).  Returns (hyp, segs); sets `hyp_score`,
+        `guard_violations` and the lazily copied `records`."""
+        if costs is None:
+            feats = torch.as_tensor(feats, device=self.device)
+            costs = senone_scores(self.am.scoring_tensors(self.device),
+                                  feats[None])[0]
+        costs = torch.as_tensor(costs, device=self.device).to(torch.float32)
+        T = costs.shape[0]
+        raw = self.scan(costs[None], torch.ones((1, T), dtype=torch.bool,
+                                                device=self.device))
+        raw = tuple(r[0] for r in raw)
+        self.raw_records = lambda: tuple(r.cpu().numpy() for r in raw)
+        self.records = lambda: self.adapt_records(self.raw_records, T)
+        # top-K exactness guard count
+        self.guard_violations = int(raw[9][:T].sum())
+        table, n, sc = self.backtrace(raw[0][None], raw[1][None],
+                                      raw[2][None], raw[5][None], [T])
+        # un-renormalized path score: final winner score + the per-frame
+        # renorm offsets the scan subtracted (src/ngram_search.c:545)
+        self.hyp_score = float(sc[0]) + float(raw[8][:T - 1].cpu().numpy()
+                                              .sum())
+        return self._segs_from_table(table[0].cpu().numpy(), int(n[0]))
+
+    def decode_batch(self, feats, n_frames, keep_records=True, costs=None,
+                     timings=None):
+        """Batched decode of feats [B, T, F, L] with n_frames [B].
+        keep_records=False uses the top-K-compressed minimal record
+        stream (`batch_records` is then None).  `costs` [B, T, n_sen]
+        skips the scoring.  A dict passed as `timings` receives the
+        seconds of the scoring, scan and backtrace stages (the device is
+        synchronized at each stage boundary)."""
+        import time
+
+        minimal = not keep_records and min(self.topk, self.W) <= 254
+        if not keep_records and not minimal:
+            warnings.warn(
+                f"keep_records=False requested but topk={self.topk} "
+                f"exceeds the uint8 rank-map limit (254): falling back "
+                f"to full [T, E] records.", RuntimeWarning, stacklevel=2)
+        dev = self.device
+
+        def sync():
+            if timings is not None and dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return time.perf_counter()
+
+        t0 = sync()
+        if costs is None:
+            feats = torch.as_tensor(feats, device=dev)
+            costs = senone_scores(self.am.scoring_tensors(dev), feats,
+                                  time_chunk=16)
+        costs = torch.as_tensor(costs, device=dev).to(torch.float32)
+        B, T = costs.shape[:2]
+        nf = (n_frames.cpu().numpy() if torch.is_tensor(n_frames)
+              else np.asarray(n_frames)).astype(np.int64)
+        t1 = sync()
+        valid = (torch.arange(T, device=dev)[None, :]
+                 < torch.as_tensor(nf, device=dev)[:, None])
+        raw = self.scan(costs, valid, minimal=minimal)
+        t2 = sync()
+        if minimal:
+            tables, ns, scs = self.backtrace_min(*raw[:5], nf)
+            viol, m_rec = raw[6], raw[5]
+            self.batch_records = None
+        else:
+            tables, ns, scs = self.backtrace(raw[0], raw[1], raw[2], raw[5],
+                                             nf)
+            viol, m_rec = raw[9], raw[8]
+            self.batch_records = _LazyBatchRecords(self, raw, nf)
+        tables, ns = tables.cpu().numpy(), ns.cpu().numpy()
+        scs, m_rec = scs.cpu().numpy(), m_rec.cpu().numpy()
+        viol = viol.cpu().numpy()
+        t3 = sync()
+        if timings is not None:
+            timings.update(scoring=t1 - t0, scan=t2 - t1, backtrace=t3 - t2)
+        self.hyp_scores = [
+            float(scs[b]) + float(m_rec[b, :max(nf[b] - 1, 0)].sum())
+            for b in range(B)]
+        self.guard_violations_batch = [
+            int(viol[b, :nf[b]].sum()) for b in range(B)]
+        self.guard_violations = int(sum(self.guard_violations_batch))
+        return [self._segs_from_table(tables[b], int(ns[b]))
+                for b in range(B)]
+
+    def _segs_from_table(self, table, n):
+        """[n, 3] (word, start, end) rows (reverse order) -> (hyp, segs)."""
+        segs = []
+        for i in range(int(n) - 1, -1, -1):
+            wi, s, t = (int(x) for x in table[i])
+            segs.append(Seg(word=self.dict.wordstr(self.words[wi]),
+                            start=s, end=t))
+        out = []
+        for s in segs:
+            wid = self.dict.wordid(s.word)
+            if wid < 0 or self.dict.is_filler(wid):
+                continue
+            out.append(self.dict.basestr(wid))
+        return " ".join(out), segs
+
+    # -- records adapter -----------------------------------------------------
+
+    @property
+    def records(self):
+        """Adapted per-frame records (escore, estf, eprw, eascr, eh1,
+        eh2, ectx).  Computed lazily: the dense [T, W]/[T, E] arrays
+        only leave the device when a consumer (tests) asks."""
+        r = self._records
+        if callable(r):
+            r = r()
+            self._records = r
+        return r
+
+    @records.setter
+    def records(self, value):
+        self._records = value
+
+    @property
+    def raw_records(self):
+        r = self._raw_records
+        if callable(r):
+            r = r()
+            self._raw_records = r
+        return r
+
+    @raw_records.setter
+    def raw_records(self, value):
+        self._raw_records = value
+
+    def adapt_records(self, raw, T):
+        """Join raw scan records into the flat-record format
+        (escore, estf, eprw, eascr, eh1, eh2, ectx) [T, W] consumed by
+        the lattice layer and the tests."""
+        escore, etf, etgt, ectx, entv, eprw, erw1, erw2, m = \
+            [np.asarray(r)[:T] for r in raw[:9]]
+        Tn = escore.shape[0]
+        Mcp = np.concatenate([[0.0], np.cumsum(m)])  # Mcp[t] = sum m[<t]
+        tf = etf.astype(np.int64)
+        tg = etgt.astype(np.int64)
+        tfi = np.clip(tf - 1, 0, Tn - 1)
+        has = tf > 0
+        eprw_x = np.where(has, eprw[tfi, tg], -1).astype(np.int32)
+        entv_x = np.where(has, entv[tfi, tg], 0.0)
+        corr = Mcp[np.arange(Tn)][:, None] - np.where(has, Mcp[tfi], 0.0)
+        eascr = (escore - entv_x + corr).astype(np.float32)
+        s_lm = self.lm.wid("<s>") if self.start_idx is not None else -1
+        eh1 = np.where(has, erw1[tfi, tg], max(s_lm, 0)).astype(np.int32)
+        eh2 = np.where(has, erw2[tfi, tg], self.V).astype(np.int32)
+        return (escore.astype(np.float32), tf.astype(np.int32), eprw_x,
+                eascr, eh1, eh2, ectx.astype(np.int32))

@@ -1,0 +1,271 @@
+"""Seeded synthetic acoustic model at en-us's published shapes, and PCM.
+
+The en-us model files are not in the repository, so the port's tests and
+`chip_smoke.py` build a stand-in with the same structure from a seed:
+42 CI phones (the 39 CMUdict phones, SIL, +NSN+, +SPN+), 3 emitting
+states, PTM with 42 codebooks x 3 streams x 128 densities x 13 dims,
+and 5,126 senones of which 126 are CI.  The text model definition covers
+every triphone that the given dictionaries need (word-begin, -internal,
+-end and single-phone contexts); its CD senones are tied per (base
+phone, state) so that every senone belongs to exactly one codebook.
+
+`SynthModel.write(directory)` writes the text mdef and the noise
+dictionary; `SynthModel.load(directory)` builds this port's
+`AcousticModel` from them.  Any other implementation that reads the same
+files and takes the same arrays builds the same model.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import Counter
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+
+from ..fileio import acoustic as fio
+from ..fileio.bin_mdef import read_text_mdef
+from ..fileio.dictionary import Dictionary
+from ..lm.ngram import read_lm
+from ..logmath import default_logmath
+from ..models.acoustic import AcousticModel
+from ..models.dict2pid import Dict2Pid
+from ..search.ngram_fused import NgramFusedDecoder
+
+PHONES = ("AA AE AH AO AW AY B CH D DH EH ER EY F G HH IH IY JH K L M N NG "
+          "OW OY P R S SH T TH UH UW V W Y Z ZH").split()
+FILLERS = ("+NSN+", "+SPN+")
+SIL = "SIL"
+NOISEDICT = ("<s> SIL\n</s> SIL\n<sil> SIL\n[NOISE] +NSN+\n"
+             "[SPEECH] +SPN+\n")
+#: en-us shapes (SURVEY.md: 5126 senones, 126 CI; PTM 42 x 3 x 128 x 13)
+EN_US = dict(n_sen=5126, n_density=128, n_feat=3, dim=13)
+BENCH_DATA = Path(__file__).resolve().parents[2] / "bench_data"
+
+
+def read_prons(dict_path: str) -> list[list[str]]:
+    """Phone strings of every pronunciation in a dictionary file."""
+    prons = []
+    for line in open(dict_path, encoding="utf-8", errors="replace"):
+        parts = line.split()
+        if parts and not parts[0].startswith(("##", ";;")):
+            prons.append(parts[1:])
+    return prons
+
+
+def _triphones(prons):
+    """(base, left, right, wpos) rows the pronunciations need, in a
+    deterministic order."""
+    firsts = sorted({p[0] for p in prons}) + [SIL]      # right contexts
+    lasts = sorted({p[-1] for p in prons}) + [SIL]      # left contexts
+    rows = set()
+    for p in prons:
+        if len(p) == 1:
+            rows.update((p[0], lc, rc, "s") for lc in lasts for rc in firsts)
+            continue
+        rows.update((p[0], lc, p[1], "b") for lc in lasts)
+        rows.update((p[j], p[j - 1], p[j + 1], "i")
+                    for j in range(1, len(p) - 1))
+        rows.update((p[-1], p[-2], rc, "e") for rc in firsts)
+    return sorted(rows)
+
+
+@dataclass
+class SynthModel:
+    mdef_text: str
+    means: np.ndarray          # [42, F, D, L] f32
+    var: np.ndarray            # [42, F, D, L] f32
+    mixw: np.ndarray           # [F, D, n_sen] uint8 costs
+    tmat: np.ndarray           # [42, 3, 4] uint8 costs (255 = impossible)
+
+    def write(self, directory: str) -> tuple[str, str]:
+        """Write `mdef.txt` and `noisedict` into `directory`; returns
+        their paths."""
+        os.makedirs(directory, exist_ok=True)
+        mdef_path = os.path.join(directory, "mdef.txt")
+        noise_path = os.path.join(directory, "noisedict")
+        with open(mdef_path, "w") as f:
+            f.write(self.mdef_text)
+        with open(noise_path, "w") as f:
+            f.write(NOISEDICT)
+        return mdef_path, noise_path
+
+    def load(self, directory: str, varfloor: float = 1e-4):
+        """Write the model files into `directory` and build the port's
+        `AcousticModel` from them.  Returns (model, path of the noise
+        dictionary)."""
+        mdef_path, noise_path = self.write(directory)
+        n_cb, n_feat, n_den, dim = self.means.shape
+        g = fio.Gauden(n_cb, n_feat, n_den, np.full(n_feat, dim, np.int32),
+                       self.means, self.var)
+        g.precompute(default_logmath(), varfloor)
+        am = AcousticModel(
+            mdef=read_text_mdef(mdef_path), gauden=g,
+            mixw=fio.MixtureWeights(mixw=self.mixw, n_sen=self.mixw.shape[-1]),
+            tmat=fio.Tmat(tp=self.tmat), model_type="ptm")
+        return am, noise_path
+
+
+def make_model(dict_paths, seed: int = 0, n_sen: int = EN_US["n_sen"],
+               n_density: int = EN_US["n_density"],
+               n_feat: int = EN_US["n_feat"], dim: int = EN_US["dim"]):
+    """A seeded PTM model whose mdef covers the triphones of every
+    pronunciation in `dict_paths`."""
+    rng = np.random.default_rng(seed)
+    ci = PHONES + [SIL, *FILLERS]
+    n_ci = len(ci)
+    n_ci_sen = 3 * n_ci
+    prons = [p for path in dict_paths for p in read_prons(path)
+             if all(x in PHONES for x in p) and p]
+    rows = _triphones(prons)
+    # CD senone pools per (base, state), sized by how many triphones use
+    # the base, each at most that count so every pool entry gets used
+    bases = sorted({r[0] for r in rows})
+    count = Counter(r[0] for r in rows)
+    n_cd = n_sen - n_ci_sen
+    if n_cd < 3 * len(bases) or n_cd > 3 * len(rows):
+        raise ValueError(f"n_sen={n_sen} does not fit {len(rows)} triphones "
+                         f"over {len(bases)} base phones")
+    keys = [(b, j) for b in bases for j in range(3)]
+    spare = n_cd - len(keys)
+    size = {k: 1 + min(count[k[0]] - 1, spare * count[k[0]] // (3 * len(rows)))
+            for k in keys}
+    left = n_cd - sum(size.values())
+    while left > 0:          # hand out the remainder, most-used first
+        for k in sorted(keys, key=lambda k: size[k] - count[k[0]]):
+            if left and size[k] < count[k[0]]:
+                size[k] += 1
+                left -= 1
+    start, nxt = {}, n_ci_sen
+    for k in keys:
+        start[k], nxt = nxt, nxt + size[k]
+    used = {k: 0 for k in keys}
+
+    def senones(b):
+        out = []
+        for j in range(3):
+            k = (b, j)
+            out.append(start[k] + used[k] % size[k])
+            used[k] += 1
+        return out
+
+    lines = ["0.3", f"{n_ci} n_base", f"{len(rows)} n_tri",
+             f"{(n_ci + len(rows)) * 4} n_state_map", f"{n_sen} n_tied_state",
+             f"{n_ci_sen} n_tied_ci_state", f"{n_ci} n_tied_tmat", "#"]
+    cidx = {p: i for i, p in enumerate(ci)}
+    for i, p in enumerate(ci):
+        attrib = "filler" if p in (SIL, *FILLERS) else "n/a"
+        lines.append(f"{p} - - - {attrib} {i} {3 * i} {3 * i + 1} "
+                     f"{3 * i + 2} N")
+    for b, lc, rc, wp in rows:
+        s = senones(b)
+        lines.append(f"{b} {lc} {rc} {wp} n/a {cidx[b]} {s[0]} {s[1]} "
+                     f"{s[2]} N")
+
+    means = rng.standard_normal((n_ci, n_feat, n_density, dim),
+                                dtype=np.float32)
+    var = rng.uniform(0.3, 2.0, (n_ci, n_feat, n_density, dim)
+                      ).astype(np.float32)
+    # mixture-weight costs: a few likely densities per senone
+    mixw = rng.integers(60, 160, (n_feat, n_density, n_sen)).astype(np.uint8)
+    hot = rng.integers(0, n_density, (n_feat, 8, n_sen))
+    np.put_along_axis(mixw, hot, rng.integers(0, 30, hot.shape)
+                      .astype(np.uint8), axis=1)
+    tmat = np.full((n_ci, 3, 4), 255, np.uint8)
+    for j in range(3):
+        tmat[:, j, j] = rng.integers(1, 12, n_ci)
+        tmat[:, j, j + 1] = rng.integers(1, 12, n_ci)
+    tmat[:, 0, 2] = rng.integers(20, 60, n_ci)        # rare skips
+    return SynthModel(mdef_text="\n".join(lines) + "\n", means=means,
+                      var=var, mixw=mixw, tmat=tmat)
+
+
+def make_pcm(seed: int, seconds: float, samprate: int = 16000) -> np.ndarray:
+    """Seeded int16 PCM: voiced segments (harmonic tones with gliding
+    pitch and formant-like weights) between pauses, over low noise."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * samprate)
+    t = np.arange(n) / samprate
+    x = rng.normal(0.0, 30.0, n)
+    pos = int(rng.uniform(0.1, 0.3) * samprate)
+    while pos < n - samprate // 10:
+        seg = int(rng.uniform(0.15, 0.5) * samprate)
+        end = min(pos + seg, n)
+        tt = t[pos:end] - t[pos]
+        f0 = rng.uniform(90, 220) * (1 + 0.2 * np.sin(2 * np.pi * tt
+                                                       * rng.uniform(1, 4)))
+        phase = 2 * np.pi * np.cumsum(f0) / samprate
+        env = np.sin(np.pi * np.arange(end - pos) / (end - pos)) ** 2
+        formants = rng.uniform(300, 3000, 3)
+        voiced = sum(np.exp(-((k * f0 - formants[:, None]) / 400.0) ** 2)
+                     .sum(0) * np.sin(k * phase) for k in range(1, 25))
+        x[pos:end] += 2500.0 * env * voiced / 3.0
+        pos = end + int(rng.uniform(0.05, 0.3) * samprate)
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+def write_arpa(words, path: str, seed: int = 0, p_bigram: float = 0.3,
+               p_context: float = 0.2, max_tri: int = 4):
+    """A seeded ARPA trigram LM over `words` (+ <s>, </s>): random
+    unigram scores, a `p_bigram` share of explicit successors per
+    history, and explicit trigrams for a `p_context` share of the
+    bigram contexts.  Returns `path`."""
+    rng = np.random.default_rng(seed)
+    vocab = ["<s>", "</s>"] + [w for w in dict.fromkeys(words)
+                                if w not in ("<s>", "</s>")]
+    f = lambda x: f"{x:.4f}"  # noqa: E731
+    uni = [(f(-99.0 if w == "<s>" else rng.uniform(-4, -1)), w,
+            f(rng.uniform(-1, 0))) for w in vocab]
+    succ = [w for w in vocab if w != "<s>"]
+    big = []
+    for h in vocab:
+        if h == "</s>":
+            continue
+        for w in succ:
+            if rng.random() < p_bigram:
+                big.append((h, w))
+    tri = []
+    for h1, h2 in big:
+        if h2 != "</s>" and rng.random() < p_context:
+            for w in rng.choice(succ, size=rng.integers(1, max_tri + 1),
+                                replace=False):
+                tri.append((h1, h2, str(w)))
+    with open(path, "w") as out:
+        out.write(f"\\data\\\nngram 1={len(uni)}\nngram 2={len(big)}\n"
+                  f"ngram 3={len(tri)}\n\n\\1-grams:\n")
+        for p_, w, bo in uni:
+            out.write(f"{p_} {w} {bo}\n")
+        out.write("\n\\2-grams:\n")
+        for h, w in big:
+            out.write(f"{f(rng.uniform(-3, -0.2))} {h} {w} "
+                      f"{f(rng.uniform(-1, 0))}\n")
+        out.write("\n\\3-grams:\n")
+        for h1, h2, w in tri:
+            out.write(f"{f(rng.uniform(-2, -0.1))} {h1} {h2} {w}\n")
+        out.write("\n\\end\\\n")
+    return path
+
+
+def small_dictionary(path: str, n_words: int = 40, n_single: int = 3,
+                     seed: int = 0) -> list[str]:
+    """Write a dictionary of `n_words` seeded picks of bench-1.7k.dic plus
+    its first `n_single` single-phone words; returns the words."""
+    lines = (BENCH_DATA / "bench-1.7k.dic").read_text().splitlines()
+    rng = np.random.default_rng(seed)
+    pick = [lines[i] for i in sorted(rng.choice(len(lines), n_words,
+                                                replace=False))]
+    pick += [ln for ln in lines if len(ln.split()) == 2][:n_single]
+    with open(path, "w") as f:
+        f.write("\n".join(pick) + "\n")
+    return [ln.split()[0] for ln in pick]
+
+
+def build_decoder(spec: SynthModel, workdir: str, dic: str, lmfile: str,
+                  lw: float = 6.5, wip: float = 0.65, **kw):
+    """The port's `NgramFusedDecoder` over the synthetic model (files
+    written under `workdir`), dictionary `dic` and LM file (keyword
+    arguments go to the decoder)."""
+    am, noise = spec.load(os.path.join(workdir, "model"))
+    d2p = Dict2Pid(am.mdef, Dictionary(am.mdef, dic, noise))
+    return NgramFusedDecoder(am, d2p, read_lm(lmfile, lw=lw, wip=wip), **kw)

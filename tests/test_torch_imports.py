@@ -1,0 +1,108 @@
+"""The port stands alone: it imports and runs with JAX blocked, imports
+nothing of JAX or of the JAX package, and its entry points run on CUDA
+unless the caller asks for the CPU."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "pocketsphinx_tpu_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "for name in sys.argv[1:]:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "chip_smoke.fan_inputs, chip_smoke.chain_inputs, chip_smoke.main_path\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'pocketsphinx_tpu.'))"
+        " or m == 'pocketsphinx_tpu' for m, v in sys.modules.items()"
+        " if v is not None)\n")
+    r = subprocess.run([sys.executable, "-c", code, *MODULES], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def _dynamic_import(node):
+    """The name argument of an `importlib.import_module(...)` or
+    `__import__(...)` call, else None."""
+    if not isinstance(node, ast.Call) or not node.args:
+        return None
+    f = node.func
+    name = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", None)
+    return node.args[0] if name in ("import_module", "__import__") else None
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def test_no_jax_or_jax_package_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        elif (arg := _dynamic_import(node)) is not None:
+            # a computed module name could be anything: only literals
+            assert isinstance(arg, ast.Constant) and isinstance(
+                arg.value, str), \
+                f"{path.name}:{node.lineno} imports a computed module name"
+            names = [arg.value]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "pocketsphinx_tpu"), \
+                f"{path.name} imports {n}"
+
+
+@pytest.mark.parametrize("src", [
+    "import importlib\nimportlib.import_module(f'{pkg}.search')",
+    "__import__('pocketsphinx_tpu.search.ngram_fused')",
+    "from importlib import import_module\nimport_module('jax.numpy')",
+    "import jax.numpy",
+    "from pocketsphinx_tpu.lm import ngram",
+])
+def test_import_scan_catches(src, tmp_path):
+    """The scan above rejects static and dynamic imports alike."""
+    bad = tmp_path / "bad.py"
+    bad.write_text(src)
+    with pytest.raises(AssertionError):
+        test_no_jax_or_jax_package_imports(bad)
+
+
+def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
+    from pocketsphinx_tpu_torch import resolve_device
+    from pocketsphinx_tpu_torch.frontend.mfcc import MelFrontend
+    from pocketsphinx_tpu_torch.testing import synth
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MelFrontend().process_batch(np.zeros((1, 4000), np.float32))
+    dic = str(tmp_path / "small.dic")
+    synth.small_dictionary(dic, n_words=5)
+    lmf = synth.write_arpa(["a"], str(tmp_path / "lm.arpa"))
+    spec = synth.make_model([dic], n_sen=126 + 60, n_density=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        synth.build_decoder(spec, str(tmp_path), dic, lmf)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_precision_setup():
+    import pocketsphinx_tpu_torch  # noqa: F401
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
