@@ -11,9 +11,10 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    shapes (B=8), ties on and off, bit-equal; both timed with CUDA events
    as device time (calls captured in a CUDA graph and replayed) and as
    per call through the Python wrapper;
-3. the chain kernel the same way for every depth bucket of the 20k-word
-   decoder, with and without variants; a frame's launches are timed
-   together;
+3. the grouped chain kernel (one launch per frame over every chain
+   bucket) the same way at the 20k-word decoder's bucket list (the
+   variant buckets and the CI bucket), against its plain version, ties
+   on and off;
 4. torch's argmax / max(dim) / stable sort tie order on CUDA (first
    maximum, lower index first), which the scan's exactness relies on;
 5. the main path at full width: a seeded synthetic acoustic model at
@@ -96,6 +97,34 @@ def chain_inputs(rng, B, NST, D, W, RF, NFD, has_var, ties):
             fd_idx=rng.integers(0, NFD, W).astype(np.int32),
             nv=rng.integers(1, RF + 1, W).astype(np.int32))
     return out
+
+
+def chain_group_args(per, device):
+    """A `ChainGroup` on `device` over the buckets of `per` (chain_inputs
+    dicts, in layout order) and the grouped step's keyword arguments:
+    the flat carry, the g row and pip."""
+    import torch
+    from pocketsphinx_tpu_torch.ops.chain import ChainGroup
+    t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    B, NST = per[0]["S"].shape[:2]
+    buckets = []
+    for p in per:
+        b = dict(tp=t(p["tp"]), fm=t(p["fm"]))
+        if p["VAR"] is not None:
+            b.update(nv=t(p["nv"]), fd_idx=t(p["fd_idx"]),
+                     RF=p["prevd"].shape[2], NFD=p["prevd"].shape[3])
+        buckets.append(b)
+    grp = ChainGroup(NST, buckets)
+
+    def flat(key):
+        xs = [p[key].reshape(-1) for p in per if p[key] is not None]
+        return t(np.concatenate(xs) if xs else np.zeros(0, np.int32))
+
+    g = grp.row([t(p["pre"]).reshape(B, -1) for p in per],
+                [t(p["prevd"]).reshape(B, -1) for p in per
+                 if p["prevd"] is not None])
+    return grp, dict(S=flat("S"), TF=flat("TF"), CTX=flat("CTX"),
+                     VAR=flat("VAR"), g=g, pip=per[0]["pip"])
 
 
 def to_device(args, device):
@@ -230,7 +259,6 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
         return time.perf_counter()
 
     ch = dec.CHUNK
-    n_blocks = len(dec.chains) + len(dec.ci_chains)
     fan.reset_launches()
     chain.reset_launches()
     frames = 0
@@ -277,7 +305,7 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
     hyps = runs[0].pop("hyps")
     res["launches"] = {"fan": fan.launches, "chain": chain.launches}
     if cuda:
-        want = {"fan": frames, "chain": frames * n_blocks}
+        want = {"fan": frames, "chain": frames}
         if res["launches"] != want:
             raise AssertionError(f"launch counts {res['launches']} != "
                                  f"expected {want}")
@@ -377,35 +405,34 @@ def check_fan(B, NRC, W, LP, log):
 
 
 def check_chain(B, buckets, log):
-    """buckets: (NST, D, W, RF, NFD, has_var) per launch of one frame."""
+    """The grouped chain step over one frame's buckets, (NST, D, W, RF,
+    NFD, has_var) each in layout order: bit-equal to its plain version
+    with ties off and on, then timed."""
     import torch
     from pocketsphinx_tpu_torch.ops import chain
     rng = np.random.default_rng(1)
-    err = tot_bytes = tot_ops = 0.0
-    frame = []                      # one frame's launches, last inputs
-    for NST, D, W, RF, NFD, has_var in buckets:
-        for ties in (False, True):
-            args = chain_inputs(rng, B, NST, D, W, RF, NFD, has_var, ties)
-            dev = to_device(args, "cuda")
-            outs = chain.chain_step(**dev)
-            torch.cuda.synchronize()
-            refs = chain.chain_step_ref(**dev)
-            err = max(err, compare(outs, refs, f"chain D={D} W={W} "
-                                               f"var={has_var} ties={ties}"))
-        frame.append(dev)
-        k = time_ms(lambda: chain.chain_step(**dev), graph=True)
-        p = time_ms(lambda: chain.chain_step_ref(**dev), graph=True)
-        tot_bytes += nbytes(args, outs)
+    err = 0.0
+    for ties in (False, True):
+        per = [chain_inputs(rng, B, *bk, ties) for bk in buckets]
+        grp, args = chain_group_args(per, "cuda")
+        outs = chain.chain_group_step(grp, **args)
+        torch.cuda.synchronize()
+        refs = chain.chain_group_ref(grp, **args)
+        err = max(err, compare(outs, refs, f"chain ties={ties}"))
+    # bound as for one launch per bucket: each bucket's inputs read once,
+    # its outputs (S/TF/CTX planes, VAR, 3 exit rows) written once
+    tot_bytes = tot_ops = 0
+    for (NST, D, W, *_), p in zip(buckets, per):
+        tot_bytes += nbytes(p, []) + 4 * B * (3 * NST * D * W + NST * W
+                                              + 3 * W)
         tot_ops += 12 * B * NST * D * W
-        log(f"chain B={B} NST={NST} D={D} W={W} RF={RF} NFD={NFD} "
-            f"var={has_var}: bit-equal; device time: kernel {k:.4f} ms, "
-            f"plain {p:.4f} ms")
-    ms, plain, wms, wplain = timings(
-        lambda: [chain.chain_step(**a) for a in frame],
-        lambda: [chain.chain_step_ref(**a) for a in frame])
     bms, by = bound_ms(tot_bytes, tot_ops)
-    log(f"chain, all {len(buckets)} launches of a frame: device time: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms; through Python: kernel "
+    ms, plain, wms, wplain = timings(
+        lambda: chain.chain_group_step(grp, **args),
+        lambda: chain.chain_group_ref(grp, **args))
+    log(f"chain B={B}, {len(buckets)} buckets {[b[1:3] for b in buckets]} "
+        f"in one launch ({grp.n_blocks} blocks): bit-equal; device time: "
+        f"kernel {ms:.4f} ms, plain {plain:.4f} ms; through Python: kernel "
         f"{wms:.4f} ms, plain {wplain:.4f} ms; bound {bms:.4f} ms ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain)

@@ -50,17 +50,15 @@ _INDEX_KEYS = ("fb_ci", "f0p_E", "guard_w", "guard_wf", "guard_fillw",
                "guard_fillwf")
 
 
-def scan_tables(tables: dict, device, seg_shapes=None) -> dict:
+def scan_tables(tables: dict, device) -> dict:
     """Scan tables on `device` for `search.ngram_fused`.
 
     tables: the port decoder's `host_tables`, or the JAX decoder's
     `_dev_tables` as NumPy (one-hot expansion tables are turned into the
     index form the port gathers with: `fd_oh{b}` -> `fd_idx{b}`,
     `lp_oh`/`tp_fin` -> `lp_idx`/`tp_fin12`, `f0_onehot` -> `f0p_E`).
-    seg_shapes: the senone pre-gather segments' shapes (the decoder's
-    `seg_shapes`, set by its host build); `senid_all` is cut into one
-    index tensor per segment (`senid_segs`).  The decoder passes its own
-    when it is None."""
+    The decoder's `device_tables` lays the chain tables and `senid_all`
+    out for its scan."""
     dev = torch.device(device)
     tabs = {k: np.asarray(v) for k, v in tables.items()}
     for k in [k for k in tabs if k.startswith("fd_oh")]:
@@ -89,8 +87,4 @@ def scan_tables(tables: dict, device, seg_shapes=None) -> dict:
         out[k.replace("_fm", "_fd")] = torch.argmax(
             out[k].to(torch.int32), dim=0)
     out["accept_T"] = out["accept_E"].T.contiguous()
-    if seg_shapes is not None:
-        ids = torch.as_tensor(tabs["senid_all"].astype(np.int64), device=dev)
-        sizes = [int(np.prod(s)) for s in seg_shapes]
-        out["senid_segs"] = list(torch.split(ids, sizes))
     return out

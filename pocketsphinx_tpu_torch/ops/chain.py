@@ -1,7 +1,7 @@
-"""Chain-bucket step: CUDA kernel + plain torch version.
+"""Chain-bucket step: CUDA kernel + plain torch versions.
 
 Port of `pocketsphinx_tpu.ops.pallas_chain` (the Pallas `_kernel`
-reached through `chain_step`), and of the XLA chain block of the JAX
+reached through its `chain_step`), and of the XLA chain block of the JAX
 scan (search/ngram_fused.py), which computes the same function.  One
 step of a right-aligned chain bucket [NST, D, W], batched over B:
 
@@ -16,15 +16,22 @@ step of a right-aligned chain bucket [NST, D, W], batched over B:
   * the exit row at depth D-1.
 
 Without variants (`VAR is None`) it is the CI/filler chain step.
-`chain_step` launches `csrc/chain.cu` for CUDA tensors and runs
-`chain_step_ref` only for CPU tensors.  `tp`, `fm`, `nv` and `fd_idx`
-are shared by the batch and must be unbatched.
+
+A frame's chain block is one grouped call over every bucket,
+`chain_group_step`.  Its carry fields are flat buffers, the buckets'
+[B, NST, D, W] blocks end to end (VAR: the variant buckets' [B, NST, W]
+blocks), and `ChainGroup` holds the static layout: the bucket table the
+kernel reads and the flat unbatched tables.  `chain_group_step` launches
+`csrc/chain.cu` once for CUDA tensors and runs `chain_group_ref`
+(`chain_step_ref` over each bucket's views) only for CPU tensors.  `tp`,
+`fm`, `nv` and `fd_idx` are shared by the batch and must be unbatched.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -32,6 +39,13 @@ from .hmm import NEG_INF, hmm_step_sm
 
 #: launches of the CUDA kernel since the last reset (plain int)
 launches = 0
+
+#: columns of a row of the bucket table (`enum` in csrc/chain.cu)
+TAB_COLUMNS = ("D", "W", "has_var", "RF", "NFD", "blk0", "carry", "var",
+               "pre", "prevd", "tp", "fm", "woff", "xcol")
+N_COL = 16
+#: words per block of the kernel
+WT = 32
 
 
 def reset_launches():
@@ -92,84 +106,272 @@ def chain_step_ref(S, TF, CTX, VAR, pre, prevd, fd_idx, tp, fm, nv, pip):
             nVAR, out[:, -1], oTF[:, -1], oCTX[:, -1])
 
 
-def _check(S, TF, CTX, VAR, pre, prevd, fd_idx, tp, fm, nv):
-    if S.dim() != 4:
-        raise ValueError(f"S must be [B, NST, D, W], got {tuple(S.shape)}")
-    B, NST, D, W = S.shape
-    want = {"S": (S, torch.float32, (B, NST, D, W)),
-            "TF": (TF, torch.int32, (B, NST, D, W)),
-            "CTX": (CTX, torch.int32, (B, NST, D, W)),
-            "pre": (pre, torch.float32, (B, NST, D, W)),
-            "tp": (tp, torch.float32, (NST * (NST + 1), D, W)),
-            "fm": (fm, torch.bool, (D, W))}
-    if VAR is not None:
-        if prevd is None or fd_idx is None or nv is None:
-            raise ValueError("VAR needs prevd, fd_idx and nv")
-        if prevd.dim() != 4 or tuple(prevd.shape[:2]) != (B, NST):
-            raise ValueError(f"prevd must be [B, NST, RF, NFD], got "
-                             f"{tuple(prevd.shape)}")
-        want["VAR"] = (VAR, torch.int32, (B, NST, W))
-        want["prevd"] = (prevd, torch.float32, tuple(prevd.shape))
-        want["fd_idx"] = (fd_idx, torch.int32, (W,))
-        want["nv"] = (nv, torch.int32, (W,))
+class ChainGroup:
+    """Static layout of a frame's chain buckets for one grouped step.
+
+    NST: states per node.  buckets, in layout order: dicts with
+    tp [NST*(NST+1), D, W] f32 and fm [D, W] bool, and for a bucket with
+    variants also nv [W], fd_idx [W] (int32) and RF, NFD (its prevd
+    planes' shape); all on one device.
+
+    Per batch element, in layout order:
+      * carry planes S/TF/CTX: NST*D*W per bucket (`planes`);
+      * VAR: NST*W per variant bucket (`var_planes`);
+      * the g row: pre [NST, D, W] of every bucket, then prevd
+        [NST, RF, NFD] of every variant bucket (`g_width` in all);
+      * exits: group 0 holds the variant buckets' words, group 1 the
+        others' (`n_exit`), each bucket's at its offset `xcol`.
+    `row` lays per-bucket parts out as the g row.  The table `tab`
+    [n_buckets, N_COL] int32 has one row per bucket in launch order, the
+    deepest buckets first (their serial walks then overlap the wide
+    buckets' streaming); column `blk0` is the bucket's first block (WT
+    words each)."""
+
+    def __init__(self, NST: int, buckets):
+        self.NST = NST
+        rows = []
+        at = dict(carry=0, var=0, pre=0, tp=0, fm=0, woff=0)
+        xcol = [0, 0]
+        for b in buckets:
+            if b["tp"].dim() != 3 or b["tp"].shape[0] != NST * (NST + 1):
+                raise ValueError(f"tp must be unbatched [{NST * (NST + 1)}, "
+                                 f"D, W], got {tuple(b['tp'].shape)}")
+            NK, D, W = b["tp"].shape
+            has_var = b.get("nv") is not None
+            r = dict(D=D, W=W, has_var=int(has_var),
+                     RF=b["RF"] if has_var else 0,
+                     NFD=b["NFD"] if has_var else 0,
+                     xcol=xcol[not has_var], prevd=0, **at)
+            if not has_var:
+                r["var"] = r["woff"] = 0
+            rows.append(r)
+            at["carry"] += NST * D * W
+            at["pre"] += NST * D * W
+            at["tp"] += NK * D * W
+            at["fm"] += D * W
+            if has_var:
+                at["var"] += NST * W
+                at["woff"] += W
+            xcol[not has_var] += W
+        width = at["pre"]
+        for r in rows:
+            if r["has_var"]:
+                r["prevd"] = width
+                width += NST * r["RF"] * r["NFD"]
+        order = sorted(range(len(rows)), key=lambda i: -rows[i]["D"])
+        blk = 0
+        for i in order:
+            rows[i]["blk0"] = blk
+            blk += -(-rows[i]["W"] // WT)
+        tab = np.zeros((len(rows), N_COL), np.int64)
+        for pos, i in enumerate(order):
+            tab[pos, :len(TAB_COLUMNS)] = [rows[i][c] for c in TAB_COLUMNS]
+        if tab.size and tab.max() >= 2 ** 31:
+            raise ValueError("chain group too large for int32 offsets")
+        self.rows = rows
+        self.order = order
+        self._view_specs = {}
+        self.n_blocks = blk
+        self.n_carry, self.n_var = at["carry"], at["var"]
+        self.g_width = width
+        self.n_exit = tuple(xcol)
+        dev = buckets[0]["tp"].device if buckets else torch.device("cpu")
+        self.tab = torch.as_tensor(tab.astype(np.int32), device=dev)
+
+        def flat(key, dt, which):
+            xs = [b[key].reshape(-1).to(dt) for b in which]
+            return torch.cat(xs) if xs else torch.zeros(0, dtype=dt,
+                                                        device=dev)
+
+        var_b = [b for b in buckets if b.get("nv") is not None]
+        self.tp = flat("tp", torch.float32, buckets)
+        self.fm = flat("fm", torch.bool, buckets)
+        self.nv = flat("nv", torch.int32, var_b)
+        self.fd_idx = flat("fd_idx", torch.int32, var_b)
+        # per-bucket views of the flat tables, for the plain version
+        NK = NST * (NST + 1)
+        self.tp_b = [self.tp[r["tp"]:r["tp"] + NK * r["D"] * r["W"]]
+                     .view(NK, r["D"], r["W"]) for r in rows]
+        self.fm_b = [self.fm[r["fm"]:r["fm"] + r["D"] * r["W"]]
+                     .view(r["D"], r["W"]) for r in rows]
+        self.nv_b = [self.nv[r["woff"]:r["woff"] + r["W"]]
+                     if r["has_var"] else None for r in rows]
+        self.fd_b = [self.fd_idx[r["woff"]:r["woff"] + r["W"]]
+                     if r["has_var"] else None for r in rows]
+
+    @property
+    def n_buckets(self):
+        return len(self.rows)
+
+    def row(self, pre, prevd):
+        """The g row [..., g_width] of per-bucket parts: `pre`, one
+        [..., NST*D*W] tensor per bucket, and `prevd`, one
+        [..., NST*RF*NFD] tensor per variant bucket, in layout order."""
+        g = torch.cat(list(pre) + list(prevd), -1)
+        if g.shape[-1] != self.g_width:
+            raise ValueError(f"g row of width {g.shape[-1]}, not the "
+                             f"group's {self.g_width}")
+        return g
+
+    def _views(self, B, var):
+        """(shape, stride, offset) of each bucket's view of a flat carry
+        field (`var`: of the variant buckets' VAR blocks), cached per B:
+        the scan makes these views every frame."""
+        key = (B, var)
+        if key not in self._view_specs:
+            N, specs = self.NST, []
+            for r in self.rows:
+                if var and not r["has_var"]:
+                    continue
+                D, W = (1, r["W"]) if var else (r["D"], r["W"])
+                shape = (B, N, W) if var else (B, N, D, W)
+                stride = (N * D * W, D * W, 1) if var else \
+                    (N * D * W, D * W, W, 1)
+                specs.append((shape, stride, B * r["var" if var else "carry"]))
+            self._view_specs[key] = specs
+        return self._view_specs[key]
+
+    def planes(self, x, B):
+        """Per-bucket [B, NST, D, W] views of a flat carry field."""
+        o = x.storage_offset()
+        return [x.as_strided(shape, stride, o + off)
+                for shape, stride, off in self._views(B, False)]
+
+    def var_planes(self, x, B):
+        """Per-variant-bucket [B, NST, W] views of the flat VAR field."""
+        o = x.storage_offset()
+        return [x.as_strided(shape, stride, o + off)
+                for shape, stride, off in self._views(B, True)]
+
+    def init_carry(self, B):
+        """Flat carry fields at frame 0: every token dead (S = NEG_INF,
+        TF/CTX/VAR = 0)."""
+        dev, n = self.tab.device, B * self.n_carry
+        return dict(
+            S=torch.full((n,), NEG_INF, dtype=torch.float32, device=dev),
+            TF=torch.zeros(n, dtype=torch.int32, device=dev),
+            CTX=torch.zeros(n, dtype=torch.int32, device=dev),
+            VAR=torch.zeros(B * self.n_var, dtype=torch.int32, device=dev))
+
+
+def chain_group_ref(grp, S, TF, CTX, VAR, g, pip):
+    """Plain torch version of the grouped chain step: `chain_step_ref`
+    over each bucket's views.  Same arguments and results as
+    `chain_group_step`."""
+    B, N = g.shape[0], grp.NST
+    dev = g.device
+    sv, tfv, cxv = grp.planes(S, B), grp.planes(TF, B), grp.planes(CTX, B)
+    varv = iter(grp.var_planes(VAR, B))
+    flat = ([], [], [], [])
+    exits = ([[], [], []], [[], [], []])
+    for k, r in enumerate(grp.rows):
+        D, W = r["D"], r["W"]
+        pre = g[:, r["pre"]:r["pre"] + N * D * W].view(B, N, D, W)
+        var = prevd = None
+        if r["has_var"]:
+            var = next(varv)
+            n = N * r["RF"] * r["NFD"]
+            prevd = g[:, r["prevd"]:r["prevd"] + n].view(
+                B, N, r["RF"], r["NFD"])
+        o = chain_step_ref(sv[k], tfv[k], cxv[k], var, pre, prevd,
+                           grp.fd_b[k], grp.tp_b[k], grp.fm_b[k],
+                           grp.nv_b[k], pip)
+        for i in range(3 + r["has_var"]):
+            flat[i].append(o[i].reshape(-1))
+        for i in range(3):
+            exits[not r["has_var"]][i].append(o[4 + i])
+
+    def cat(xs, dt):
+        return torch.cat(xs) if xs else torch.zeros(0, dtype=dt, device=dev)
+
+    def cat1(xs, dt):
+        return (torch.cat(xs, 1) if xs
+                else torch.zeros((B, 0), dtype=dt, device=dev))
+
+    f32, i32 = torch.float32, torch.int32
+    return (cat(flat[0], f32), cat(flat[1], i32), cat(flat[2], i32),
+            cat(flat[3], i32),
+            *(cat1(x, dt) for grp_x in exits
+              for x, dt in zip(grp_x, (f32, i32, i32))))
+
+
+def _check_group(grp, S, TF, CTX, VAR, g):
+    if g.dim() != 2:
+        raise ValueError(f"g must be [B, g_width], got {tuple(g.shape)}")
+    B = g.shape[0]
+    want = {"S": (S, torch.float32, (B * grp.n_carry,)),
+            "TF": (TF, torch.int32, (B * grp.n_carry,)),
+            "CTX": (CTX, torch.int32, (B * grp.n_carry,)),
+            "VAR": (VAR, torch.int32, (B * grp.n_var,)),
+            "g": (g, torch.float32, (B, grp.g_width))}
+    dev = grp.tab.device
     for name, (x, dt, shape) in want.items():
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: shape {tuple(x.shape)} != {shape}")
         if x.dtype != dt:
             raise TypeError(f"{name}: dtype {x.dtype} != {dt}")
-        if x.device != S.device:
-            raise ValueError(f"{name}: device {x.device} != {S.device}")
+        if x.device != dev:
+            raise ValueError(f"{name}: device {x.device} != the group's "
+                             f"tables' {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
 
 
-def chain_step(S, TF, CTX, VAR, pre, prevd, fd_idx, tp, fm, nv, pip):
-    """Chain step on the tensors' device: the CUDA kernel for CUDA
-    tensors, `chain_step_ref` for CPU tensors.  Same arguments and
-    results as `chain_step_ref`."""
+def chain_group_step(grp, S, TF, CTX, VAR, g, pip):
+    """The chain step of every bucket of `grp` (a `ChainGroup`) on the
+    tensors' device: one launch of the CUDA kernel for CUDA tensors,
+    `chain_group_ref` for CPU tensors.
+
+    S/TF/CTX [B * grp.n_carry] f32/i32/i32 flat carry; VAR
+    [B * grp.n_var] i32 (None when the group has no variant bucket);
+    g [B, grp.g_width] f32 this frame's pre and prevd costs; pip float.
+    Returns (newS, newTF, newCTX, newVAR flat,
+             exit score, TF, CTX [B, n_exit[0]] of the variant buckets,
+             exit score, TF, CTX [B, n_exit[1]] of the others)."""
     global launches
-    _check(S, TF, CTX, VAR, pre, prevd, fd_idx, tp, fm, nv)
+    if VAR is None:
+        VAR = torch.zeros(0, dtype=torch.int32, device=S.device)
+    _check_group(grp, S, TF, CTX, VAR, g)
     if S.device.type == "cpu":
-        return chain_step_ref(S, TF, CTX, VAR, pre, prevd, fd_idx, tp, fm,
-                              nv, pip)
+        return chain_group_ref(grp, S, TF, CTX, VAR, g, pip)
     if S.device.type != "cuda":
-        raise ValueError(f"chain_step: unsupported device {S.device}")
+        raise ValueError(f"chain_group_step: unsupported device {S.device}")
     lib = _lib()
-    B, NST, D, W = S.shape
-    has_var = VAR is not None
+    B, dev = g.shape[0], S.device
     nS = torch.empty_like(S)
     nTF = torch.empty_like(TF)
     nCX = torch.empty_like(CTX)
-    dev = S.device
-    nVAR = torch.empty((B, NST, W), dtype=torch.int32, device=dev)
-    es = torch.empty((B, W), dtype=torch.float32, device=dev)
-    etf = torch.empty((B, W), dtype=torch.int32, device=dev)
-    ecx = torch.empty((B, W), dtype=torch.int32, device=dev)
-    RF, NFD = (prevd.shape[2], prevd.shape[3]) if has_var else (0, 0)
-    if B and W:
-        ptr = lambda x: x.data_ptr() if x is not None else None  # noqa: E731
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.chain_step_launch(
-                ptr(S), ptr(TF), ptr(CTX), ptr(VAR), ptr(pre), ptr(prevd),
-                ptr(fd_idx), ptr(tp), ptr(fm), ptr(nv), float(pip),
-                ptr(nS), ptr(nTF), ptr(nCX), ptr(nVAR), ptr(es), ptr(etf),
-                ptr(ecx), B, NST, D, W, RF, NFD, int(has_var), stream)
+    nVAR = torch.empty_like(VAR)
+    n0, n1 = grp.n_exit
+    # score bits, TF and CTX of a group's exits in one int32 buffer
+    x0 = torch.empty((3, B, n0), dtype=torch.int32, device=dev)
+    x1 = torch.empty((3, B, n1), dtype=torch.int32, device=dev)
+    if B and grp.n_blocks:
+        err = lib.chain_group_launch(
+            grp.tab.data_ptr(), grp.n_buckets, grp.n_blocks, grp.NST, B,
+            S.data_ptr(), TF.data_ptr(), CTX.data_ptr(), VAR.data_ptr(),
+            g.data_ptr(), g.stride(0), grp.tp.data_ptr(), grp.fm.data_ptr(),
+            grp.nv.data_ptr(), grp.fd_idx.data_ptr(), float(pip),
+            nS.data_ptr(), nTF.data_ptr(), nCX.data_ptr(), nVAR.data_ptr(),
+            x0.data_ptr(), n0, x1.data_ptr(), n1,
+            torch.cuda.current_stream(dev).cuda_stream)
         if err:
-            raise RuntimeError("chain_step_launch: "
+            raise RuntimeError("chain_group_launch: "
                                + lib.chain_error_string(err).decode())
         launches += 1
-    return nS, nTF, nCX, nVAR, es, etf, ecx
+    (es0, tf0, cx0), (es1, tf1, cx1) = x0.unbind(0), x1.unbind(0)
+    return (nS, nTF, nCX, nVAR, es0.view(torch.float32), tf0, cx0,
+            es1.view(torch.float32), tf1, cx1)
 
 
 def _lib():
     lib = _build.load("chain")
     if not getattr(lib, "_typed", False):
-        lib.chain_step_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_float]
-            + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-            + [ctypes.c_void_p])
-        lib.chain_step_launch.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.chain_group_launch.argtypes = (
+            [p] + [i] * 4 + [p] * 5 + [ctypes.c_longlong] + [p] * 4
+            + [ctypes.c_float] + [p] * 4 + [p, i, p, i, p])
+        lib.chain_group_launch.restype = ctypes.c_int
         lib.chain_error_string.argtypes = [ctypes.c_int]
         lib.chain_error_string.restype = ctypes.c_char_p
         lib._typed = True

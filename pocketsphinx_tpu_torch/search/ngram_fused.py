@@ -10,12 +10,13 @@ the JAX package used `jax.vmap`.
 The network (see the JAX module's docstring for the design):
   * right-aligned chain buckets [NST, D, Wb] for the first and interior
     phones of every multi-phone word, with the mpx first phone's variant
-    carried as a VAR plane -- stepped by the chain kernel
-    (`ops/chain.py`, CUDA on the card);
+    carried as a VAR plane -- stepped, with the CI chains, by one launch
+    of the chain kernel per frame (`ops/chain.py`, CUDA on the card) on a
+    flat carry (the buckets' [B, NST, D, Wb] blocks end to end);
   * the word-final right-context fan [3, n_rc, n_multi] -- stepped by the
     fan kernel (`ops/fan.py`, CUDA on the card);
   * single-phone words as explicit left-context columns, CI/filler words
-    as chains without variants (chain kernel);
+    as chains without variants (in the same chain launch);
   * top-K word exits per frame, exact trigram successor rows (LM mode
     "rows": one dense row per history; mode "sparse" (B): dense bigram
     rows + per-context trigram overrides), first-winner entries.
@@ -46,7 +47,7 @@ from ..convert import scan_tables
 from ..models.dict2pid import Dict2Pid
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..lm.ngram import NgramModel
-from ..ops.chain import chain_step
+from ..ops.chain import ChainGroup, chain_group_step
 from ..ops.fan import fan_step
 from ..ops.hmm import hmm_step_sm
 
@@ -138,8 +139,7 @@ class NgramFusedDecoder:
         self.depth_buckets = tuple(depth_buckets)
         self._build()
         self.host_tables = self._host_tables()
-        self.tables = scan_tables(self.host_tables, self.device,
-                                  self.seg_shapes)
+        self.tables = self.device_tables(self.host_tables, self.device)
 
     def to(self, device) -> "NgramFusedDecoder":
         """A decoder sharing this one's host network, with its tables on
@@ -147,9 +147,36 @@ class NgramFusedDecoder:
         other = object.__new__(type(self))
         other.__dict__.update(self.__dict__)
         other.device = torch.device(device)
-        other.tables = scan_tables(self.host_tables, other.device,
-                                   self.seg_shapes)
+        other.tables = self.device_tables(self.host_tables, other.device)
         return other
+
+    def device_tables(self, tables: dict, device) -> dict:
+        """Scan tables on `device` (`convert.scan_tables`) from this
+        decoder's `host_tables`, or from the JAX decoder's `_dev_tables`
+        as NumPy, which hold the same keys.  The chain buckets' tables
+        become one `ops.chain.ChainGroup` (`chain`), and `senid_all`, cut
+        by `seg_shapes`, becomes the per-chunk pre-gather's index lists
+        (`gather`: name -> (ids, per-utterance shape of the result)): the
+        chain group's g row, the finals' and the single-phone columns'."""
+        out = scan_tables(tables, device)
+        buckets = [dict(tp=out.pop(f"ch_tp{k}"), fm=out[f"ch_fm{k}"],
+                        nv=out.pop(f"ch_nv{k}"), fd_idx=out.pop(f"fd_idx{k}"),
+                        RF=ch.senid_first_d.shape[1],
+                        NFD=ch.senid_first_d.shape[2])
+                   for k, ch in enumerate(self.chains)]
+        buckets += [dict(tp=out.pop(f"ci_tp{k}"), fm=out[f"ci_fm{k}"])
+                    for k in range(len(self.ci_chains))]
+        grp = out["chain"] = ChainGroup(self.NST, buckets)
+        sizes = [int(np.prod(s)) for s in self.seg_shapes.values()]
+        seg = dict(zip(self.seg_shapes,
+                       torch.split(out.pop("senid_all").long(), sizes)))
+        row = grp.row([seg["pre", k] for k in range(grp.n_buckets)],
+                      [seg["prevd", k] for k in range(len(self.chains))])
+        out["gather"] = {"chain": (row, (grp.g_width,))}
+        for name in ("fin", "sp"):
+            if name in seg:
+                out["gather"][name] = (seg[name], self.seg_shapes[name])
+        return out
 
     # -- static structure ----------------------------------------------------
 
@@ -703,28 +730,26 @@ class NgramFusedDecoder:
         tabs["etgt0"] = self.etgt0.astype(np.int32)
         tabs["fb_ci"] = self.fb_ci.astype(np.float32)
 
-        # flat senone-id list for the per-chunk pre-gather, in segments:
-        # chain buckets, their first-diphone variant planes, the finals
-        # fan, the single-phone columns, the CI chains
-        seg_ids, seg_shapes = [], []
-
-        def add_seg(arr):
-            seg_shapes.append(arr.shape)
-            seg_ids.append(arr.reshape(-1))
-
-        for ch in self.chains:
-            add_seg(ch.senid)
-        for ch in self.chains:
-            add_seg(ch.senid_first_d)
+        # flat senone-id list for the per-chunk pre-gather, in named
+        # segments, in the JAX package's order: the nodes of chain bucket
+        # k ("pre", k), their first-diphone variant planes ("prevd", k),
+        # the finals fan, the single-phone columns, the nodes of the CI
+        # chains (their k follows the chain buckets', as in the ChainGroup)
+        segs = {}
+        for k, ch in enumerate(self.chains):
+            segs["pre", k] = ch.senid
+        for k, ch in enumerate(self.chains):
+            segs["prevd", k] = ch.senid_first_d
         if n_multi:
-            add_seg(self.senid_fin_d)
+            segs["fin"] = self.senid_fin_d
         if SP:
-            add_seg(self.senid_sp[:, :, :SP])
-        for ch in self.ci_chains:
-            add_seg(ch.senid)
-        tabs["senid_all"] = (np.concatenate(seg_ids) if seg_ids
-                             else np.zeros(0, int)).astype(np.int32)
-        self.seg_shapes = seg_shapes
+            segs["sp"] = self.senid_sp[:, :, :SP]
+        for k, ch in enumerate(self.ci_chains, len(self.chains)):
+            segs["pre", k] = ch.senid
+        tabs["senid_all"] = (
+            np.concatenate([a.reshape(-1) for a in segs.values()]) if segs
+            else np.zeros(0, int)).astype(np.int32)
+        self.seg_shapes = {name: a.shape for name, a in segs.items()}
 
         for bi, ch in enumerate(self.chains):
             tabs[f"fd_idx{bi}"] = ch.fd_idx
@@ -759,15 +784,10 @@ class NgramFusedDecoder:
                 CTX=torch.zeros((B, NST) + shape, dtype=torch.int32,
                                 device=dev))
 
-        c = {"ch": [], "ci": []}
-        for ch in self.chains:
-            e = planes(ch.D, ch.Wb)
-            e["VAR"] = torch.zeros((B, NST, ch.Wb), dtype=torch.int32,
-                                   device=dev)
-            c["ch"].append(e)
+        c = {"chain": self.tables["chain"].init_carry(B)}
+        c["ch"], c["ci"] = self._chain_views(c["chain"], B)
         c["fin"] = planes(n_rc, self.n_multi) if self.n_multi else None
         c["sp"] = planes(n_rc, self.SP) if self.SP else None
-        c["ci"] = [planes(ch.D, ch.Wb) for ch in self.ci_chains]
         if self.start_idx is not None:
             s_lm = self.lm.wid("<s>")
             for bi, ch in enumerate(self.ci_chains):
@@ -779,45 +799,48 @@ class NgramFusedDecoder:
                         c["ci"][bi]["CTX"][:, 0, dep, k] = 1 + s_lm
         return c
 
+    def _chain_views(self, flat, B):
+        """Per-bucket views of the flat chain carry `flat` (S/TF/CTX/VAR):
+        ([dict(S, TF, CTX, VAR) per chain bucket], [dict(S, TF, CTX) per
+        CI bucket])."""
+        grp = self.tables["chain"]
+        views = [dict(S=s, TF=tf, CTX=cx) for s, tf, cx in zip(
+            grp.planes(flat["S"], B), grp.planes(flat["TF"], B),
+            grp.planes(flat["CTX"], B))]
+        n_ch = len(self.chains)
+        for e, v in zip(views[:n_ch], grp.var_planes(flat["VAR"], B)):
+            e["VAR"] = v
+        return views[:n_ch], views[n_ch:]
+
     def _step(self, carry, g, t, valid, minimal):
-        """One frame for B utterances.  g: this frame's senone costs per
-        segment (see `_host_tables`); t: frame index; valid [B] bool.
+        """One frame for B utterances.  g: this frame's senone costs by
+        gather name (see `device_tables`); t: frame index; valid [B] bool.
         Returns (new carry, records)."""
         tb = self.tables
         NST, n_rc, W, nE, K = self.NST, self.n_rcp, self.W, self.nE, self.K
         n_multi, SP, V = self.n_multi, self.SP, self.V
-        n_ch = len(self.chains)
         B = valid.shape[0]
         dev = valid.device
         pip = float(np.float32(self.pip))
         wpen = float(np.float32(self.nwpen + self.pip))
-        g_ch, g_fv = g[:n_ch], g[n_ch:2 * n_ch]
-        gi = 2 * n_ch
-        g_fin = g[gi] if n_multi else None
-        gi += bool(n_multi)
-        g_sp = g[gi] if SP else None
-        g_ci = g[gi + bool(SP):]
-        newc = {"ch": [], "ci": []}
+        g_fin, g_sp = g.get("fin"), g.get("sp")
 
-        # ---------- chain buckets (multi first + interior phones) ----------
-        outs_last, tf_last, cx_last = [], [], []
-        for bi in range(n_ch):
-            e = carry["ch"][bi]
-            nS, nTF, nCX, nVAR, es, etf, ecx = chain_step(
-                e["S"], e["TF"], e["CTX"], e["VAR"], g_ch[bi], g_fv[bi],
-                tb[f"fd_idx{bi}"], tb[f"ch_tp{bi}"], tb[f"ch_fm{bi}"],
-                tb[f"ch_nv{bi}"], pip)
-            newc["ch"].append(dict(S=nS, TF=nTF, CTX=nCX, VAR=nVAR))
-            outs_last.append(es)
-            tf_last.append(etf)
-            cx_last.append(ecx)
+        # ---------- chain buckets (multi first + interior phones) and CI
+        # chains: one grouped step ----------
+        cc = carry["chain"]
+        (nS, nTF, nCX, nVAR, cl_s, cl_tf, cl_cx,
+         esc_c, etf_c, ecx_c) = chain_group_step(
+            tb["chain"], cc["S"], cc["TF"], cc["CTX"], cc["VAR"], g["chain"],
+            pip)
+        newc = {"chain": dict(S=nS, TF=nTF, CTX=nCX, VAR=nVAR)}
+        newc["ch"], newc["ci"] = self._chain_views(newc["chain"], B)
         # ---------- finals fan ----------
         if n_multi:
             e = carry["fin"]
-            pred = torch.cat(outs_last, 1) + pip               # [B, Wm]
+            pred = cl_s + pip                                  # [B, Wm]
             nSf, nTFf, nCXf, sv_m, esc_m, etf_m, ecx_m = fan_step(
-                e["S"], e["TF"], e["CTX"], pred, torch.cat(tf_last, 1),
-                torch.cat(cx_last, 1), g_fin, tb["lp_idx"], tb["tp_fin12"])
+                e["S"], e["TF"], e["CTX"], pred, cl_tf, cl_cx, g_fin,
+                tb["lp_idx"], tb["tp_fin12"])
             fin_new = dict(S=nSf, TF=nTFf, CTX=nCXf)
         else:
             fin_new = None
@@ -849,22 +872,6 @@ class NgramFusedDecoder:
             esc_s = torch.zeros((B, 0), device=dev)
             etf_s = ecx_s = etg_s = torch.zeros((B, 0), dtype=torch.int32,
                                                 device=dev)
-        # ---------- CI chains ----------
-        esc_c, etf_c, ecx_c = [], [], []
-        for bi in range(len(self.ci_chains)):
-            e = carry["ci"][bi]
-            nS, nTF, nCX, _, es, etf, ecx = chain_step(
-                e["S"], e["TF"], e["CTX"], None, g_ci[bi], None, None,
-                tb[f"ci_tp{bi}"], tb[f"ci_fm{bi}"], None, pip)
-            newc["ci"].append(dict(S=nS, TF=nTF, CTX=nCX))
-            esc_c.append(es)
-            etf_c.append(etf)
-            ecx_c.append(ecx)
-        cat1 = lambda xs, dt: (torch.cat(xs, 1) if xs  # noqa: E731
-                               else torch.zeros((B, 0), dtype=dt, device=dev))
-        esc_c = cat1(esc_c, torch.float32)
-        etf_c = cat1(etf_c, torch.int32)
-        ecx_c = cat1(ecx_c, torch.int32)
 
         # ---------- word transitions ----------
         escore = torch.cat([esc_m, esc_s, esc_c], 1)              # [B, W]
@@ -1059,16 +1066,17 @@ class NgramFusedDecoder:
         costs = torch.nn.functional.pad(costs, (0, 0, 0, Tp - T))
         valid = torch.nn.functional.pad(valid, (0, Tp - T))
         carry = self.init_carry(B)
-        segs = self.tables["senid_segs"]
+        gather = self.tables["gather"]
         recs = None
         for c0 in range(0, Tp, CH):
             # chunked pre-gather: this chunk's costs of every node's
-            # senones, one contiguous [CH, B, n] block per segment
+            # senones, one contiguous [CH, B, n] block per gather
             cch = costs[:, c0:c0 + CH]
-            gs = [cch[:, :, ids].transpose(0, 1).contiguous() for ids in segs]
+            gs = {name: cch[:, :, ids].transpose(0, 1).contiguous()
+                  for name, (ids, _) in gather.items()}
             for i in range(CH):
-                g = [x[i].view((B,) + shape)
-                     for x, shape in zip(gs, self.seg_shapes)]
+                g = {name: x[i].view((B,) + gather[name][1])
+                     for name, x in gs.items()}
                 carry, rec = self._step(carry, g, c0 + i, valid[:, c0 + i],
                                         minimal)
                 if recs is None:

@@ -36,13 +36,36 @@ def test_fan_kernel_bit_equal(cuda, ties):
 
 @pytest.mark.parametrize("NST,has_var", [(3, True), (3, False), (5, True)])
 def test_chain_kernel_bit_equal(cuda, NST, has_var):
-    a = chip_smoke.to_device(chip_smoke.chain_inputs(
-        np.random.default_rng(2), 3, NST, 6, 200, 4, 37, has_var, True),
-        cuda)
+    a = chip_smoke.chain_inputs(np.random.default_rng(2), 3, NST, 6, 200,
+                                4, 37, has_var, True)
+    grp, args = chip_smoke.chain_group_args([a], cuda)
     n = chain.launches
-    outs = chain.chain_step(**a)
+    outs = chain.chain_group_step(grp, **args)
     assert chain.launches == n + 1
-    chip_smoke.compare(outs, chain.chain_step_ref(**a), "chain")
+    torch.cuda.synchronize()
+    chip_smoke.compare(outs, chain.chain_group_ref(grp, **args), "chain")
+
+
+@pytest.mark.parametrize("B", [3, 11])
+@pytest.mark.parametrize("NST,with_ci", [(3, True), (3, False), (5, True),
+                                         (5, False)])
+def test_chain_group_kernel_bit_equal(cuda, NST, with_ci, B):
+    """One launch over variant buckets of several depths (and a CI
+    bucket) equals the grouped plain version; B=11 runs the kernel's loop
+    over batch rows past a block's 8."""
+    buckets = [(NST, 5, 70, 4, 9, True), (NST, 16, 40, 3, 7, True),
+               (NST, 2, 300, 2, 5, True)]
+    if with_ci:
+        buckets.append((NST, 4, 9, 0, 0, False))
+    rng = np.random.default_rng(3)
+    per = [chip_smoke.chain_inputs(rng, B, *bk, True) for bk in buckets]
+    grp, args = chip_smoke.chain_group_args(per, cuda)
+    n = chain.launches
+    outs = chain.chain_group_step(grp, **args)
+    assert chain.launches == n + 1
+    torch.cuda.synchronize()
+    chip_smoke.compare(outs, chain.chain_group_ref(grp, **args),
+                       "chain group")
 
 
 def test_decode_cuda_equals_cpu(cuda, tmp_path):

@@ -15,7 +15,6 @@ import jax.numpy as jnp
 
 import pocketsphinx_tpu.models.acoustic as jax_acoustic
 from _torch_jax_helpers import jax_decoder
-from pocketsphinx_tpu_torch.convert import scan_tables
 from pocketsphinx_tpu_torch.testing import synth
 
 TOPK = 8
@@ -111,12 +110,13 @@ def test_decode_full_records_equal(decoders):
 
 def test_port_scan_on_jax_tables(decoders):
     """The JAX decoder's own device tables, carried over by
-    `convert.scan_tables`, drive the port's scan to the same records."""
+    `convert.scan_tables` (through the decoder's `device_tables`), drive
+    the port's scan to the same records."""
     jx, pt = decoders
     other = pt.to("cpu")
-    other.tables = scan_tables({k: np.asarray(v)
-                                for k, v in jx._dev_tables.items()},
-                               "cpu", pt.seg_shapes)
+    other.tables = pt.device_tables({k: np.asarray(v)
+                                     for k, v in jx._dev_tables.items()},
+                                    "cpu")
     costs = torch.as_tensor(_costs(pt.am.n_sen, 20, seed=8))[None]
     valid = torch.ones((1, 20), dtype=torch.bool)
     for a, b in zip(other.scan(costs, valid), pt.scan(costs, valid)):
