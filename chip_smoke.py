@@ -26,7 +26,20 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    segments held bit-equal against the same port run on the CPU with the
    plain kernels, from the same cost matrix;
 6. with --profile only: torch.profiler over 64 scan steps of the B=8
-   decode, device time by kernel and the device's busy share.
+   decode, device time by kernel and the device's busy share;
+7. the `Decoder` facade at the same width: a synthetic en-us-shaped
+   model directory (`synth.SynthModel.write_model_dir`) with
+   bench-20k.dic and bench-20k.lm.bin, on CUDA: the seconds to build
+   the LM's host lookup maps, which the best-path pass needs; (a) two
+   seeded utterances through `decode_raw` with the best-path pass, their
+   stage seconds and lattice sizes, the first one's records, lattice
+   lists and best-path result held equal to the same decoder moved to
+   the CPU (`Decoder._to`) decoding the same cost matrix; (b) one utterance
+   streamed through `process_raw` in 0.1 s chunks with `partial_hyp`
+   after each, the seconds of each 32-frame block, and the streamed
+   records held bit-equal to one whole-utterance scan of the same costs
+   on the card; (c) the kernels' launches over (a) and (b) equal the
+   frames the scans stepped.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -332,6 +345,148 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
     return res
 
 
+def _lattice_lists(lat):
+    return ([(n.word, n.sf, n.id) for n in lat.nodes],
+            [(l.src, l.dst, l.ef, l.ascr) for l in lat.links],
+            (lat.start, lat.end))
+
+
+def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
+           dic=None, lmfile=None, n_sen=None, n_density=None):
+    """Phase 7: the port's `Decoder` on `device` over a synthetic model
+    directory written under `work` (en-us shapes unless `n_sen` /
+    `n_density` say otherwise) with `dic` and `lmfile` (default the 20k
+    task).  (a) `decode_raw` of one seeded utterance per entry of
+    `seconds`; (b) `stream_seconds` of seeded PCM streamed in 0.1 s
+    chunks; (c) launch counts over (a) and (b); then the checks against
+    the CPU and the whole-utterance scan.  Returns what it measured."""
+    import torch
+    from pocketsphinx_tpu_torch import Decoder
+    from pocketsphinx_tpu_torch.ops import chain, fan
+    from pocketsphinx_tpu_torch.testing import synth
+
+    dic = dic or os.path.join(BENCH, "bench-20k.dic")
+    lmfile = lmfile or os.path.join(BENCH, "bench-20k.lm.bin")
+    kw = {k: v for k, v in (("n_sen", n_sen), ("n_density", n_density))
+          if v is not None}
+    t0 = time.perf_counter()
+    hmm = synth.make_model([dic], seed=0, **kw).write_model_dir(
+        os.path.join(work, "hmm"))
+    dec = Decoder(hmm=hmm, dict=dic, lm=lmfile, device=device)
+    search = dec._searches["_default"]
+    ch = search.CHUNK
+    log(f"facade: Decoder(hmm=<synthetic>, dict={os.path.basename(dic)}, "
+        f"lm={os.path.basename(lmfile)}) on {dec.device}: W={search.W}, "
+        f"LM mode {search.lm_mode}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the best-path pass looks up LM entries through host maps built on
+    # first use; build them here, timed on their own, so that no
+    # utterance's bestpath seconds include them
+    t0 = time.perf_counter()
+    for level in range(1, search.lm.order):
+        search.lm._level_map(level)
+    res = {"utts": [], "lm_maps_s": time.perf_counter() - t0}
+    log(f"facade: LM host maps built in {res['lm_maps_s']:.4f} s")
+    fan.reset_launches()
+    chain.reset_launches()
+    frames = 0
+    for i, sec in enumerate(seconds):                      # (a)
+        h = dec.decode_raw(synth.make_pcm(100 + i, sec))
+        T = dec.n_frames
+        frames += -(-T // ch) * ch
+        lat = dec.get_lattice()
+        u = dict(frames=T, hyp=h.hypstr, score=h.score, prob=h.prob,
+                 n_segs=len(list(dec.seg_iter())),
+                 nodes=lat.n_nodes if lat else 0,
+                 links=lat.n_links if lat else 0,
+                 **{k + "_s": t.t_elapsed
+                    for k, t in dec.stage_timers.items()})
+        if not (np.isfinite(h.score) and 0.0 < h.prob <= 1.0 and lat):
+            raise AssertionError(f"decode_raw {i}: {u}")
+        log(f"facade decode_raw {i}: " + json.dumps(u))
+        res["utts"].append(u)
+        if i == 0:
+            first = (dec._feats, search.raw_records, _lattice_lists(lat),
+                     (h.hypstr, h.score, h.prob),
+                     [(s.word, s.start_frame, s.end_frame)
+                      for s in dec.seg_iter()])
+    pcm = synth.make_pcm(200, stream_seconds)              # (b)
+    step = dec.fe.samprate // 10
+    # keep each streamed block's cost matrix for the whole-utterance
+    # check: the hook holds a reference, with no copy and no sync, so the
+    # block times stay what a live user waits for
+    stream_costs, scores = [], dec._scores
+
+    def keep(feats, **kw):
+        stream_costs.append(scores(feats, **kw))
+        return stream_costs[-1]
+
+    dec._scores = keep
+    dec.start_utt()
+    partials = []
+    for c0 in range(0, len(pcm), step):
+        dec.process_raw(pcm[c0:c0 + step])
+        h = dec.partial_hyp()
+        partials.append(h.hypstr if h else None)
+    t0 = dec._sync()
+    dec.end_utt()
+    end_s = dec._sync() - t0
+    dec._scores = scores
+    blocks = dec.stream_block_seconds
+    frames += 32 * len(blocks)
+    res["launches"] = {"fan": fan.launches, "chain": chain.launches}
+    if torch.device(device).type == "cuda":                 # (c)
+        want = {"fan": frames, "chain": frames}
+        if res["launches"] != want:
+            raise AssertionError(f"facade launch counts {res['launches']} "
+                                 f"!= frames stepped {want}")
+    lat = dec.get_lattice()
+    res["stream"] = dict(
+        frames=dec.n_frames, blocks=len(blocks),
+        block_ms_median=float(np.median(blocks)) * 1e3,
+        block_ms_max=float(np.max(blocks)) * 1e3,
+        end_utt_s=end_s, hyp=dec.hyp().hypstr, partials=partials[-3:],
+        nodes=lat.n_nodes if lat else 0, links=lat.n_links if lat else 0)
+    log("facade stream: " + json.dumps(res["stream"]))
+    # (b) check: the streamed records == one scan of the same costs
+    T = dec.n_frames
+    if len(stream_costs) != len(blocks):
+        raise AssertionError(f"{len(stream_costs)} cost blocks kept for "
+                             f"{len(blocks)} streamed blocks")
+    costs = torch.cat(stream_costs)[None, :T]     # only the last is padded
+    t0 = dec._sync()
+    whole = search.scan(costs, torch.ones((1, T), dtype=torch.bool,
+                                          device=search.device))
+    whole_s = dec._sync() - t0
+    names = "escore etf etgt ecx entry eprw erw1 erw2 m nviol".split()
+    for k, (n, w) in enumerate(zip(names, whole)):
+        got = np.concatenate([r[k] for r in dec._stream_recs])
+        if not np.array_equal(got, w[0, :T].cpu().numpy()):
+            raise AssertionError(f"streamed records differ from the whole "
+                                 f"scan: {n}")
+    # (a) check: the same decoder on the CPU, same cost matrix
+    feats, raw, lists, hyp, segs = first
+    costs = dec._scores(feats)
+    cpu = dec._to("cpu")
+    t0 = time.perf_counter()
+    cpu.decode_senscr(costs.cpu().numpy())
+    cpu_s = time.perf_counter() - t0
+    for n, a, b in zip(names, raw, cpu._searches["_default"].raw_records):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"facade {device} vs cpu records: {n}")
+    h = cpu.hyp()
+    if (_lattice_lists(cpu.get_lattice()) != lists
+            or (h.hypstr, h.score, h.prob) != hyp
+            or [(s.word, s.start_frame, s.end_frame)
+                for s in cpu.seg_iter()] != segs):
+        raise AssertionError(f"facade {device} vs cpu lattice or best path "
+                             f"differ: {hyp} / {(h.hypstr, h.score, h.prob)}")
+    res["cpu_check"] = dict(frames=int(costs.shape[0]), seconds=cpu_s,
+                            equal=True)
+    res["stream_check"] = dict(frames=T, equal=True, whole_scan_s=whole_s)
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phases (need CUDA)
 # ---------------------------------------------------------------------------
@@ -516,6 +671,12 @@ def main(argv):
         f"peak memory {res['peak_mem_bytes'] / 2**30:.2f} GiB on {smi}")
     if "--profile" in argv:
         profile_scan(dec, fe, log)
+    del dec
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        fres = facade(work, "cuda", log=log)
+    log(f"facade ({time.perf_counter() - t0:.1f} s) on {smi}: "
+        + json.dumps(fres, default=float))
     kernels = []
     for name, r, src, rep in (
             ("fan", fan_res, "pocketsphinx_tpu_torch/csrc/fan.cu",
@@ -525,6 +686,7 @@ def main(argv):
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep,
                             launches=res["launches"][name],
+                            facade_launches=fres["launches"][name],
                             library_ms=None, **r))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -7,8 +7,10 @@ copies; device compute is torch, and the two per-frame search blocks
 that the JAX package wrote as Pallas kernels are hand-written CUDA
 kernels (`csrc/`, bound in `ops/`).
 
-Entry points run on CUDA unless the caller passes `device="cpu"`; they
-raise when CUDA is absent and the CPU was not asked for.  Float32
+The user's entry point is `Decoder` (with `Config`, `Hypothesis`,
+`Segment`), loaded lazily on first access.  Entry points run on CUDA
+unless the caller passes `device="cpu"`; they raise when CUDA is absent
+and the CPU was not asked for.  Float32
 matrix products run at full precision (no TF32), as the JAX package
 scores at `Precision.HIGHEST`.
 """
@@ -31,3 +33,17 @@ def resolve_device(device=None) -> torch.device:
                 "CUDA is not available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def __getattr__(name):
+    """Lazy top-level API (the JAX package's exports): the decoder's
+    modules load on first access, not at package import."""
+    if name in ("Decoder", "Config", "Hypothesis", "Segment"):
+        from . import decoder as _d
+        from .config import Config as _C
+        return {"Decoder": _d.Decoder, "Config": _C,
+                "Hypothesis": _d.Hypothesis, "Segment": _d.Segment}[name]
+    if name == "err":
+        import importlib
+        return importlib.import_module(".err", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

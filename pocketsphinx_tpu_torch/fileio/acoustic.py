@@ -319,3 +319,20 @@ def read_tmat(path: str, tpfloor: float, lmath: LogMath | None = None) -> Tmat:
     ltp = -lmath.log(tp) >> SENSCR_SHIFT
     ltp = np.minimum(ltp, 255).astype(np.uint8)
     return Tmat(tp=ltp)
+
+
+def read_lda(path: str) -> np.ndarray:
+    """LDA/MLLT feature transform reader (feat_read_lda,
+    src/feat/lda.c:60-140): s3 file with float32 [n_lda, m, n]; rows are
+    output dimensions (SphinxTrain stores eigenvectors as row vectors).
+    Returns the first transform [m, n]."""
+    f = S3File(path)
+    d1 = f.read_int32()
+    d2 = f.read_int32()
+    d3 = f.read_int32()
+    n = f.read_int32()
+    if n != d1 * d2 * d3:
+        raise ValueError(f"{path}: bad LDA array size")
+    arr = f.read(np.float32, n).reshape(d1, d2, d3)
+    f.verify_chksum()
+    return arr[0]

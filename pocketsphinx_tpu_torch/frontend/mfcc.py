@@ -1,8 +1,10 @@
 """Signal frontend: PCM int16 -> MFCC, batched, in torch.
 
 Port of `pocketsphinx_tpu.frontend.mfcc`: the host-side setup (mel
-filterbank, DCT, lifter, window; NumPy copies) and the batched device
-path `process_batch_jax` as `MelFrontend.process_batch` in torch.
+filterbank, DCT, lifter, window), the host float64 path that the
+`Decoder` runs (`MelFrontend.process`, `mel_spectrum`, `from_config`,
+`noise_removal_np`; NumPy copies), and the batched device path
+`process_batch_jax` as `MelFrontend.process_batch` in torch.
 
 Ground-up re-design of the reference DSP pipeline (src/fe/fe_sigproc.c,
 fe_interface.c, fe_noise.c — float build: frame_t/powspec_t = float64,
@@ -224,6 +226,27 @@ class MelFrontend:
     # Frame counts
     # ------------------------------------------------------------------
 
+    @classmethod
+    def from_config(cls, config) -> "MelFrontend":
+        """Build from a Config object (config.py parameter namespace)."""
+        return cls(
+            samprate=int(config["samprate"]), frate=int(config["frate"]),
+            wlen=float(config["wlen"]), alpha=float(config["alpha"]),
+            ncep=int(config["ncep"]), nfft=int(config["nfft"]),
+            nfilt=int(config["nfilt"]), lowerf=float(config["lowerf"]),
+            upperf=float(config["upperf"]),
+            transform=str(config["transform"]),
+            lifter_val=int(config["lifter"]),
+            doublewide=bool(config["doublebw"]),
+            remove_dc=bool(config["remove_dc"]),
+            remove_noise=bool(config["remove_noise"]),
+            round_filters=bool(config["round_filters"]),
+            unit_area=bool(config["unit_area"]),
+            logspec=bool(config["logspec"]),
+            warp_type=config["warp_type"],
+            warp_params=config["warp_params"],
+        )
+
     def n_full_frames(self, nsamps: int) -> int:
         """Frames produced by fe_process_frames (no end-of-utt flush)."""
         if nsamps < self.frame_size:
@@ -240,6 +263,45 @@ class MelFrontend:
             return 1
         return self.n_full_frames(nsamps) + 1
 
+    # ------------------------------------------------------------------
+    # Host path (float64, matches the reference float build)
+    # ------------------------------------------------------------------
+
+    def mel_spectrum(self, pcm: np.ndarray) -> np.ndarray:
+        """PCM int16 [N] -> mel power spectrum [T, nfilt] float64
+        (pre-noise-removal), including the fe_end_utt tail frame."""
+        x = np.asarray(pcm, dtype=np.float64)
+        n = len(x)
+        T = self.n_frames(n)
+        if T <= 0:
+            return np.zeros((0, self.nfilt))
+        y = x - self.alpha * np.concatenate([[0.0], x[:-1]])
+        # zero-pad so the tail frame window (starting at n_full*shift)
+        # reads zeros past the end, like the reference's frame padding
+        y = np.concatenate([y, np.zeros(self.frame_size)])
+        idx = (np.arange(T)[:, None] * self.frame_shift
+               + np.arange(self.frame_size)[None, :])
+        frames = y[idx]
+        if self.remove_dc:
+            frames = frames - frames.mean(axis=1, keepdims=True)
+        frames = frames * self.window[None, :]
+        spec = np.fft.rfft(frames, n=self.nfft, axis=1)
+        power = spec.real ** 2 + spec.imag ** 2
+        return power @ self.mel_fb.astype(np.float64)
+
+    def process(self, pcm: np.ndarray) -> np.ndarray:
+        """PCM int16 [N] -> MFCC [T, ncep] float32 (one whole utterance,
+        on the host)."""
+        mfspec = self.mel_spectrum(pcm)
+        if self.remove_noise:
+            mfspec = noise_removal_np(mfspec)
+        logspec = np.log(mfspec + LOG_FLOOR)
+        if self.logspec:
+            return logspec.astype(np.float32)
+        cep = logspec @ self.dct
+        if self.lifter is not None:
+            cep = cep * self.lifter[None, :]
+        return cep.astype(np.float32)
 
     # ------------------------------------------------------------------
     # Batched device path
@@ -297,6 +359,61 @@ class MelFrontend:
 # ---------------------------------------------------------------------------
 # Noise removal (fe_noise.c): sequential minima-tracking over frames
 # ---------------------------------------------------------------------------
+
+def _lower_env(buf, floor_buf):
+    """fe_lower_envelope: asymmetric exponential floor tracker."""
+    return np.where(buf >= floor_buf,
+                    LAMBDA_A * floor_buf + (1 - LAMBDA_A) * buf,
+                    LAMBDA_B * floor_buf + (1 - LAMBDA_B) * buf)
+
+
+def _smooth_gain(mfspec, gain):
+    """fe_weight_smooth: boxcar-average the gains over +/-SMOOTH_WINDOW
+    neighboring filters, multiply into the spectrum."""
+    n = gain.shape[-1]
+    idx = np.arange(n)
+    l1 = np.maximum(idx - SMOOTH_WINDOW, 0)
+    l2 = np.minimum(idx + SMOOTH_WINDOW, n - 1)
+    cs = np.concatenate([np.zeros(gain.shape[:-1] + (1,)),
+                         np.cumsum(gain, axis=-1)], axis=-1)
+    avg = (cs[..., l2 + 1] - cs[..., l1]) / (l2 - l1 + 1)
+    return mfspec * avg
+
+
+def noise_removal_np(mfspec: np.ndarray) -> np.ndarray:
+    """[T, nfilt] float64 -> denoised, sequential host implementation."""
+    T, n = mfspec.shape
+    if T == 0:
+        return mfspec
+    power = mfspec[0].copy()
+    noise = mfspec[0] / MAX_GAIN
+    floor = mfspec[0] / MAX_GAIN
+    peak = np.zeros(n)
+    out = np.empty_like(mfspec)
+    for t in range(T):
+        x = mfspec[t]
+        power = LAMBDA_POWER * power + (1 - LAMBDA_POWER) * x
+        noise = _lower_env(power, noise)
+        signal = np.maximum(power - noise, 1.0)
+        floor = _lower_env(signal, floor)
+        # temporal masking (fe_temp_masking): peak decays, signal floored
+        # at peak*MU_T, then peak raised to the *current* signal value
+        cur_in = signal.copy()
+        peak = peak * LAMBDA_T
+        signal = np.where(signal < LAMBDA_T * peak, peak * MU_T, signal)
+        peak = np.where(cur_in > peak, cur_in, peak)
+        signal = np.maximum(signal, floor)
+        # guard power == 0 (silence): the reference takes the MAX_GAIN
+        # branch since signal >= 1.0 > MAX_GAIN*0; avoid evaluating x/0
+        gain = np.where(signal < MAX_GAIN * power,
+                        np.divide(signal, power,
+                                  out=np.full_like(signal, MAX_GAIN),
+                                  where=power > 0),
+                        MAX_GAIN)
+        gain = np.maximum(gain, 1.0 / MAX_GAIN)
+        out[t] = _smooth_gain(x, gain)
+    return out
+
 
 def noise_removal(mfspec):
     """[B, T, nfilt] -> denoised, a loop over T.  Port of

@@ -27,9 +27,14 @@ descending sort (ties to the lower index, like top_k); argmax is
 first-max.  Given the same cost matrix the records are bit-equal to the
 JAX package's (tests/test_torch_ngram_fused.py).
 
-Not ported in this slice (each raises NotImplementedError): LM mode C
-(CSR), the PS_GUARD_TOPM guard refinement, 5-state models, and the
-streaming carry (`with_carry`/`mask_carry`).
+Streaming: `with_carry` runs the scan from a carry and a frame offset
+and returns the carry (the JAX `_make_scan(mask_carry=True).with_carry`);
+a frame whose `valid` is false leaves the whole carry as it was.
+`_backtrace` is the host 1-best walk over flat records (the JAX
+`ngram_flat` walk, without the C extension).
+
+Not ported (each raises NotImplementedError): LM mode C (CSR), the
+PS_GUARD_TOPM guard refinement, and 5-state models.
 """
 
 from __future__ import annotations
@@ -55,6 +60,19 @@ NEG_INF = -1e30
 SHIFT = 1 << 10
 #: predecessors per column in the exit guard's top-J bonus tables
 GUARD_TOPJ = 8
+
+
+def _eascr(escore, tf, entv_at_entry, Mcp, t):
+    """The segment acoustic score of exits at frames `t` (`adapt_records`'
+    eascr): the exit score less the word's entry score, plus the renorm
+    offsets subtracted between its entry frame tf-1 and t (Mcp[t] = sum
+    of the offsets of frames < t).  Exits with tf = 0 entered at the
+    start (no entry score)."""
+    has = tf > 0
+    tfi = np.clip(tf - 1, 0, len(Mcp) - 2)
+    corr = Mcp[t] - np.where(has, Mcp[tfi], 0.0)
+    return (escore - np.where(has, entv_at_entry, 0.0) + corr).astype(
+        np.float32)
 
 
 @dataclass
@@ -137,6 +155,12 @@ class NgramFusedDecoder:
         self.fillpen = self.pip + ln(fillprob)
         self.topk = topk
         self.depth_buckets = tuple(depth_buckets)
+        self.rebuild()
+
+    def rebuild(self):
+        """Build the network and its host and device tables, again after
+        the dictionary or the LM changed (the JAX decoder's `_build`,
+        which also drops its compiled scan and device tables)."""
         self._build()
         self.host_tables = self._host_tables()
         self.tables = self.device_tables(self.host_tables, self.device)
@@ -812,9 +836,30 @@ class NgramFusedDecoder:
             e["VAR"] = v
         return views[:n_ch], views[n_ch:]
 
-    def _step(self, carry, g, t, valid, minimal):
+    def _mask_carry(self, new, old, valid):
+        """`new` where `valid` [B], else `old`, for every carry field.  The
+        flat chain fields are not batch-major (the buckets' [B, ...]
+        blocks lie end to end), so they are masked through their
+        per-bucket views, in place on the step's fresh buffers."""
+        B = valid.shape[0]
+        grp = self.tables["chain"]
+        for key in ("S", "TF", "CTX", "VAR"):
+            views = grp.var_planes if key == "VAR" else grp.planes
+            for nv, ov in zip(views(new["chain"][key], B),
+                              views(old["chain"][key], B)):
+                m = valid.view((B,) + (1,) * (nv.dim() - 1))
+                nv.copy_(torch.where(m, nv, ov))
+        for name in ("fin", "sp"):
+            if new[name] is not None:
+                m = valid.view(B, 1, 1, 1)
+                new[name] = {k: torch.where(m, v, old[name][k])
+                             for k, v in new[name].items()}
+        return new
+
+    def _step(self, carry, g, t, valid, minimal, mask=False):
         """One frame for B utterances.  g: this frame's senone costs by
-        gather name (see `device_tables`); t: frame index; valid [B] bool.
+        gather name (see `device_tables`); t: frame index; valid [B] bool;
+        `mask`: frames whose valid is false leave the carry unchanged.
         Returns (new carry, records)."""
         tb = self.tables
         NST, n_rc, W, nE, K = self.NST, self.n_rcp, self.W, self.nE, self.K
@@ -1014,6 +1059,8 @@ class NgramFusedDecoder:
         m = torch.clamp(m, min=NEG_INF)
         for x in groups:
             x["S"].sub_(m[:, None, None, None])
+        if mask:
+            newc = self._mask_carry(newc, carry, valid)
 
         if minimal:
             # top-(K+1) exit records + [E] winner-rank map; slot K pins
@@ -1060,12 +1107,25 @@ class NgramFusedDecoder:
         CHUNK; returns the per-frame records stacked to [B, Tp, ...]:
         full (escore, etf, etgt, ecx, entry, eprw, erw1, erw2, m, nviol)
         or minimal (kv, ki, etf, etgt, rank, m, nviol)."""
+        return self._scan(costs, valid, minimal)[0]
+
+    def with_carry(self, costs, valid, carry=None, t0=0):
+        """The streaming scan (JAX `_make_scan(mask_carry=True)
+        .with_carry`, batched): the full-record `scan` from `carry` (None:
+        `init_carry`) with frames numbered from `t0`; a frame whose
+        `valid` is false (a padded block tail) leaves that utterance's
+        carry unchanged.  Returns (records [B, Tp, ...], carry after the
+        last frame)."""
+        return self._scan(costs, valid, False, carry, t0, mask=True)
+
+    def _scan(self, costs, valid, minimal, carry=None, t0=0, mask=False):
         B, T, _ = costs.shape
         CH = self.CHUNK
         Tp = -(-T // CH) * CH
         costs = torch.nn.functional.pad(costs, (0, 0, 0, Tp - T))
         valid = torch.nn.functional.pad(valid, (0, Tp - T))
-        carry = self.init_carry(B)
+        if carry is None:
+            carry = self.init_carry(B)
         gather = self.tables["gather"]
         recs = None
         for c0 in range(0, Tp, CH):
@@ -1077,22 +1137,15 @@ class NgramFusedDecoder:
             for i in range(CH):
                 g = {name: x[i].view((B,) + gather[name][1])
                      for name, x in gs.items()}
-                carry, rec = self._step(carry, g, c0 + i, valid[:, c0 + i],
-                                        minimal)
+                carry, rec = self._step(carry, g, t0 + c0 + i,
+                                        valid[:, c0 + i], minimal, mask)
                 if recs is None:
                     recs = tuple(torch.empty((B, Tp) + r.shape[1:],
                                              dtype=r.dtype, device=r.device)
                                  for r in rec)
                 for buf, r in zip(recs, rec):
                     buf[:, c0 + i] = r
-        return recs
-
-    def with_carry(self, costs, valid, carry=None, t0=0):
-        """The JAX scan's streaming entry (carry kept across calls, with
-        padding frames masked out of it): not ported yet."""
-        raise NotImplementedError(
-            "streaming carry (with_carry / mask_carry) is not ported yet; "
-            "decode whole utterances with decode / decode_batch")
+        return recs, carry
 
     # -- 1-best backtrace (device) -------------------------------------------
 
@@ -1181,6 +1234,7 @@ class NgramFusedDecoder:
         raw = tuple(r[0] for r in raw)
         self.raw_records = lambda: tuple(r.cpu().numpy() for r in raw)
         self.records = lambda: self.adapt_records(self.raw_records, T)
+        self._raw_dev = (raw, T)
         # top-K exactness guard count
         self.guard_violations = int(raw[9][:T].sum())
         table, n, sc = self.backtrace(raw[0][None], raw[1][None],
@@ -1252,6 +1306,35 @@ class NgramFusedDecoder:
         return [self._segs_from_table(tables[b], int(ns[b]))
                 for b in range(B)]
 
+    def _backtrace(self, recs, T):
+        """Host 1-best walk over one utterance's flat records (escore,
+        estf, eprw, ...) [T, W], or raw scan records (adapted first), as
+        the JAX `_backtrace` (the `ngram_flat` walk): start at the finish
+        word's exit if it is alive at T-1, else the best exit.  Returns
+        (hyp, segs)."""
+        if len(recs) >= 9:
+            recs = self.adapt_records(recs, T)
+        escore, estf, eprw = [np.asarray(r) for r in recs[:3]]
+        last = escore[T - 1]
+        if (self.finish_idx is not None
+                and last[self.finish_idx] > NEG_INF / 2):
+            w = self.finish_idx
+        else:
+            w = int(np.argmax(last))
+        segs = []
+        t = T - 1
+        while t >= 0 and w >= 0:
+            s = int(estf[t, w])
+            segs.append(Seg(word=self.dict.wordstr(self.words[w]),
+                            start=s, end=t))
+            p = int(eprw[t, w])
+            if s <= 0 or p < 0:
+                break
+            w = p
+            t = s - 1
+        segs.reverse()
+        return self._hyp_of(segs), segs
+
     def _segs_from_table(self, table, n):
         """[n, 3] (word, start, end) rows (reverse order) -> (hyp, segs)."""
         segs = []
@@ -1259,13 +1342,18 @@ class NgramFusedDecoder:
             wi, s, t = (int(x) for x in table[i])
             segs.append(Seg(word=self.dict.wordstr(self.words[wi]),
                             start=s, end=t))
+        return self._hyp_of(segs), segs
+
+    def _hyp_of(self, segs):
+        """The hypothesis string of segments: their real words' base
+        forms."""
         out = []
         for s in segs:
             wid = self.dict.wordid(s.word)
             if wid < 0 or self.dict.is_filler(wid):
                 continue
             out.append(self.dict.basestr(wid))
-        return " ".join(out), segs
+        return " ".join(out)
 
     # -- records adapter -----------------------------------------------------
 
@@ -1283,6 +1371,33 @@ class NgramFusedDecoder:
     @records.setter
     def records(self, value):
         self._records = value
+        self._raw_dev = None
+
+    def lattice_inputs(self):
+        """What the lattice's exit scan reads from the current records:
+        (escore, estf [T, W], ascr_at), where ascr_at(t, w) gives the
+        segment acoustic scores (the flat records' eascr) of exits (t, w).
+        After `decode` these are the raw records on the device, and only
+        the exits asked for reach the host; records set from elsewhere (a
+        stream's) are the host flat records."""
+        if getattr(self, "_raw_dev", None) is None:
+            r = self.records
+            return r[0], r[1], lambda t, w: np.asarray(r[3])[t, w]
+        raw, T = self._raw_dev
+        return raw[0][:T], raw[1][:T], lambda t, w: self._ascr_at(raw, T,
+                                                                  t, w)
+
+    def _ascr_at(self, raw, T, t, w):
+        """eascr of `adapt_records` at exits (t, w), gathered from the raw
+        device records (same host arithmetic, element for element)."""
+        escore, etf, etgt, _, entv = raw[:5]
+        dev = escore.device
+        ti, wi = torch.as_tensor(t, device=dev), torch.as_tensor(w, device=dev)
+        tf, tg = etf[ti, wi].long(), etgt[ti, wi].long()
+        en = entv[torch.clamp(tf - 1, 0, T - 1), tg].cpu().numpy()
+        Mcp = np.concatenate([[0.0], np.cumsum(raw[8][:T].cpu().numpy())])
+        return _eascr(escore[ti, wi].cpu().numpy(), tf.cpu().numpy(), en,
+                      Mcp, t)
 
     @property
     def raw_records(self):
@@ -1309,9 +1424,8 @@ class NgramFusedDecoder:
         tfi = np.clip(tf - 1, 0, Tn - 1)
         has = tf > 0
         eprw_x = np.where(has, eprw[tfi, tg], -1).astype(np.int32)
-        entv_x = np.where(has, entv[tfi, tg], 0.0)
-        corr = Mcp[np.arange(Tn)][:, None] - np.where(has, Mcp[tfi], 0.0)
-        eascr = (escore - entv_x + corr).astype(np.float32)
+        eascr = _eascr(escore, tf, entv[tfi, tg], Mcp,
+                       np.arange(Tn)[:, None])
         s_lm = self.lm.wid("<s>") if self.start_idx is not None else -1
         eh1 = np.where(has, erw1[tfi, tg], max(s_lm, 0)).astype(np.int32)
         eh2 = np.where(has, erw2[tfi, tg], self.V).astype(np.int32)

@@ -13,6 +13,14 @@ phone, state) so that every senone belongs to exactly one codebook.
 dictionary; `SynthModel.load(directory)` builds this port's
 `AcousticModel` from them.  Any other implementation that reads the same
 files and takes the same arrays builds the same model.
+
+`SynthModel.write_model_dir(directory)` writes a whole model directory,
+as `Decoder(hmm=directory)` (of either package) loads it: the text
+`mdef`, the Sphinx-3 binary `means`, `variances`, `mixture_weights` and
+`transition_matrices`, `noisedict`, and a `feat.params` with en-us's
+published front-end settings (`FEAT_PARAMS`).  The weights and
+transitions are written as probabilities, so the loaders' normalization
+and quantization apply to them as to a trained model.
 """
 
 from __future__ import annotations
@@ -41,6 +49,13 @@ NOISEDICT = ("<s> SIL\n</s> SIL\n<sil> SIL\n[NOISE] +NSN+\n"
              "[SPEECH] +SPN+\n")
 #: en-us shapes (SURVEY.md: 5126 senones, 126 CI; PTM 42 x 3 x 128 x 13)
 EN_US = dict(n_sen=5126, n_density=128, n_feat=3, dim=13)
+#: en-us's feat.params (the front end and feature type the model was
+#: trained with; `-svspec` selects the three 13-dim streams)
+FEAT_PARAMS = ("-lowerf 130\n-upperf 6800\n-nfilt 25\n-transform dct\n"
+               "-lifter 22\n-feat 1s_c_d_dd\n-svspec 0-12/13-25/26-38\n"
+               "-agc none\n-cmn live\n-varnorm no\n-model ptm\n")
+#: log base of the model files' scores (logmath base 1.0001, >> 10)
+_UNIT_NATS = float(np.log(1.0001)) * 1024
 BENCH_DATA = Path(__file__).resolve().parents[2] / "bench_data"
 
 
@@ -91,6 +106,33 @@ class SynthModel:
             f.write(NOISEDICT)
         return mdef_path, noise_path
 
+    def write_model_dir(self, directory: str) -> str:
+        """Write a model directory that `AcousticModel.load` and the
+        config's `-hmm` expansion read (see the module docstring);
+        returns `directory`."""
+        os.makedirs(directory, exist_ok=True)
+        n_cb, n_feat, n_den, dim = self.means.shape
+        with open(os.path.join(directory, "mdef"), "w") as f:
+            f.write(self.mdef_text)
+        with open(os.path.join(directory, "noisedict"), "w") as f:
+            f.write(NOISEDICT)
+        with open(os.path.join(directory, "feat.params"), "w") as f:
+            f.write(FEAT_PARAMS)
+        dims = [n_cb, n_feat, n_den] + [dim] * n_feat
+        for name, x in (("means", self.means), ("variances", self.var)):
+            _write_s3(os.path.join(directory, name), dims, x)
+        # mixture weights [n_sen, n_feat, n_den] and transitions
+        # [n_tmat, 3, 4] as probabilities (cost 255 = impossible)
+        mixw = np.exp(-self.mixw.astype(np.float64) * _UNIT_NATS)
+        _write_s3(os.path.join(directory, "mixture_weights"),
+                  [self.mixw.shape[2], n_feat, n_den],
+                  mixw.transpose(2, 0, 1))
+        tp = np.where(self.tmat == 255, 0.0,
+                      np.exp(-self.tmat.astype(np.float64) * _UNIT_NATS))
+        _write_s3(os.path.join(directory, "transition_matrices"),
+                  list(tp.shape), tp)
+        return directory
+
     def load(self, directory: str, varfloor: float = 1e-4):
         """Write the model files into `directory` and build the port's
         `AcousticModel` from them.  Returns (model, path of the noise
@@ -105,6 +147,24 @@ class SynthModel:
             mixw=fio.MixtureWeights(mixw=self.mixw, n_sen=self.mixw.shape[-1]),
             tmat=fio.Tmat(tp=self.tmat), model_type="ptm")
         return am, noise_path
+
+
+def _write_s3(path: str, ints, data):
+    """A Sphinx-3 binary file: the text header (with `chksum0`),
+    `endhdr`, the byte-order word, the int32 dimensions, the float32
+    count and data, and the checksum over everything after the byte-order
+    word (src/util/bio.c)."""
+    ints = np.asarray(list(ints) + [np.size(data)], "<i4")
+    data = np.ascontiguousarray(data, "<f4").reshape(-1)
+    chk = 0
+    for v in np.concatenate([ints.view("<u4"), data.view("<u4")]).tolist():
+        chk = (((chk << 20) | (chk >> 12)) + v) & 0xFFFFFFFF
+    with open(path, "wb") as f:
+        f.write(b"s3\nversion 1.0\nchksum0 yes\nendhdr\n")
+        f.write(np.array([0x11223344], "<u4").tobytes())
+        f.write(ints.tobytes())
+        f.write(data.tobytes())
+        f.write(np.array([chk], "<u4").tobytes())
 
 
 def make_model(dict_paths, seed: int = 0, n_sen: int = EN_US["n_sen"],
@@ -269,3 +329,19 @@ def build_decoder(spec: SynthModel, workdir: str, dic: str, lmfile: str,
     am, noise = spec.load(os.path.join(workdir, "model"))
     d2p = Dict2Pid(am.mdef, Dictionary(am.mdef, dic, noise))
     return NgramFusedDecoder(am, d2p, read_lm(lmfile, lw=lw, wip=wip), **kw)
+
+
+def small_task(directory: str, n_words: int = 40, seed: int = 0,
+               n_sen: int = 126 + 300, n_density: int = 8):
+    """A small decoding task under `directory`: a dictionary of
+    `n_words` bench-1.7k words (plus 3 single-phone words), a seeded ARPA
+    trigram LM over them and a synthetic model directory covering them.
+    Returns (hmm directory, dictionary path, LM path)."""
+    os.makedirs(directory, exist_ok=True)
+    dic = os.path.join(directory, "small.dic")
+    words = small_dictionary(dic, n_words=n_words, n_single=3, seed=seed)
+    lmf = write_arpa(words, os.path.join(directory, "small.arpa"),
+                     seed=seed + 1)
+    spec = make_model([dic], seed=seed + 2, n_sen=n_sen, n_density=n_density)
+    hmm = spec.write_model_dir(os.path.join(directory, "hmm"))
+    return hmm, dic, lmf

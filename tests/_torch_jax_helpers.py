@@ -8,6 +8,8 @@ build the JAX package's model and decoder here, from the same files
 import os
 
 import numpy as np
+import pytest
+import torch
 
 from pocketsphinx_tpu.fileio import acoustic as fio
 from pocketsphinx_tpu.fileio.bin_mdef import read_text_mdef
@@ -41,3 +43,17 @@ def jax_decoder(spec, workdir, dic, lmfile, lw=6.5, wip=0.65, **kw):
     am, noise = jax_model(spec, os.path.join(workdir, "jax_model"))
     d2p = Dict2Pid(am.mdef, Dictionary(am.mdef, dic, noise))
     return NgramFusedDecoder(am, d2p, read_lm(lmfile, lw=lw, wip=wip), **kw)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_one_thread():
+    """Run a module's torch CPU work on one intra-op thread.  The 6-worker
+    test run puts several processes on the host's cores, and torch's
+    default pool of one thread per core then oversubscribes them: the
+    small ops of these tests wait on each other's spinning threads.  Import
+    this fixture into a test module to use it; the thread count is
+    restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -19,6 +19,7 @@ import chip_smoke
 from pocketsphinx_tpu.ops.pallas_chain import chain_step as jax_chain_step
 from pocketsphinx_tpu_torch.ops import chain
 from pocketsphinx_tpu_torch.testing import synth
+from _torch_jax_helpers import torch_one_thread  # noqa: F401
 
 B = 3
 

@@ -83,3 +83,111 @@ def test_decode_cuda_equals_cpu(cuda, tmp_path):
     for a, b in zip(dec.raw_records, cpu.raw_records):
         np.testing.assert_array_equal(a, b)
     assert (hyp, dec.hyp_score) == (hyp_c, cpu.hyp_score)
+
+
+def _row_carry(dec, carry, B, b):
+    ch, ci = dec._chain_views(carry["chain"], B)
+    return ([e[k][b].cpu() for e in ch + ci for k in sorted(e)]
+            + [carry[n][k][b].cpu() for n in ("fin", "sp")
+               if carry[n] is not None for k in ("S", "TF", "CTX")])
+
+
+def test_with_carry_batch_rows_cuda(cuda, tmp_path):
+    """The masked streaming scan at B=2 on CUDA, the rows' valid lengths
+    differing inside the middle block (96 and 48 frames): each row's
+    records and carry equal its own whole scan on CUDA, and records and
+    carry equal the same blocks on the CPU."""
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=40, seed=4)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=5)
+    spec = synth.make_model([dic], seed=6, n_sen=126 + 300, n_density=8)
+    dec = synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=8,
+                              device=cuda)
+    cpu = dec.to("cpu")
+    T, BL, lens = 96, 32, (96, 48)
+    costs = np.random.default_rng(12).uniform(
+        0, 400, (2, T, dec.am.n_sen)).astype(np.float32)
+    costs[0, 40:46] = 1e29
+    valid = np.arange(T)[None, :] < np.array(lens)[:, None]
+    runs = []
+    for d in (dec, cpu):
+        carry, got = None, []
+        for b0 in range(0, T, BL):
+            recs, carry = d.with_carry(
+                torch.as_tensor(costs[:, b0:b0 + BL], device=d.device),
+                torch.as_tensor(valid[:, b0:b0 + BL], device=d.device),
+                carry, b0)
+            got.append([r.cpu() for r in recs])
+        runs.append(([torch.cat([g[k] for g in got], 1) for k in range(10)],
+                     carry))
+    (recs, carry), (recs_c, carry_c) = runs
+    for a, b in zip(recs, recs_c):
+        assert torch.equal(a, b)
+    for b, n in enumerate(lens):
+        assert all(torch.equal(x, y) for x, y in zip(
+            _row_carry(dec, carry, 2, b), _row_carry(cpu, carry_c, 2, b)))
+        whole, wcarry = dec._scan(
+            torch.as_tensor(costs[b:b + 1, :n], device=cuda),
+            torch.ones((1, n), dtype=torch.bool, device=cuda), False)
+        for k in range(10):
+            assert torch.equal(recs[k][b, :n], whole[k][0].cpu())
+        assert all(torch.equal(x, y) for x, y in zip(
+            _row_carry(dec, carry, 2, b), _row_carry(dec, wcarry, 1, 0)))
+
+
+def _facade(cuda, tmp_path):
+    from pocketsphinx_tpu_torch import Decoder
+    hmm, dic, lmf = synth.small_task(str(tmp_path), seed=7)
+    dec = Decoder(hmm=hmm, dict=dic, lm=lmf, device=cuda)
+    return dec, dec._to("cpu")
+
+
+def _result(d):
+    from dataclasses import astuple
+    lat = d.get_lattice()
+    return (astuple(d.hyp()),
+            [(s.word, s.start_frame, s.end_frame, s.prob, s.ascore)
+             for s in d.seg_iter()],
+            [(n.word, n.sf) for n in lat.nodes],
+            [(l.src, l.dst, l.ef, l.ascr) for l in lat.links])
+
+
+def test_decoder_cuda_equals_cpu(cuda, tmp_path):
+    """`decode_senscr` through the facade: records, lattice lists and the
+    best-path result on CUDA equal the same decoder on the CPU."""
+    dec, cpu = _facade(cuda, tmp_path)
+    costs = np.random.default_rng(11).uniform(
+        0, 400, (96, dec.am.n_sen)).astype(np.float32)
+    n = fan.launches
+    for d in (dec, cpu):
+        d.decode_senscr(costs)
+    assert fan.launches == n + 96
+    for a, b in zip(dec._searches["_default"].raw_records,
+                    cpu._searches["_default"].raw_records):
+        np.testing.assert_array_equal(a, b)
+    assert _result(dec) == _result(cpu)
+    assert dec.hyp().hypstr
+
+
+def test_decoder_streaming_cuda_equals_cpu(cuda, tmp_path):
+    """Streaming through the facade on CUDA (masked carry, padded last
+    block) equals the CPU, both scanning the CPU's senone costs."""
+    dec, cpu = _facade(cuda, tmp_path)
+    score = cpu._scores
+    pcm = synth.make_pcm(33, 2.2)
+    out = []
+    for d in (dec, cpu):
+        d._scores = lambda feats, d=d, **kw: score(feats, **kw).to(d.device)
+        d.start_utt()
+        parts = []
+        for c0 in range(0, len(pcm), 1600):
+            d.process_raw(pcm[c0:c0 + 1600])
+            parts.append(d.partial_hyp())
+        d.end_utt()
+        recs = [np.concatenate([r[k] for r in d._stream_recs])
+                for k in range(10)]
+        out.append((recs, [p and p.hypstr for p in parts], _result(d)))
+    for a, b in zip(out[0][0], out[1][0]):
+        np.testing.assert_array_equal(a, b)
+    assert out[0][1:] == out[1][1:]
+    assert dec.n_frames % 32 != 0           # a padded, masked last block

@@ -51,8 +51,11 @@ def test_no_jax_or_jax_package_imports(path):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names = [node.module or ""]
+        elif isinstance(node, ast.ImportFrom):
+            # a relative module lies in the port; `from .. import
+            # ps_native` still names the JAX package's C extension
+            names = [node.module or ""] if node.level == 0 else []
+            names += [a.name for a in node.names]
         elif (arg := _dynamic_import(node)) is not None:
             # a computed module name could be anything: only literals
             assert isinstance(arg, ast.Constant) and isinstance(
@@ -65,6 +68,8 @@ def test_no_jax_or_jax_package_imports(path):
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "pocketsphinx_tpu"), \
                 f"{path.name} imports {n}"
+            assert "ps_native" not in n.split("."), \
+                f"{path.name} imports the C extension ps_native"
 
 
 @pytest.mark.parametrize("src", [
@@ -73,6 +78,10 @@ def test_no_jax_or_jax_package_imports(path):
     "from importlib import import_module\nimport_module('jax.numpy')",
     "import jax.numpy",
     "from pocketsphinx_tpu.lm import ngram",
+    "from pocketsphinx_tpu import config",
+    "import pocketsphinx_tpu.config",
+    "from .. import ps_native",
+    "from pocketsphinx_tpu.ps_native import lattice_scan",
 ])
 def test_import_scan_catches(src, tmp_path):
     """The scan above rejects static and dynamic imports alike."""
@@ -80,6 +89,23 @@ def test_import_scan_catches(src, tmp_path):
     bad.write_text(src)
     with pytest.raises(AssertionError):
         test_no_jax_or_jax_package_imports(bad)
+
+
+def test_decoder_modules_import_alone():
+    """The facade's modules load with JAX and the JAX package blocked,
+    and the package exports the decoder lazily."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pocketsphinx_tpu'] = None\n"
+        "import pocketsphinx_tpu_torch as p\n"
+        "assert 'pocketsphinx_tpu_torch.decoder' not in sys.modules\n"
+        "p.Decoder, p.Config, p.Hypothesis, p.Segment, p.err\n"
+        "from pocketsphinx_tpu_torch.search.lattice import Lattice\n"
+        "from pocketsphinx_tpu_torch.frontend.stream import FeatStream\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):

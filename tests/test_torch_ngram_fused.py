@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 
 import pocketsphinx_tpu.models.acoustic as jax_acoustic
-from _torch_jax_helpers import jax_decoder
+from _torch_jax_helpers import jax_decoder, torch_one_thread  # noqa: F401
 from pocketsphinx_tpu_torch.testing import synth
 
 TOPK = 8
@@ -173,8 +173,6 @@ def test_decode_batch_equal(decoders, keep_records, monkeypatch):
 def test_unported_paths_raise(task, decoders, monkeypatch):
     d, dic, lmf, spec = task
     _, pt = decoders
-    with pytest.raises(NotImplementedError, match="streaming"):
-        pt.with_carry(None, None)
     monkeypatch.setenv("PS_GUARD_TOPM", "64")
     with pytest.raises(NotImplementedError, match="PS_GUARD_TOPM"):
         pt._host_tables()

@@ -22,7 +22,7 @@ from pocketsphinx_tpu_torch.frontend.feat import compute_feats
 from pocketsphinx_tpu_torch.frontend.mfcc import MelFrontend
 from pocketsphinx_tpu_torch.models.acoustic import senone_scores
 from pocketsphinx_tpu_torch.testing import synth
-from _torch_jax_helpers import jax_decoder
+from _torch_jax_helpers import jax_decoder, torch_one_thread  # noqa: F401
 
 CFG = dict(nfilt=25, lowerf=130, upperf=6800, transform="dct",
            lifter_val=22, remove_noise=True)        # en-us feat.params
