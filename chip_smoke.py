@@ -39,7 +39,23 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    after each, the seconds of each 32-frame block, and the streamed
    records held bit-equal to one whole-utterance scan of the same costs
    on the card; (c) the kernels' launches over (a) and (b) equal the
-   frames the scans stepped.
+   frames the scans stepped;
+8. the other search modes through the `Decoder` at the same width, on
+   phase 7's model directory with bench-20k.dic (`modes`): (a) a seeded
+   command grammar, `public <cmd> = <verb> <object> [<mod>];` with rules
+   of 200, 1,000 and 100 words, through `decode_raw` with the best-path
+   pass; (b) 20 seeded keyphrases through `add_kws`; (c) allphone over CI
+   phones with a seeded phone-bigram LM, and over the triphone net
+   without an LM; (d) `add_align_text` of 40 words; each one utterance,
+   its search's size (A arcs, P HMM rows, N allphone nodes), search
+   seconds and ms per frame, then held equal (records, hypothesis,
+   segments, lattice, alignment) to `Decoder._to("cpu")` decoding the
+   same costs; (e) a 5-state synthetic model over bench-20k.dic and
+   bench-20k.lm.bin: the chain kernel at NST=5 against its plain version
+   at that decoder's bucket list (ties on and off, timed as in phase 3),
+   one 2 s utterance through `decode_raw` with fan launches 0 and chain
+   launches equal to the frames stepped, and its records held equal to
+   the CPU's.
 
 Prints the kernels' JSON line, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -352,14 +368,15 @@ def _lattice_lists(lat):
 
 
 def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
-           dic=None, lmfile=None, n_sen=None, n_density=None):
+           dic=None, lmfile=None, n_sen=None, n_density=None, hold=None):
     """Phase 7: the port's `Decoder` on `device` over a synthetic model
     directory written under `work` (en-us shapes unless `n_sen` /
     `n_density` say otherwise) with `dic` and `lmfile` (default the 20k
     task).  (a) `decode_raw` of one seeded utterance per entry of
     `seconds`; (b) `stream_seconds` of seeded PCM streamed in 0.1 s
     chunks; (c) launch counts over (a) and (b); then the checks against
-    the CPU and the whole-utterance scan.  Returns what it measured."""
+    the CPU and the whole-utterance scan.  Returns what it measured; a
+    dict passed as `hold` receives the decoder (key "decoder")."""
     import torch
     from pocketsphinx_tpu_torch import Decoder
     from pocketsphinx_tpu_torch.ops import chain, fan
@@ -484,6 +501,223 @@ def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
     res["cpu_check"] = dict(frames=int(costs.shape[0]), seconds=cpu_s,
                             equal=True)
     res["stream_check"] = dict(frames=T, equal=True, whole_scan_s=whole_s)
+    if hold is not None:
+        hold["decoder"] = dec
+    return res
+
+
+#: phase 8's search modes (`add_mode`)
+MODES = ("jsgf", "kws", "allphone", "allphone_tri", "align")
+#: each mode's utterance length (s), and the 5-state decode's
+SECONDS = dict(jsgf=3.0, kws=5.0, allphone=3.0, allphone_tri=3.0, align=5.0)
+SECONDS5 = 2.0
+
+
+def mode_decoder(work, device, hmm=None, dic=None):
+    """A `Decoder` without a search on `device`, over the model directory
+    `hmm` and dictionary `dic`, or over a small task written under
+    `work`."""
+    from pocketsphinx_tpu_torch import Decoder
+    from pocketsphinx_tpu_torch.testing import synth
+    if hmm is None:
+        hmm, dic, _ = synth.small_task(work, seed=7)
+    return Decoder(hmm=hmm, dict=dic, device=device)
+
+
+def add_mode(dec, mode, work, seed=0, sizes=(6, 12, 4), n_kws=8,
+             n_align=7):
+    """Add the search of `mode` (one of `MODES`) to `dec`, from seeded
+    files written under `work`: a command grammar whose rules hold
+    `sizes` words, `n_kws` keyphrases, a phone-bigram LM (CI allphone;
+    the triphone net runs without one), `n_align` words to align.
+    Returns the search's name."""
+    from pocketsphinx_tpu_torch.testing import synth
+    dic = dec.config["dict"]
+    at = lambda name: os.path.join(work, name)  # noqa: E731
+    if mode == "jsgf":
+        dec.add_jsgf(mode, synth.write_jsgf(dic, at("cmd.gram"), seed=seed,
+                                            sizes=sizes))
+    elif mode == "kws":
+        dec.add_kws(mode, synth.write_keyphrases(dic, at("k.txt"), seed=seed,
+                                                 n=n_kws))
+    elif mode in ("allphone", "allphone_tri"):
+        ci = dec.config["allphone_ci"]
+        dec.config["allphone_ci"] = mode == "allphone"
+        try:
+            dec.add_allphone(mode, synth.write_phone_arpa(
+                at("phone.arpa"), seed=seed) if mode == "allphone" else None)
+        finally:
+            dec.config["allphone_ci"] = ci
+    elif mode == "align":
+        words = synth.grammar_words(dic)
+        pick = np.random.default_rng(seed).choice(len(words), n_align)
+        dec.add_align_text(" ".join(words[i] for i in pick))
+        return "_align"
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return mode
+
+
+def mode_size(search):
+    """The size of a search's network: A grammar arcs, P HMM rows, N
+    allphone nodes, NK keyphrases (an aligner's P after its `align`)."""
+    kind = type(search).__name__
+    if kind == "FsgDecoder":
+        return {"A": search.A, "P": search.P}
+    if kind == "KwsDecoder":
+        NK, K = search.kw_senid.shape[:2]
+        return {"NK": NK, "P": len(search.bg_senid) + NK * K}
+    if kind == "AllphoneDecoder":
+        return {"N": search.n_node}
+    return {"P": int(search.records[4].shape[1])}
+
+
+def check_records(a, b, what):
+    """Two searches' per-frame records (`records`: host arrays) are
+    bit-equal, dtypes and shapes included."""
+    for i, (x, y) in enumerate(zip(a.records, b.records)):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.shape != y.shape or x.dtype != y.dtype or not np.array_equal(
+                x, y):
+            raise AssertionError(f"{what}: records {i} differ")
+
+
+def mode_result(dec):
+    """A decode's result through the facade in any mode: hypothesis,
+    segments, lattice lists and alignment entries."""
+    from dataclasses import astuple
+    lat = dec.get_lattice()
+    al = (dec.get_alignment() if type(dec._searches[dec._active]).__name__
+          == "Aligner" else None)
+    return (astuple(dec.hyp()),
+            [(s.word, s.start_frame, s.end_frame, s.ascore, s.prob)
+             for s in dec.seg_iter()],
+            None if lat is None else _lattice_lists(lat),
+            None if al is None else [[astuple(e) for e in lv] for lv in al])
+
+
+def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
+          n_sen=None, n_density=None, n_sen5=None, sizes=(200, 1000, 100),
+          n_kws=20, n_align=40, dec3=None):
+    """Phase 8: the grammar, keyword, allphone and align searches and a
+    5-state n-gram decode through the `Decoder` on `device` (see the
+    module docstring), over the model directory `hmm` (else a synthetic
+    one written under `work`, en-us shapes unless `n_sen` / `n_density`
+    say otherwise) with `dic` and, for the 5-state model (`n_sen5`
+    senones), `lmfile` (default the 20k task).  With `dec3`, a 3-state
+    n-gram `Decoder` over the same task, the 5-state utterance is decoded
+    by the two in turns (3, 5, 5, 3, 3, 5), which compares their search
+    ms per frame on one host at one time.  Returns what it measured."""
+    import torch
+    from pocketsphinx_tpu_torch import Decoder
+    from pocketsphinx_tpu_torch.ops import chain, fan
+    from pocketsphinx_tpu_torch.testing import synth
+
+    dic = dic or os.path.join(BENCH, "bench-20k.dic")
+    lmfile = lmfile or os.path.join(BENCH, "bench-20k.lm.bin")
+    kw = {k: v for k, v in (("n_density", n_density),) if v is not None}
+    cuda = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    if hmm is None:
+        hmm = synth.make_model([dic], seed=0, **kw, **(
+            {"n_sen": n_sen} if n_sen else {})).write_model_dir(
+                os.path.join(work, "hmm"))
+    dec = mode_decoder(work, device, hmm=hmm, dic=dic)
+    dec.am.scoring_tensors(dec.device)      # uploaded once, not in a mode
+    res = {"decoder_s": time.perf_counter() - t0, "modes": {}}
+    kept = []
+    for i, mode in enumerate(MODES):
+        t0 = time.perf_counter()
+        name = add_mode(dec, mode, work, seed=i, sizes=sizes, n_kws=n_kws,
+                        n_align=n_align)
+        build_s = time.perf_counter() - t0
+        search = dec._searches[name]
+        dec.activate_search(name)
+        dec.decode_raw(synth.make_pcm(300 + i, SECONDS[mode]))
+        T = dec.n_frames
+        st = {k: t.t_elapsed for k, t in dec.stage_timers.items()}
+        u = dict(frames=T, hyp=dec.hyp().hypstr[:80], build_s=build_s,
+                 **mode_size(search), search_s=st["search"],
+                 ms_per_frame=st["search"] / T * 1e3,
+                 bestpath_s=st["bestpath"])
+        log(f"modes {mode}: " + json.dumps(u))
+        res["modes"][mode] = u
+        kept.append((mode, name, dec._feats, mode_result(dec)))
+    # each mode's CUDA result == the same decoder on the CPU, same costs
+    t0 = time.perf_counter()
+    cpu = dec._to("cpu")
+    for mode, name, feats, result in kept:
+        cpu.activate_search(name)
+        cpu.decode_senscr(dec._scores(feats).cpu().numpy())
+        check_records(dec._searches[name], cpu._searches[name],
+                      f"{mode} {device} vs cpu")
+        if mode_result(cpu) != result:
+            raise AssertionError(f"{mode} {device} vs cpu result differs: "
+                                 f"{result[0]} / {mode_result(cpu)[0]}")
+    res["cpu_check_s"] = time.perf_counter() - t0
+    log(f"modes: {device} results equal the CPU's "
+        f"({res['cpu_check_s']:.1f} s)")
+    if cuda:
+        g = res["modes"]["jsgf"]
+        res["exit_block"] = exit_block_ms(
+            (g["A"], 2500, 5000, 10000, 20000), g["P"] / g["A"], log)
+    del dec, cpu
+
+    # (e) 5-state models through the n-gram search
+    t0 = time.perf_counter()
+    hmm5 = synth.make_model([dic], seed=0, n_state=5, **kw, **(
+        {"n_sen": n_sen5} if n_sen5 else {})).write_model_dir(
+            os.path.join(work, "hmm5"))
+    dec5 = Decoder(hmm=hmm5, dict=dic, lm=lmfile, device=device)
+    s5 = dec5._searches["_default"]
+    log(f"5-state decoder: W={s5.W}, NST={s5.NST}, LM mode {s5.lm_mode}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    if s5.NST != 5:
+        raise AssertionError(f"5-state model has NST={s5.NST}")
+    if cuda:
+        buckets = [(5, c.D, c.Wb, c.RF, c.senid_first_d.shape[-1], True)
+                   for c in s5.chains]
+        buckets += [(5, c.D, c.Wb, 0, 0, False) for c in s5.ci_chains]
+        # at the decode's batch (B=1), and at phase 3's B=8
+        res["chain5"] = {B: check_chain(B, buckets, log) for B in (1, 8)}
+    for level in range(1, s5.lm.order):      # the best-path LM maps
+        s5.lm._level_map(level)
+    fan.reset_launches()
+    chain.reset_launches()
+    pcm5 = synth.make_pcm(400, SECONDS5)
+    h = dec5.decode_raw(pcm5)
+    T = dec5.n_frames
+    frames = -(-T // s5.CHUNK) * s5.CHUNK
+    launches = {"fan": fan.launches, "chain": chain.launches}
+    if cuda and launches != {"fan": 0, "chain": frames}:
+        raise AssertionError(f"5-state launches {launches} != fan 0, chain "
+                             f"{frames} (frames stepped)")
+    st = {k: t.t_elapsed for k, t in dec5.stage_timers.items()}
+    res["nst5"] = dict(frames=T, hyp=h.hypstr, launches=launches,
+                       search_s=st["search"],
+                       ms_per_frame=st["search"] / T * 1e3,
+                       bestpath_s=st["bestpath"])
+    log("5-state decode_raw: " + json.dumps(res["nst5"]))
+    raw, result, feats5 = s5.raw_records, mode_result(dec5), dec5._feats
+    if dec3 is not None:
+        turns = []
+        for nst in (3, 5, 5, 3, 3, 5):
+            d = dec5 if nst == 5 else dec3
+            d.decode_raw(pcm5)
+            turns.append((nst, d.stage_timers["search"].t_elapsed
+                          / d.n_frames * 1e3))
+        res["nst_turns"] = turns
+        log("3- and 5-state search ms per frame in turns: "
+            + json.dumps(turns))
+    cpu5 = dec5._to("cpu")
+    cpu5.decode_senscr(dec5._scores(feats5).cpu().numpy())
+    names = "escore etf etgt ecx entry eprw erw1 erw2 m nviol".split()
+    for n, a, b in zip(names, raw, cpu5._searches["_default"].raw_records):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"5-state {device} vs cpu records: {n}")
+    if mode_result(cpu5) != result:
+        raise AssertionError(f"5-state {device} vs cpu result differs: "
+                             f"{result[0]} / {mode_result(cpu5)[0]}")
     return res
 
 
@@ -593,6 +827,31 @@ def check_chain(B, buckets, log):
                 bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain)
 
 
+def exit_block_ms(arcs, rows_per_arc, log):
+    """Device ms of the grammar search's [A, A] exit block (the gather of
+    each arc's exit class, `+ M`, first max over the source axis) on
+    random inputs, for each A in `arcs` (P = A * rows_per_arc HMM rows),
+    timed as CUDA-graph replays, with its bytes bound: how the block
+    scales with the grammar's size."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for A in arcs:
+        P = int(A * rows_per_arc)
+        x = torch.rand(P, device="cuda", generator=gen) * -500
+        xn = torch.randint(0, P, (A, A), device="cuda", generator=gen)
+        M = torch.rand((A, A), device="cuda", generator=gen) * -50
+        ms = time_ms(lambda: torch.max(x[xn] + M, dim=0), reps=5,
+                     trials=7, graph=True)
+        # index, M and the exits read, the [A] max and argmax written
+        bms, _ = bound_ms(12 * A * A + 4 * P + 12 * A, 2 * A * A)
+        out[A] = dict(ms=ms, bound_ms=bms)
+        del xn, M
+        log(f"grammar exit block A={A} (P={P}): {ms:.4f} ms device, bound "
+            f"{bms:.4f} ms")
+    return out
+
+
 def check_ties(log):
     """argmax / max(dim) give the first maximum and a stable descending
     sort keeps ties in index order, on CUDA, as on the CPU."""
@@ -607,14 +866,16 @@ def check_ties(log):
         if not np.array_equal(got.cpu().numpy(), want_am):
             raise AssertionError(f"{name} is not first-max on CUDA")
     want_am0 = np.argmax(x, axis=0)
-    if not np.array_equal(torch.max(xc, dim=0).indices.cpu().numpy(),
-                          want_am0):
-        raise AssertionError("max(dim=0) is not first-max on CUDA")
+    for name, got in (("argmax(dim=0)", torch.argmax(xc, dim=0)),
+                      ("max(dim=0)", torch.max(xc, dim=0).indices)):
+        if not np.array_equal(got.cpu().numpy(), want_am0):
+            raise AssertionError(f"{name} is not first-max on CUDA")
     order = torch.sort(xc, dim=1, descending=True, stable=True).indices
     if not np.array_equal(order.cpu().numpy(),
                           np.argsort(-x, axis=1, kind="stable")):
         raise AssertionError("stable descending sort tie order differs")
-    log("ties: argmax, max(dim) first-max; stable sort lower index first")
+    log("ties: argmax, max(dim) first-max over dim 1 and 0; stable sort "
+        "lower index first")
 
 
 def smi_line():
@@ -674,9 +935,21 @@ def main(argv):
     del dec
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
-        fres = facade(work, "cuda", log=log)
-    log(f"facade ({time.perf_counter() - t0:.1f} s) on {smi}: "
-        + json.dumps(fres, default=float))
+        held = {}
+        fres = facade(work, "cuda", log=log, hold=held)
+        log(f"facade ({time.perf_counter() - t0:.1f} s) on {smi}: "
+            + json.dumps(fres, default=float))
+        t0 = time.perf_counter()
+        mres = modes(work, "cuda", log=log, hmm=os.path.join(work, "hmm"),
+                     dec3=held.pop("decoder"))
+        log(f"phase 8 ({time.perf_counter() - t0:.1f} s) on {smi}: "
+            + json.dumps(mres, default=float))
+    # the NST=5 group at the 5-state decode's B=1 (nst5_*), and at B=8
+    nst5 = dict(nst5_launches=mres["nst5"]["launches"]["chain"])
+    for B, pre in ((1, "nst5_"), (8, "nst5_b8_")):
+        c5 = mres["chain5"][B]
+        nst5.update({pre + k: c5[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                              "wrapper_ms", "bound_ms")})
     kernels = []
     for name, r, src, rep in (
             ("fan", fan_res, "pocketsphinx_tpu_torch/csrc/fan.cu",
@@ -687,7 +960,8 @@ def main(argv):
                             replaces=rep,
                             launches=res["launches"][name],
                             facade_launches=fres["launches"][name],
-                            library_ms=None, **r))
+                            library_ms=None, **r,
+                            **(nst5 if name == "chain" else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

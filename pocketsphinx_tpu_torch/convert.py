@@ -56,7 +56,8 @@ def scan_tables(tables: dict, device) -> dict:
     tables: the port decoder's `host_tables`, or the JAX decoder's
     `_dev_tables` as NumPy (one-hot expansion tables are turned into the
     index form the port gathers with: `fd_oh{b}` -> `fd_idx{b}`,
-    `lp_oh`/`tp_fin` -> `lp_idx`/`tp_fin12`, `f0_onehot` -> `f0p_E`).
+    `lp_oh`/`tp_fin` -> `lp_idx`/`tp_fin12` (3 states; other
+    topologies keep `tp_fin`), `f0_onehot` -> `f0p_E`).
     The decoder's `device_tables` lays the chain tables and `senid_all`
     out for its scan."""
     dev = torch.device(device)
@@ -65,9 +66,10 @@ def scan_tables(tables: dict, device) -> dict:
         tabs["fd_idx" + k[5:]] = np.argmax(tabs.pop(k), axis=0)
     if "lp_oh" in tabs:
         tabs["lp_idx"] = np.argmax(tabs.pop("lp_oh"), axis=0)
-        tp_fin = tabs.pop("tp_fin")
-        tabs["tp_fin12"] = tp_fin.transpose(1, 2, 0).reshape(
-            12, tp_fin.shape[0])
+        if tabs["tp_fin"].shape[1] == 3:      # the fan kernel's layout
+            tp_fin = tabs.pop("tp_fin")
+            tabs["tp_fin12"] = tp_fin.transpose(1, 2, 0).reshape(
+                12, tp_fin.shape[0])
     if "f0_onehot" in tabs:
         tabs["f0p_E"] = np.argmax(tabs.pop("f0_onehot"), axis=1)
     out = {}

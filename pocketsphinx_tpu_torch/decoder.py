@@ -9,14 +9,19 @@ The split between host and device is the JAX package's: the frontend
 and the CMN state run on the host in float64 (`MelFrontend.process`,
 `compute_feats_typed`, and in streaming `FrontendStream` /
 `FeatStream`, bit-identical to them); senone scoring, the fused n-gram
-scan and the lattice's exit scan run on the decoder's device (CUDA
-unless `device="cpu"` is passed); the backtrace of streamed records and
-the lattice passes after construction are host code.
+scan, the grammar / keyword / allphone / align steps and the lattice's
+exit scan run on the decoder's device (CUDA unless `device="cpu"` is
+passed); the backtraces, the keyword detection merge, the alignment
+entries and the lattice passes after construction are host code.
 
-Ported search modes: `lm` and `lmctl` (the fused n-gram search over one
-LM or each LM of a set), with `update_mllr`.  The other modes and
-`PS_NGRAM_IMPL=flat` raise NotImplementedError naming their ROADMAP
-item.
+Search modes: `lm` and `lmctl` (the fused n-gram search over one LM or
+each LM of a set, 3- or 5-state models), `fsg` and `jsgf` (grammars),
+`keyphrase` and `kws` (keyword spotting), `allphone`, and forced
+alignment (`add_align_text`), with `update_mllr`.  As in the JAX
+package, only the n-gram search streams; the others buffer the PCM and
+decode at `end_utt`.  `PS_NGRAM_IMPL=flat` raises NotImplementedError
+naming its ROADMAP item.  One extension: `decode_senscr` also aligns
+(the JAX decoder's aligner scores features only).
 """
 
 from __future__ import annotations
@@ -38,26 +43,9 @@ from .frontend.mfcc import MelFrontend
 from .models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from .models.dict2pid import Dict2Pid
 from .profile import DecodeStats, PerfReport, Timer, log_xrt
+from .search.align import Aligner
 from .search.lattice import Lattice
 from .search.ngram_fused import NgramFusedDecoder
-
-#: ROADMAP.md §1 queue items of the modes this port does not run yet
-_UNPORTED = {
-    "fsg": "FSG / KWS / allphone / align",
-    "jsgf": "FSG / KWS / allphone / align",
-    "keyphrase": "FSG / KWS / allphone / align",
-    "kws": "FSG / KWS / allphone / align",
-    "allphone": "FSG / KWS / allphone / align",
-    "align": "FSG / KWS / allphone / align",
-    "flat": "search/ngram_flat.py",
-}
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to pocketsphinx_tpu_torch yet "
-        f"(ROADMAP.md §1 queue: {_UNPORTED[what]})")
-
 
 @dataclass
 class Hypothesis:
@@ -122,8 +110,6 @@ class Decoder:
                 + " ".join("-" + p for p in _set))
         err.E_INFO(f"Initializing decoder: -hmm {config['hmm']} "
                    f"(search mode: {mode or 'none'}, device {self.device})")
-        if mode not in (None, "lm", "lmctl"):
-            raise _unported(mode)
 
         hmm = config["hmm"]
         if not hmm:
@@ -163,6 +149,23 @@ class Decoder:
 
         if mode == "lm":
             self.add_lm("_default", config["lm"])
+            self.activate_search("_default")
+        elif mode == "fsg":
+            from .lm.fsg import FsgModel
+            self.add_fsg("_default", FsgModel.readfile(
+                config["fsg"], lw=config["lw"]))
+            self.activate_search("_default")
+        elif mode == "jsgf":
+            self.add_jsgf("_default", config["jsgf"], config["toprule"])
+            self.activate_search("_default")
+        elif mode == "keyphrase":
+            self.add_keyphrase("_default", config["keyphrase"])
+            self.activate_search("_default")
+        elif mode == "kws":
+            self.add_kws("_default", config["kws"])
+            self.activate_search("_default")
+        elif mode == "allphone":
+            self.add_allphone("_default", config["allphone"])
             self.activate_search("_default")
         elif mode == "lmctl":
             from .lm.lmset import NgramModelSet
@@ -204,7 +207,9 @@ class Decoder:
             lm = read_lm(lm_or_path, lw=self.config["lw"],
                          wip=self.config["wip"])
         if os.environ.get("PS_NGRAM_IMPL", "fused") == "flat":
-            raise _unported("flat")
+            raise NotImplementedError(
+                "PS_NGRAM_IMPL=flat is not ported to pocketsphinx_tpu_torch "
+                "yet (ROADMAP.md §1 queue: search/ngram_flat.py)")
         self._searches[name] = NgramFusedDecoder(
             self.am, self.d2p, lm,
             silprob=self.config["silprob"],
@@ -214,26 +219,72 @@ class Decoder:
         return self._searches[name]
 
     def add_fsg(self, name: str, fsg):
-        raise _unported("fsg")
+        """A grammar search over `fsg` (an `lm.fsg.FsgModel`, which gains
+        the filler self-loops and alternate pronunciations)."""
+        from .search.fsg import FsgDecoder
+        self._searches[name] = FsgDecoder(
+            self.am, self.d2p, fsg,
+            wip=self.config["wip"], pip=self.config["pip"],
+            silprob=self.config["silprob"],
+            fillprob=self.config["fillprob"],
+            use_filler=self.config["fsgusefiller"],
+            use_altpron=self.config["fsgusealtpron"], device=self.device)
+        return self._searches[name]
 
     def add_jsgf(self, name: str, path: str, toprule: str | None = None):
-        raise _unported("jsgf")
+        from .lm.jsgf import Jsgf
+        fsg = Jsgf.parse_file(path).build_fsg(toprule,
+                                              lw=self.config["lw"])
+        return self.add_fsg(name, fsg)
 
     def add_jsgf_string(self, name: str, text: str,
                         toprule: str | None = None):
-        raise _unported("jsgf")
+        from .lm.jsgf import Jsgf
+        fsg = Jsgf(text).build_fsg(toprule, lw=self.config["lw"])
+        return self.add_fsg(name, fsg)
 
     def add_keyphrase(self, name: str, keyphrase: str):
-        raise _unported("keyphrase")
+        from .search.kws import KwsDecoder
+        self._searches[name] = KwsDecoder(
+            self.am, self.d2p, [(keyphrase, self.config["kws_threshold"])],
+            plp=self.config["kws_plp"], delay=self.config["kws_delay"],
+            device=self.device)
+        return self._searches[name]
 
     def add_kws(self, name: str, path: str):
-        raise _unported("kws")
+        from .search.kws import KwsDecoder, parse_kws_file
+        self._searches[name] = KwsDecoder(
+            self.am, self.d2p,
+            parse_kws_file(path, self.config["kws_threshold"]),
+            plp=self.config["kws_plp"], delay=self.config["kws_delay"],
+            device=self.device)
+        return self._searches[name]
 
     def add_allphone(self, name: str, lm_path: str | None):
-        raise _unported("allphone")
+        from .lm.ngram import read_lm
+        from .search.allphone import AllphoneDecoder
+        lm = read_lm(lm_path, lw=self.config["lw"],
+                     wip=self.config["wip"]) if lm_path else None
+        self._searches[name] = AllphoneDecoder(
+            self.am, lm, ci_only=self.config["allphone_ci"],
+            device=self.device)
+        return self._searches[name]
 
     def add_align_text(self, text: str, name: str = "_align"):
-        raise _unported("align")
+        """A forced-alignment search over the words of `text`, made the
+        active search."""
+        words = text.split()
+        for w in words:
+            if self.dict.wordid(w) < 0:
+                raise KeyError(f"Unknown word {w!r}")
+        al = Aligner(self.am, self.d2p,
+                     silprob=self.config["silprob"],
+                     wip=self.config["wip"], lw=self.config["lw"],
+                     device=self.device)
+        al._align_words = words
+        self._searches[name] = al
+        self.activate_search(name)
+        return al
 
     def activate_search(self, name: str):
         if name not in self._searches:
@@ -288,8 +339,9 @@ class Decoder:
         self.dict = d
         self.d2p = Dict2Pid(self.am.mdef, d)
         for s in self._searches.values():
-            s.d2p = self.d2p
-            s.dict = d
+            if hasattr(s, "d2p"):           # not the allphone search
+                s.d2p = self.d2p
+                s.dict = d
             s.rebuild()
         return 0
 
@@ -365,7 +417,10 @@ class Decoder:
     # -- streaming (incremental) decode -------------------------------------
 
     def _stream_capable(self) -> bool:
+        """Only the n-gram search streams (its `with_carry`); the others
+        decode the buffered PCM at `end_utt`."""
         return (self._active is not None
+                and hasattr(self._searches[self._active], "with_carry")
                 and self.config["feat"] == "1s_c_d_dd"
                 and (self.config["svspec"] or "") == "0-12/13-25/26-38")
 
@@ -544,6 +599,17 @@ class Decoder:
                                "forget to specify a language model or "
                                "grammar?")
         search = self._searches[self._active]
+        if isinstance(search, Aligner):
+            with self.stage_timers["search"]:
+                words, phones, states = search.align(
+                    feats, search._align_words, costs=costs)
+            self._segs = [Segment(w.text, w.start, w.start + w.duration - 1,
+                                  ascore=w.score, frate=self.fe.frate)
+                          for w in words]
+            self._align_result = (words, phones, states)
+            text = " ".join(w.text for w in words if w.text != "<sil>")
+            self._hyp = Hypothesis(hypstr=text)
+            return
         with self.stage_timers["search"]:
             if costs is None and self.config["ds"] > 1:
                 # honor -ds (frame GMM downsampling, src/ptm_mgau.c:241-243)
@@ -554,11 +620,13 @@ class Decoder:
                               frate=self.fe.frate) for s in segs]
         # first-pass path score from the backtrace, in logmath units (the
         # reference fills it in bp_hyp, src/ngram_search.c:545; prob stays
-        # 1.0 until bestpath posteriors run)
-        sc_i = int(round(search.hyp_score * (1 << 10)))
+        # 1.0 until bestpath posteriors run); 0 for searches without one
+        sc = getattr(search, "hyp_score", None)
+        sc_i = int(round(sc * (1 << 10))) if sc is not None else 0
         self._hyp = Hypothesis(hypstr=hyp, score=sc_i, best_score=sc_i)
         self._lattice = None
-        if self.config["bestpath"]:
+        # the n-gram and grammar searches keep word-exit records
+        if self.config["bestpath"] and hasattr(search, "lattice_inputs"):
             with self.stage_timers["bestpath"]:
                 self._run_bestpath(search)
 
@@ -580,13 +648,13 @@ class Decoder:
                 f"PS_DEBUG=1 (or -loglevel DEBUG) to re-raise.",
                 RuntimeWarning, stacklevel=2)
             return
-        lm = search.lm
+        lm = getattr(search, "lm", None)          # None for a grammar
         lwf = (self.config["bestpathlw"] / self.config["lw"]
                if self.config["lw"] else 1.0)
         silpen = math.log(self.config["silprob"]) / UNIT_NATS
         fillpen = math.log(self.config["fillprob"]) / UNIT_NATS
         finish = None
-        if search.finish_idx is not None:
+        if getattr(search, "finish_idx", None) is not None:
             finish = self.dict.wordstr(search.words[search.finish_idx])
         hyp, segs, score = lat.bestpath(lm=lm, lwf=lwf, silpen=silpen,
                                         fillpen=fillpen,
@@ -660,7 +728,8 @@ class Decoder:
                 self._lattice = lat
         if lat is None:
             return []
-        return lat.nbest(n, lm=self._searches[self._active].lm)
+        return lat.nbest(n, lm=getattr(self._searches[self._active], "lm",
+                                       None))
 
     # -- results -------------------------------------------------------------
 
@@ -669,6 +738,11 @@ class Decoder:
 
     def seg_iter(self):
         return iter(self._segs)
+
+    def get_alignment(self):
+        """(word, phone, state) `AlignEntry` lists of the last aligned
+        utterance, or None."""
+        return getattr(self, "_align_result", None)
 
     @property
     def n_frames(self) -> int:

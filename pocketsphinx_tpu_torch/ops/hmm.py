@@ -41,14 +41,12 @@ def hmm_step(S, sen_t, tp):
     for j in range(N - 1, 0, -1):
         cands = [s[..., j - 1] + tp[..., j - 1, j],
                  s[..., j] + tp[..., j, j]]
-        src_ids = [j - 1, j]
         if j >= 2:
             cands.append(s[..., j - 2] + tp[..., j - 2, j])
-            src_ids.append(j - 2)
         best, a = torch.max(torch.stack(cands, dim=-1), dim=-1)
         new_states.append(best)
-        srcs.append(torch.tensor(src_ids, dtype=torch.int32,
-                                 device=S.device)[a])
+        # candidate a is state j-1 (a=0), j (a=1) or j-2 (a=2)
+        srcs.append(torch.where(a == 2, j - 2, j - 1 + a).to(torch.int32))
     new_states.append(s[..., 0] + tp[..., 0, 0])
     srcs.append(torch.zeros_like(out_src))
     return (torch.stack(new_states[::-1], dim=-1),

@@ -128,9 +128,10 @@ class Lattice:
     @classmethod
     def from_flat_records(cls, dec, beam: float = 1e-5,
                           records=None) -> "Lattice":
-        """Build from an `NgramFusedDecoder` after a decode: from its
-        current records (`dec.lattice_inputs`: after `decode`, the raw
-        records on its device), or from flat records = (escore, estf,
+        """Build from an `NgramFusedDecoder` or an `FsgDecoder` (whose
+        "words" are its grammar arcs) after a decode: from its current
+        records (`dec.lattice_inputs`: after `decode`, the records on its
+        device), or from flat records = (escore, estf,
         eprw, eascr, ...) [T, W] passed explicitly (batch decodes).  The
         exit scan runs on the decoder's device; only the surviving exits
         reach the host.

@@ -13,8 +13,12 @@ The network (see the JAX module's docstring for the design):
     carried as a VAR plane -- stepped, with the CI chains, by one launch
     of the chain kernel per frame (`ops/chain.py`, CUDA on the card) on a
     flat carry (the buckets' [B, NST, D, Wb] blocks end to end);
-  * the word-final right-context fan [3, n_rc, n_multi] -- stepped by the
-    fan kernel (`ops/fan.py`, CUDA on the card);
+  * the word-final right-context fan [NST, n_rc, n_multi] -- stepped by
+    the fan kernel (`ops/fan.py`, CUDA on the card) for 3-state models,
+    and for other topologies by the JAX scan's XLA finals block as torch
+    ops (the `lp` gather of the per-final-diphone costs, `hmm_step_sm`,
+    the strict '>' chain-last entry, first-max exits; the JAX package
+    runs its Pallas fan only at 3 states too);
   * single-phone words as explicit left-context columns, CI/filler words
     as chains without variants (in the same chain launch);
   * top-K word exits per frame, exact trigram successor rows (LM mode
@@ -33,8 +37,8 @@ a frame whose `valid` is false leaves the whole carry as it was.
 `_backtrace` is the host 1-best walk over flat records (the JAX
 `ngram_flat` walk, without the C extension).
 
-Not ported (each raises NotImplementedError): LM mode C (CSR), the
-PS_GUARD_TOPM guard refinement, and 5-state models.
+Not ported (each raises NotImplementedError): LM mode C (CSR) and the
+PS_GUARD_TOPM guard refinement.
 """
 
 from __future__ import annotations
@@ -92,12 +96,12 @@ class _Chain:
     w_lo: int
     w_hi: int
     D: int
-    senid: np.ndarray = None          # [3, D, Wb] int32
+    senid: np.ndarray = None          # [NST, D, Wb] int32
     tp: np.ndarray = None             # [D, Wb, NST, NST+1] f32
     fd: np.ndarray = None             # [Wb] first depth per word
     firstmask: np.ndarray = None      # [D, Wb] bool
     # mpx first-phone variants (real multi-phone words only)
-    senid_first: np.ndarray = None    # [3, RF, Wb] int32
+    senid_first: np.ndarray = None    # [NST, RF, Wb] int32
     n_var: np.ndarray = None          # [Wb]
     RF: int = 0
 
@@ -652,13 +656,10 @@ class NgramFusedDecoder:
         with every key it shares equal to the JAX `_dev_tables`, except
         that one-hot expansion tables are kept as indices (`fd_idx{b}`
         for `fd_oh{b}`, `lp_idx` for `lp_oh`, `f0p_E` for `f0_onehot`)
-        and the finals use the fan kernel's layout (`tp_fin12`).  Also
-        fixes the scan's static layout (K, LM mode, senone segments)."""
+        and 3-state finals use the fan kernel's layout (`tp_fin12`; other
+        topologies keep `tp_fin` [W, NST, NST+1]).  Also fixes the scan's
+        static layout (K, LM mode, senone segments)."""
         NST = self.NST
-        if NST != 3:
-            raise NotImplementedError(
-                f"{NST}-state models: the fan (finals) path is 3-state "
-                f"only in this port; the 5-state finals block is later work")
         W, n_multi, SP = self.W, self.n_multi, self.SP
         n_rc = self.n_rcp
         self.K = K = min(self.topk, W)
@@ -785,9 +786,12 @@ class NgramFusedDecoder:
             tabs[f"ci_fm{bi}"] = ch.firstmask
         if n_multi:
             tabs["lp_idx"] = self.lp_idx
-            tabs["tp_fin12"] = np.ascontiguousarray(
-                self.tp_fin[:n_multi].transpose(1, 2, 0).reshape(
-                    12, n_multi))
+            if NST == 3:
+                tabs["tp_fin12"] = np.ascontiguousarray(
+                    self.tp_fin[:n_multi].transpose(1, 2, 0).reshape(
+                        12, n_multi))
+            else:
+                tabs["tp_fin"] = self.tp_fin[:n_multi]
         if SP:
             tabs["tp_sp"] = self.tp_sp[:SP]
         return tabs
@@ -880,13 +884,16 @@ class NgramFusedDecoder:
         newc = {"chain": dict(S=nS, TF=nTF, CTX=nCX, VAR=nVAR)}
         newc["ch"], newc["ci"] = self._chain_views(newc["chain"], B)
         # ---------- finals fan ----------
-        if n_multi:
+        if n_multi and NST == 3:
             e = carry["fin"]
             pred = cl_s + pip                                  # [B, Wm]
             nSf, nTFf, nCXf, sv_m, esc_m, etf_m, ecx_m = fan_step(
                 e["S"], e["TF"], e["CTX"], pred, cl_tf, cl_cx, g_fin,
                 tb["lp_idx"], tb["tp_fin12"])
             fin_new = dict(S=nSf, TF=nTFf, CTX=nCXf)
+        elif n_multi:
+            fin_new, sv_m, esc_m, etf_m, ecx_m = self._finals_step(
+                carry["fin"], g_fin, cl_s + pip, cl_tf, cl_cx)
         else:
             fin_new = None
             sv_m = torch.zeros((B, n_rc, 0), device=dev)
@@ -1080,6 +1087,31 @@ class NgramFusedDecoder:
             rec = (escore, etf_w, etgt_w, ecx_w, entry,
                    prw_e.to(torch.int32), erw1, erw2, m, nviol)
         return newc, rec
+
+    def _finals_step(self, e, g_fin, pred, ptf, pcx):
+        """The finals block for topologies the fan kernel does not take
+        (the JAX scan's XLA block): e the fan carry [B, NST, n_rc, Wm],
+        g_fin [B, NST, n_rc, n_lp] this frame's per-final-diphone costs,
+        pred/ptf/pcx [B, Wm] the chain-last exits (+ pip) with their
+        payloads.  Returns (new carry, exit plane [B, n_rc, Wm], per-word
+        exit score, TF, CTX [B, Wm]: the first maximal rc's)."""
+        tb = self.tables
+        sen = -g_fin[..., tb["lp_idx"]]                    # [B,NST,n_rc,Wm]
+        newS, (nTF, nCX), out, _, (oTF, oCX) = hmm_step_sm(
+            tuple(e["S"].unbind(1)), tuple(sen.unbind(1)), tb["tp_fin"],
+            metas=(tuple(e["TF"].unbind(1)), tuple(e["CTX"].unbind(1))))
+        win = pred[:, None, :] > newS[0]
+        fin = dict(
+            S=torch.stack((torch.where(win, pred[:, None, :], newS[0]),)
+                          + newS[1:], 1),
+            TF=torch.stack((torch.where(win, ptf[:, None, :], nTF[0]),)
+                           + nTF[1:], 1),
+            CTX=torch.stack((torch.where(win, pcx[:, None, :], nCX[0]),)
+                            + nCX[1:], 1))
+        esc, am = torch.max(out, dim=1)
+        etf = torch.gather(oTF, 1, am[:, None])[:, 0]
+        ecx = torch.gather(oCX, 1, am[:, None])[:, 0]
+        return fin, out, esc, etf, ecx
 
     @staticmethod
     def _enter_chain(e, entry, ctx_new, tf_new, off, Wb, fm, fd, inc_segs,

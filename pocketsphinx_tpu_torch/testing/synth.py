@@ -3,7 +3,7 @@
 The en-us model files are not in the repository, so the port's tests and
 `chip_smoke.py` build a stand-in with the same structure from a seed:
 42 CI phones (the 39 CMUdict phones, SIL, +NSN+, +SPN+), 3 emitting
-states, PTM with 42 codebooks x 3 streams x 128 densities x 13 dims,
+states (or 5, `make_model(..., n_state=5)`), PTM with 42 codebooks x 3 streams x 128 densities x 13 dims,
 and 5,126 senones of which 126 are CI.  The text model definition covers
 every triphone that the given dictionaries need (word-begin, -internal,
 -end and single-phone contexts); its CD senones are tied per (base
@@ -92,7 +92,7 @@ class SynthModel:
     means: np.ndarray          # [42, F, D, L] f32
     var: np.ndarray            # [42, F, D, L] f32
     mixw: np.ndarray           # [F, D, n_sen] uint8 costs
-    tmat: np.ndarray           # [42, 3, 4] uint8 costs (255 = impossible)
+    tmat: np.ndarray           # [42, N, N+1] uint8 costs (255 = impossible)
 
     def write(self, directory: str) -> tuple[str, str]:
         """Write `mdef.txt` and `noisedict` into `directory`; returns
@@ -122,7 +122,7 @@ class SynthModel:
         for name, x in (("means", self.means), ("variances", self.var)):
             _write_s3(os.path.join(directory, name), dims, x)
         # mixture weights [n_sen, n_feat, n_den] and transitions
-        # [n_tmat, 3, 4] as probabilities (cost 255 = impossible)
+        # [n_tmat, N, N+1] as probabilities (cost 255 = impossible)
         mixw = np.exp(-self.mixw.astype(np.float64) * _UNIT_NATS)
         _write_s3(os.path.join(directory, "mixture_weights"),
                   [self.mixw.shape[2], n_feat, n_den],
@@ -169,13 +169,17 @@ def _write_s3(path: str, ints, data):
 
 def make_model(dict_paths, seed: int = 0, n_sen: int = EN_US["n_sen"],
                n_density: int = EN_US["n_density"],
-               n_feat: int = EN_US["n_feat"], dim: int = EN_US["dim"]):
+               n_feat: int = EN_US["n_feat"], dim: int = EN_US["dim"],
+               n_state: int = 3):
     """A seeded PTM model whose mdef covers the triphones of every
-    pronunciation in `dict_paths`."""
+    pronunciation in `dict_paths`, with `n_state` emitting states per
+    phone: left to right with self-loops, and skips (j -> j+2) from
+    state 0 at 3 states, from every state that has one at 5."""
     rng = np.random.default_rng(seed)
     ci = PHONES + [SIL, *FILLERS]
     n_ci = len(ci)
-    n_ci_sen = 3 * n_ci
+    N = n_state
+    n_ci_sen = N * n_ci
     prons = [p for path in dict_paths for p in read_prons(path)
              if all(x in PHONES for x in p) and p]
     rows = _triphones(prons)
@@ -184,12 +188,12 @@ def make_model(dict_paths, seed: int = 0, n_sen: int = EN_US["n_sen"],
     bases = sorted({r[0] for r in rows})
     count = Counter(r[0] for r in rows)
     n_cd = n_sen - n_ci_sen
-    if n_cd < 3 * len(bases) or n_cd > 3 * len(rows):
+    if n_cd < N * len(bases) or n_cd > N * len(rows):
         raise ValueError(f"n_sen={n_sen} does not fit {len(rows)} triphones "
                          f"over {len(bases)} base phones")
-    keys = [(b, j) for b in bases for j in range(3)]
+    keys = [(b, j) for b in bases for j in range(N)]
     spare = n_cd - len(keys)
-    size = {k: 1 + min(count[k[0]] - 1, spare * count[k[0]] // (3 * len(rows)))
+    size = {k: 1 + min(count[k[0]] - 1, spare * count[k[0]] // (N * len(rows)))
             for k in keys}
     left = n_cd - sum(size.values())
     while left > 0:          # hand out the remainder, most-used first
@@ -204,24 +208,24 @@ def make_model(dict_paths, seed: int = 0, n_sen: int = EN_US["n_sen"],
 
     def senones(b):
         out = []
-        for j in range(3):
+        for j in range(N):
             k = (b, j)
             out.append(start[k] + used[k] % size[k])
             used[k] += 1
         return out
 
     lines = ["0.3", f"{n_ci} n_base", f"{len(rows)} n_tri",
-             f"{(n_ci + len(rows)) * 4} n_state_map", f"{n_sen} n_tied_state",
+             f"{(n_ci + len(rows)) * (N + 1)} n_state_map",
+             f"{n_sen} n_tied_state",
              f"{n_ci_sen} n_tied_ci_state", f"{n_ci} n_tied_tmat", "#"]
     cidx = {p: i for i, p in enumerate(ci)}
     for i, p in enumerate(ci):
         attrib = "filler" if p in (SIL, *FILLERS) else "n/a"
-        lines.append(f"{p} - - - {attrib} {i} {3 * i} {3 * i + 1} "
-                     f"{3 * i + 2} N")
+        states = " ".join(str(N * i + j) for j in range(N))
+        lines.append(f"{p} - - - {attrib} {i} {states} N")
     for b, lc, rc, wp in rows:
-        s = senones(b)
-        lines.append(f"{b} {lc} {rc} {wp} n/a {cidx[b]} {s[0]} {s[1]} "
-                     f"{s[2]} N")
+        states = " ".join(str(x) for x in senones(b))
+        lines.append(f"{b} {lc} {rc} {wp} n/a {cidx[b]} {states} N")
 
     means = rng.standard_normal((n_ci, n_feat, n_density, dim),
                                 dtype=np.float32)
@@ -232,11 +236,12 @@ def make_model(dict_paths, seed: int = 0, n_sen: int = EN_US["n_sen"],
     hot = rng.integers(0, n_density, (n_feat, 8, n_sen))
     np.put_along_axis(mixw, hot, rng.integers(0, 30, hot.shape)
                       .astype(np.uint8), axis=1)
-    tmat = np.full((n_ci, 3, 4), 255, np.uint8)
-    for j in range(3):
+    tmat = np.full((n_ci, N, N + 1), 255, np.uint8)
+    for j in range(N):
         tmat[:, j, j] = rng.integers(1, 12, n_ci)
         tmat[:, j, j + 1] = rng.integers(1, 12, n_ci)
-    tmat[:, 0, 2] = rng.integers(20, 60, n_ci)        # rare skips
+    for j in range(1 if N == 3 else N - 1):           # rare skips
+        tmat[:, j, j + 2] = rng.integers(20, 60, n_ci)
     return SynthModel(mdef_text="\n".join(lines) + "\n", means=means,
                       var=var, mixw=mixw, tmat=tmat)
 
@@ -266,11 +271,12 @@ def make_pcm(seed: int, seconds: float, samprate: int = 16000) -> np.ndarray:
 
 
 def write_arpa(words, path: str, seed: int = 0, p_bigram: float = 0.3,
-               p_context: float = 0.2, max_tri: int = 4):
+               p_context: float = 0.2, max_tri: int = 4, order: int = 3):
     """A seeded ARPA trigram LM over `words` (+ <s>, </s>): random
     unigram scores, a `p_bigram` share of explicit successors per
     history, and explicit trigrams for a `p_context` share of the
-    bigram contexts.  Returns `path`."""
+    bigram contexts (none with `order=2`, a bigram LM).  Returns
+    `path`."""
     rng = np.random.default_rng(seed)
     vocab = ["<s>", "</s>"] + [w for w in dict.fromkeys(words)
                                 if w not in ("<s>", "</s>")]
@@ -286,23 +292,25 @@ def write_arpa(words, path: str, seed: int = 0, p_bigram: float = 0.3,
             if rng.random() < p_bigram:
                 big.append((h, w))
     tri = []
-    for h1, h2 in big:
+    for h1, h2 in big if order >= 3 else ():
         if h2 != "</s>" and rng.random() < p_context:
             for w in rng.choice(succ, size=rng.integers(1, max_tri + 1),
                                 replace=False):
                 tri.append((h1, h2, str(w)))
     with open(path, "w") as out:
         out.write(f"\\data\\\nngram 1={len(uni)}\nngram 2={len(big)}\n"
-                  f"ngram 3={len(tri)}\n\n\\1-grams:\n")
+                  + (f"ngram 3={len(tri)}\n" if order >= 3 else "")
+                  + "\n\\1-grams:\n")
         for p_, w, bo in uni:
             out.write(f"{p_} {w} {bo}\n")
         out.write("\n\\2-grams:\n")
         for h, w in big:
             out.write(f"{f(rng.uniform(-3, -0.2))} {h} {w} "
                       f"{f(rng.uniform(-1, 0))}\n")
-        out.write("\n\\3-grams:\n")
-        for h1, h2, w in tri:
-            out.write(f"{f(rng.uniform(-2, -0.1))} {h1} {h2} {w}\n")
+        if order >= 3:
+            out.write("\n\\3-grams:\n")
+            for h1, h2, w in tri:
+                out.write(f"{f(rng.uniform(-2, -0.1))} {h1} {h2} {w}\n")
         out.write("\n\\end\\\n")
     return path
 
@@ -332,16 +340,71 @@ def build_decoder(spec: SynthModel, workdir: str, dic: str, lmfile: str,
 
 
 def small_task(directory: str, n_words: int = 40, seed: int = 0,
-               n_sen: int = 126 + 300, n_density: int = 8):
+               n_sen: int = 126 + 300, n_density: int = 8, n_state: int = 3):
     """A small decoding task under `directory`: a dictionary of
     `n_words` bench-1.7k words (plus 3 single-phone words), a seeded ARPA
-    trigram LM over them and a synthetic model directory covering them.
-    Returns (hmm directory, dictionary path, LM path)."""
+    trigram LM over them and a synthetic model directory covering them
+    (`n_state` emitting states per phone).  Returns (hmm directory,
+    dictionary path, LM path)."""
     os.makedirs(directory, exist_ok=True)
     dic = os.path.join(directory, "small.dic")
     words = small_dictionary(dic, n_words=n_words, n_single=3, seed=seed)
     lmf = write_arpa(words, os.path.join(directory, "small.arpa"),
                      seed=seed + 1)
-    spec = make_model([dic], seed=seed + 2, n_sen=n_sen, n_density=n_density)
+    spec = make_model([dic], seed=seed + 2, n_sen=n_sen, n_density=n_density,
+                      n_state=n_state)
     hmm = spec.write_model_dir(os.path.join(directory, "hmm"))
     return hmm, dic, lmf
+
+
+def grammar_words(dict_path: str) -> list[str]:
+    """The distinct base words of a dictionary that a JSGF grammar can
+    spell as plain tokens, in file order."""
+    words = []
+    for line in open(dict_path, encoding="utf-8", errors="replace"):
+        parts = line.split()
+        if parts and "(" not in parts[0] and not any(
+                c in parts[0] for c in "=;|()[]*+{}/<>#"):
+            words.append(parts[0])
+    return list(dict.fromkeys(words))
+
+
+def write_jsgf(dict_path: str, path: str, seed: int = 0,
+               sizes=(200, 1000, 100)) -> str:
+    """A seeded command grammar, `public <cmd> = <verb> <object> [<mod>];`,
+    whose three rules are alternations of `sizes` distinct words of the
+    dictionary.  Returns `path`."""
+    rng = np.random.default_rng(seed)
+    words = grammar_words(dict_path)
+    pick = [words[i] for i in rng.choice(len(words), sum(sizes),
+                                         replace=False)]
+    rules, at = [], 0
+    for name, n in zip(("verb", "object", "mod"), sizes):
+        rules.append(f"<{name}> = " + " | ".join(pick[at:at + n]) + ";")
+        at += n
+    with open(path, "w") as f:
+        f.write("#JSGF V1.0;\ngrammar synth;\n"
+                "public <cmd> = <verb> <object> [<mod>];\n"
+                + "\n".join(rules) + "\n")
+    return path
+
+
+def write_keyphrases(dict_path: str, path: str, seed: int = 0, n: int = 20,
+                     max_words: int = 3) -> str:
+    """A seeded -kws list: `n` phrases of 1..`max_words` dictionary words,
+    each with its own /threshold/.  Returns `path`."""
+    rng = np.random.default_rng(seed)
+    words = grammar_words(dict_path)
+    with open(path, "w") as f:
+        for _ in range(n):
+            k = int(rng.integers(1, max_words + 1))
+            phrase = " ".join(words[i] for i in rng.choice(len(words), k))
+            f.write(f"{phrase} /1e-{int(rng.integers(20, 300))}/\n")
+    return path
+
+
+def write_phone_arpa(path: str, seed: int = 0) -> str:
+    """A seeded phone-bigram ARPA LM over the 42 CI phone names (the
+    allphone search's LM).  Returns `path`."""
+    return write_arpa(PHONES + [SIL, *FILLERS], path, seed=seed,
+                      p_bigram=0.5, order=2)

@@ -7,6 +7,7 @@ build the JAX package's model and decoder here, from the same files
 
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -43,6 +44,70 @@ def jax_decoder(spec, workdir, dic, lmfile, lw=6.5, wip=0.65, **kw):
     am, noise = jax_model(spec, os.path.join(workdir, "jax_model"))
     d2p = Dict2Pid(am.mdef, Dictionary(am.mdef, dic, noise))
     return NgramFusedDecoder(am, d2p, read_lm(lmfile, lw=lw, wip=wip), **kw)
+
+
+def model_pair(spec, directory, dic):
+    """The same synthetic model and dictionary loaded into both packages:
+    ((JAX AcousticModel, JAX Dict2Pid), (port AcousticModel, port
+    Dict2Pid))."""
+    from pocketsphinx_tpu_torch.fileio.dictionary import (
+        Dictionary as PDictionary)
+    from pocketsphinx_tpu_torch.models.dict2pid import Dict2Pid as PDict2Pid
+    jam, noise = jax_model(spec, os.path.join(directory, "jax_model"))
+    pam, pnoise = spec.load(os.path.join(directory, "port_model"))
+    return ((jam, Dict2Pid(jam.mdef, Dictionary(jam.mdef, dic, noise))),
+            (pam, PDict2Pid(pam.mdef, PDictionary(pam.mdef, dic, pnoise))))
+
+
+def tie_costs(n_sen, T, seed, tie_frame=None):
+    """Seeded costs [T, n_sen] with one frame where every senone costs the
+    same (1e29), so that every score of that frame collapses onto one
+    value and every max in the step ties."""
+    c = np.random.default_rng(seed).uniform(0, 400, (T, n_sen)).astype(
+        np.float32)
+    c[T // 3 if tie_frame is None else tie_frame] = 1e29
+    return c
+
+
+def scan_outputs(monkeypatch):
+    """A list that receives the (carry, stacked outputs) of every
+    `jax.lax.scan` the JAX package runs from now on: the per-frame
+    records of searches that keep none."""
+    seen, scan = [], jax.lax.scan
+
+    def spy(*a, **k):
+        seen.append(scan(*a, **k))
+        return seen[-1]
+
+    monkeypatch.setattr(jax.lax, "scan", spy)
+    return seen
+
+
+def assert_records_equal(port, jax_recs, names):
+    """Port records (tensors or arrays) equal the JAX ones bit for bit,
+    dtype and shape included."""
+    assert len(port) == len(jax_recs) == len(names)
+    for n, a, b in zip(names, jax_recs, port):
+        a = np.asarray(a)
+        b = b.cpu().numpy() if torch.is_tensor(b) else np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, (n, a.dtype,
+                                                           b.dtype)
+        np.testing.assert_array_equal(b, a, err_msg=n)
+
+
+def dictionary_with_alternates(path, n_words=30, seed=0, n_alt=3):
+    """`synth.small_dictionary` plus alternate pronunciations `w(2)` of its
+    first `n_alt` multi-phone words (each the pronunciation of a later
+    word).  Returns the base words."""
+    from pocketsphinx_tpu_torch.testing import synth
+    words = synth.small_dictionary(path, n_words=n_words, seed=seed)
+    lines = open(path).read().splitlines()
+    multi = [ln.split() for ln in lines if len(ln.split()) > 2]
+    extra = [f"{a[0]}(2) " + " ".join(b[1:])
+             for a, b in zip(multi[:n_alt], multi[-n_alt:])]
+    with open(path, "a") as f:
+        f.write("\n".join(extra) + "\n")
+    return words
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -191,3 +191,45 @@ def test_decoder_streaming_cuda_equals_cpu(cuda, tmp_path):
         np.testing.assert_array_equal(a, b)
     assert out[0][1:] == out[1][1:]
     assert dec.n_frames % 32 != 0           # a padded, masked last block
+
+
+@pytest.mark.parametrize("mode", ["jsgf", "kws", "allphone", "allphone_tri",
+                                  "align"])
+def test_modes_cuda_equal_cpu(cuda, tmp_path, mode):
+    """Each grammar / keyword / allphone / align search decodes the same
+    costs to the same result on CUDA as on the CPU, records included."""
+    dec = chip_smoke.mode_decoder(str(tmp_path), cuda)
+    name = chip_smoke.add_mode(dec, mode, str(tmp_path))
+    cpu = dec._to("cpu")
+    costs = np.random.default_rng(26).uniform(
+        0, 400, (90, dec.am.n_sen)).astype(np.float32)
+    costs[30] = 200.0
+    for d in (dec, cpu):
+        d.activate_search(name)
+        d.decode_senscr(costs)
+    assert chip_smoke.mode_result(dec) == chip_smoke.mode_result(cpu)
+    chip_smoke.check_records(dec._searches[name], cpu._searches[name], mode)
+    assert dec.hyp().hypstr or mode == "kws"
+
+
+def test_nst5_decode_cuda(cuda, tmp_path):
+    """A 5-state model through the facade on CUDA: the chain kernel
+    launches once per scanned frame, the fan kernel never, and the
+    records equal the CPU's."""
+    from pocketsphinx_tpu_torch import Decoder
+    hmm, dic, lmf = synth.small_task(str(tmp_path), seed=9,
+                                     n_sen=210 + 400, n_state=5)
+    dec = Decoder(hmm=hmm, dict=dic, lm=lmf, device=cuda)
+    costs = np.random.default_rng(27).uniform(
+        0, 400, (70, dec.am.n_sen)).astype(np.float32)
+    nf, nc = fan.launches, chain.launches
+    dec.decode_senscr(costs)
+    search = dec._searches["_default"]
+    assert search.NST == 5
+    assert (fan.launches - nf, chain.launches - nc) == \
+        (0, -(-70 // search.CHUNK) * search.CHUNK)
+    cpu = dec._to("cpu")
+    cpu.decode_senscr(costs)
+    for a, b in zip(search.raw_records, cpu._searches["_default"].raw_records):
+        np.testing.assert_array_equal(a, b)
+    assert _result(dec) == _result(cpu)

@@ -14,7 +14,16 @@ feat.params), a 40-word dictionary and a seeded ARPA trigram LM:
     every chunk and the final hyp equal the JAX decoder's;
   * the rest of the API: `add_word` + re-decode, `lookup_word`,
     `get_cmn` / `set_cmn` across two utterances, the no-search error,
-    and NotImplementedError for the modes not ported."""
+    the JAX decoder's errors for bad grammar, keyword and align calls,
+    and NotImplementedError for `PS_NGRAM_IMPL=flat`;
+  * every other search mode through the constructor (`-fsg`, `-jsgf`,
+    `-keyphrase`, `-kws`, `-allphone` CI with a phone LM and triphone
+    without) and `add_align_text`: `decode_senscr` hyps and segments
+    equal, for grammars also the best-path result, lattice lists and
+    `nbest`, for alignment the word, phone and state entries (the JAX
+    aligner is driven with the same costs directly, since its decoder
+    scores features only); `activate_search` switching between the LM
+    search and a grammar gives each one's own result."""
 
 from dataclasses import astuple
 
@@ -190,16 +199,24 @@ def test_lookup_and_errors(task, decoders, monkeypatch):
     bare = Decoder(hmm=hmm, dict=dic, device="cpu")
     with pytest.raises(RuntimeError, match="No search module"):
         bare.decode_senscr(np.zeros((5, bare.am.n_sen), np.float32))
-    with pytest.raises(NotImplementedError, match="FSG"):
-        Decoder(hmm=hmm, dict=dic, fsg="g.fsg", device="cpu")
-    with pytest.raises(NotImplementedError, match="kws"):
-        Decoder(hmm=hmm, dict=dic, kws="k.txt", device="cpu")
-    for call in (lambda: pd.add_keyphrase("k", "a b"),
-                 lambda: pd.add_jsgf_string("j", "#JSGF V1.0;"),
-                 lambda: pd.add_allphone("a", None),
-                 lambda: pd.add_align_text("x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    # each call raises what the JAX decoder raises for it (and the
+    # allphone search without an LM is built by both)
+    for cls in (JaxDecoder, Decoder):
+        kw = {"device": "cpu"} if cls is Decoder else {}
+        with pytest.raises(FileNotFoundError, match="g.fsg"):
+            cls(hmm=hmm, dict=dic, fsg="g.fsg", **kw)
+        with pytest.raises(FileNotFoundError, match="k.txt"):
+            cls(hmm=hmm, dict=dic, kws="k.txt", **kw)
+    for d in decoders:
+        with pytest.raises(ValueError, match="no usable keyphrases"):
+            d.add_keyphrase("k", "a nosuchword")
+        with pytest.raises(ValueError, match="no public rules"):
+            d.add_jsgf_string("j", "#JSGF V1.0;")
+        assert type(d.add_allphone("a", None)).__name__ == "AllphoneDecoder"
+        d.remove_search("a")
+        with pytest.raises(KeyError, match="Unknown word"):
+            d.add_align_text("x")
+        assert sorted(d._searches) == ["_default"]
     monkeypatch.setenv("PS_NGRAM_IMPL", "flat")
     with pytest.raises(NotImplementedError, match="ngram_flat"):
         pd.add_lm("flat", lmf)
@@ -261,3 +278,99 @@ def test_add_word_then_decode_equal(decoders):
         d.decode_senscr(costs)
     assert _hyp(pd) == _hyp(jd)
     assert _segs(pd, post=True) == _segs(jd, post=True)
+
+
+@pytest.fixture(scope="module")
+def mode_files(task, tmp_path_factory):
+    from pocketsphinx_tpu_torch.testing.synth import (
+        write_jsgf, write_keyphrases, write_phone_arpa)
+    hmm, dic, lmf = task
+    d = tmp_path_factory.mktemp("modes")
+    words = [ln.split()[0] for ln in open(dic)]
+    write_jsgf(dic, str(d / "cmd.gram"), seed=20, sizes=(6, 12, 4))
+    fsg = "FSG_BEGIN cmd\nN 4\nS 0\nF 3\n" + "".join(
+        f"T {a} {b} {p} {w}\n" for a, b, p, w in
+        [(0, 1, 0.5, words[0]), (0, 1, 0.5, words[1]), (1, 2, 1.0, words[2]),
+         (2, 1, 0.2, words[3]), (2, 3, 0.8, words[4])]) \
+        + "T 1 3 0.1\nFSG_END\n"
+    (d / "cmd.fsg").write_text(fsg)
+    kws = write_keyphrases(dic, str(d / "k.txt"), seed=21, n=8)
+    return dict(jsgf=str(d / "cmd.gram"), fsg=str(d / "cmd.fsg"), kws=kws,
+                keyphrase=" ".join(words[3:5]),
+                allphone=write_phone_arpa(str(d / "phone.arpa"), seed=22),
+                words=words)
+
+
+MODES = [("fsg", {}), ("jsgf", {}), ("keyphrase", {"kws_threshold": 1e-150}),
+         ("kws", {}), ("allphone", {}), ("allphone", {"allphone_ci": False})]
+
+
+@pytest.mark.parametrize("mode,extra", MODES,
+                         ids=[m + ("_tri" if e.get("allphone_ci") is False
+                                   else "") for m, e in MODES])
+def test_search_modes_equal(task, mode_files, mode, extra):
+    hmm, dic, _ = task
+    kw = {mode: mode_files[mode], **extra}
+    jd = JaxDecoder(hmm=hmm, dict=dic, **kw)
+    pd = Decoder(hmm=hmm, dict=dic, device="cpu", **kw)
+    costs = np.random.default_rng(23).uniform(
+        0, 400, (96, pd.am.n_sen)).astype(np.float32)
+    costs[40] = 200.0                        # a frame of ties everywhere
+    for d in (jd, pd):
+        d.decode_senscr(costs)
+    assert _hyp(pd) == _hyp(jd)
+    assert _segs(pd, post=True) == _segs(jd, post=True)
+    if mode in ("fsg", "jsgf"):
+        assert pd.hyp().hypstr and pd.get_lattice().n_links
+        assert _lists(pd.get_lattice()) == _lists(jd.get_lattice())
+        assert pd.nbest(4) == jd.nbest(4)
+    else:
+        assert pd.get_lattice() is None
+    if mode in ("kws", "keyphrase"):
+        assert pd.hyp().hypstr, "no detection to compare"
+
+
+def test_align_text_equal(decoders, mode_files):
+    jd, pd = decoders
+    words = mode_files["words"][2:9]
+    costs = np.random.default_rng(24).uniform(
+        0, 400, (120, pd.am.n_sen)).astype(np.float32)
+    try:
+        for d in decoders:
+            d.add_align_text(" ".join(words))
+        assert pd.current_search_name() == "_align"
+        pd.decode_senscr(costs)
+        ej = jd._searches["_align"].align(None, words, costs=costs)
+        for level_p, level_j in zip(pd.get_alignment(), ej):
+            assert [astuple(e) for e in level_p] == \
+                [astuple(e) for e in level_j]
+        assert pd.hyp().hypstr == " ".join(words)
+        assert _segs(pd) == [(w.text, w.start, w.start + w.duration - 1)
+                             for w in ej[0]]
+    finally:
+        for d in decoders:
+            d._searches.pop("_align", None)
+            d.activate_search("_default")
+
+
+def test_activate_search_switches(decoders, mode_files):
+    jd, pd = decoders
+    costs = np.random.default_rng(25).uniform(
+        0, 400, (96, pd.am.n_sen)).astype(np.float32)
+    gram = open(mode_files["jsgf"]).read()
+    out = []
+    try:
+        for d in decoders:
+            d.add_jsgf_string("cmd", gram)
+            got = []
+            for name in ("_default", "cmd", "_default"):
+                d.activate_search(name)
+                d.decode_senscr(costs)
+                got.append((d.current_search_name(), _hyp(d), _segs(d)))
+            out.append(got)
+    finally:
+        for d in decoders:
+            d._searches.pop("cmd", None)
+            d.activate_search("_default")
+    assert out[1] == out[0]
+    assert out[1][0] == out[1][2] and out[1][0][1] != out[1][1][1]

@@ -92,8 +92,10 @@ def test_import_scan_catches(src, tmp_path):
 
 
 def test_decoder_modules_import_alone():
-    """The facade's modules load with JAX and the JAX package blocked,
-    and the package exports the decoder lazily."""
+    """The facade's modules, the grammar, keyword, allphone and align
+    searches among them, and `chip_smoke.py`'s phase 8 load with JAX and
+    the JAX package blocked, and the package exports the decoder
+    lazily."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -102,7 +104,12 @@ def test_decoder_modules_import_alone():
         "assert 'pocketsphinx_tpu_torch.decoder' not in sys.modules\n"
         "p.Decoder, p.Config, p.Hypothesis, p.Segment, p.err\n"
         "from pocketsphinx_tpu_torch.search.lattice import Lattice\n"
-        "from pocketsphinx_tpu_torch.frontend.stream import FeatStream\n")
+        "from pocketsphinx_tpu_torch.frontend.stream import FeatStream\n"
+        "from pocketsphinx_tpu_torch.search import fsg, kws, allphone, align\n"
+        "from pocketsphinx_tpu_torch.lm.jsgf import Jsgf, JsgfError\n"
+        "from pocketsphinx_tpu_torch.models.chains import append_word_chain\n"
+        "import chip_smoke\n"
+        "chip_smoke.modes\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
@@ -124,6 +131,25 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     spec = synth.make_model([dic], n_sen=126 + 60, n_density=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         synth.build_decoder(spec, str(tmp_path), dic, lmf)
+    # the grammar, keyword, allphone and align searches too
+    from pocketsphinx_tpu_torch.fileio.dictionary import Dictionary
+    from pocketsphinx_tpu_torch.lm.fsg import FsgModel
+    from pocketsphinx_tpu_torch.models.dict2pid import Dict2Pid
+    from pocketsphinx_tpu_torch.search.align import Aligner
+    from pocketsphinx_tpu_torch.search.allphone import AllphoneDecoder
+    from pocketsphinx_tpu_torch.search.fsg import FsgDecoder
+    from pocketsphinx_tpu_torch.search.kws import KwsDecoder
+    am, noise = spec.load(str(tmp_path / "model"))
+    d2p = Dict2Pid(am.mdef, Dictionary(am.mdef, dic, noise))
+    word = d2p.dict.wordstr(0)
+    fsg = FsgModel("g", 2, 0, 1)
+    fsg.trans_add(0, 1, 0.0, fsg.word_add(word))
+    for make in (lambda: FsgDecoder(am, d2p, fsg),
+                 lambda: KwsDecoder(am, d2p, [(word, 1e-30)]),
+                 lambda: AllphoneDecoder(am), lambda: Aligner(am, d2p)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert len(fsg.links) == 1            # refused before editing the grammar
     assert resolve_device("cpu") == torch.device("cpu")
 
 
