@@ -26,7 +26,8 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    segments held bit-equal against the same port run on the CPU with the
    plain kernels, from the same cost matrix;
 6. with --profile only: torch.profiler over 64 scan steps of the B=8
-   decode, device time by kernel and the device's busy share;
+   decode, device time by kernel and the device's busy share (and the
+   same at the 126k width in phase 9(a));
 7. the `Decoder` facade at the same width: a synthetic en-us-shaped
    model directory (`synth.SynthModel.write_model_dir`) with
    bench-20k.dic and bench-20k.lm.bin, on CUDA: the seconds to build
@@ -55,9 +56,32 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    at that decoder's bucket list (ties on and off, timed as in phase 3),
    one 2 s utterance through `decode_raw` with fan launches 0 and chain
    launches equal to the frames stepped, and its records held equal to
-   the CPU's.
+   the CPU's;
+9. the reference scale and the corpus path: (a) the 126k-word task,
+   bench-135k.lm.bin (V=126,032) over `synth.dictionary_for_lm` of its
+   vocabulary with bench-20k.dic's pronunciations and a synthetic
+   en-us-shaped model over it (`reference_scale`): LM mode C (asserted),
+   the LM read and decoder build seconds, W, E, the chain buckets, the
+   fat rows and SB, and both kernels held bit-equal to their plain
+   versions at this decoder's shapes (ties on and off) and timed as in
+   phases 2-3; (b) `BatchDecodePipeline.decode_corpus` of 16 seeded
+   utterances of 2-5 s (two B=8 batches), three times: audio-s/s (the
+   median), stage seconds, peak memory, the guard count, fan and chain
+   launches equal to the frames stepped; then a 1 s utterance decoded on
+   the card and by the decoder moved to the CPU from one cost matrix,
+   records, hypothesis, segments and score equal; (c) `TwoStagePipeline`
+   over the same utterances, equal to (b); (d) `guard_topm` (run right
+   after phase 5, before its decoder is freed): PS_GUARD_TOPM=64 on
+   phase 5's 20k decoder, one B=8 batch, every record
+   but `nviol` and the hypotheses equal to GM=0, both guard counts and
+   peak memories; (e) `batch_cli`: `cli_batch.main` over a synthetic model
+   directory with bench-1.7k.dic and bench-1.7k.lm.bin and eight seeded
+   WAV files (`-adcin yes`), at `-batchsize 8` and 1, identical `-hyp`
+   and `-hypseg` files.
 
-Prints the kernels' JSON line, then as its last line
+Prints the kernels' JSON line (the two kernels at the 20k shapes with
+the main path's launches, then at the 126k shapes, `*_126k`, with phase
+9(b)'s), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises; without CUDA it exits non-zero before any
 result.
@@ -240,7 +264,6 @@ def build_decoder(dic, lmfile, workdir, device, n_sen=None, n_density=None,
     """Seeded synthetic en-us-shaped model over `dic` + the LM file ->
     (port NgramFusedDecoder on `device`, frontend); `dec_kw` go to the
     decoder."""
-    from pocketsphinx_tpu_torch.frontend.mfcc import MelFrontend
     from pocketsphinx_tpu_torch.testing import synth
 
     kw = {k: v for k, v in (("n_sen", n_sen), ("n_density", n_density))
@@ -248,10 +271,40 @@ def build_decoder(dic, lmfile, workdir, device, n_sen=None, n_density=None,
     spec = synth.make_model([dic], seed=0, **kw)
     dec = synth.build_decoder(spec, workdir, dic, lmfile, device=device,
                               **dec_kw)
-    # en-us feat.params
-    fe = MelFrontend(nfilt=25, lowerf=130, upperf=6800, transform="dct",
-                     lifter_val=22, remove_noise=True)
-    return dec, fe
+    return dec, en_us_frontend()
+
+
+def en_us_frontend():
+    """The batched frontend with en-us's feat.params."""
+    from pocketsphinx_tpu_torch.frontend.mfcc import MelFrontend
+    return MelFrontend(nfilt=25, lowerf=130, upperf=6800, transform="dct",
+                       lifter_val=22, remove_noise=True)
+
+
+def buckets_of(dec):
+    """The chain kernel's bucket list of a decoder, (NST, D, W, RF, NFD,
+    has_var) each in layout order: the variant buckets, then the CI
+    buckets."""
+    out = [(dec.NST, c.D, c.Wb, c.RF, c.senid_first_d.shape[-1], True)
+           for c in dec.chains]
+    return out + [(dec.NST, c.D, c.Wb, 0, 0, False) for c in dec.ci_chains]
+
+
+def check_cpu_equal(dec, costs, raw, hyp, segs, score, device):
+    """The decode of `costs` [T, n_sen] on `device` (its raw records,
+    hypothesis, segments and score) equals the same decoder's on the CPU
+    with the plain kernels."""
+    cpu = dec.to("cpu")
+    hyp_c, segs_c = cpu.decode(None, costs=costs.cpu())
+    names = "escore etf etgt ecx entry eprw erw1 erw2 m nviol".split()
+    for n, a, b in zip(names, raw, cpu.raw_records):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{device} vs cpu records differ: {n}")
+    key = lambda s: [(x.word, x.start, x.end) for x in s]  # noqa: E731
+    if (hyp, key(segs), score) != (hyp_c, key(segs_c), cpu.hyp_score):
+        raise AssertionError(f"{device} vs cpu hypothesis differs: "
+                             f"{hyp!r} / {hyp_c!r}")
+    return {"frames": int(costs.shape[0]), "hyp": hyp, "records_equal": True}
 
 
 def pcm_batch(seeds, seconds):
@@ -345,19 +398,7 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
                     "hyps": hyps,
                     "guard_violations": dec.guard_violations}
     if check_cpu:
-        costs, raw, hyp, segs, score = first
-        cpu = dec.to("cpu")
-        hyp_c, segs_c = cpu.decode(None, costs=costs.cpu())
-        names = "escore etf etgt ecx entry eprw erw1 erw2 m nviol".split()
-        for n, a, b in zip(names, raw, cpu.raw_records):
-            if a.shape != b.shape or not np.array_equal(a, b):
-                raise AssertionError(f"{device} vs cpu records differ: {n}")
-        key = lambda s: [(x.word, x.start, x.end) for x in s]  # noqa: E731
-        if (hyp, key(segs), score) != (hyp_c, key(segs_c), cpu.hyp_score):
-            raise AssertionError(f"{device} vs cpu hypothesis differs: "
-                                 f"{hyp!r} / {hyp_c!r}")
-        res["cpu_check"] = {"frames": int(costs.shape[0]), "hyp": hyp,
-                            "records_equal": True}
+        res["cpu_check"] = check_cpu_equal(dec, *first, device)
     return res
 
 
@@ -675,11 +716,9 @@ def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
     if s5.NST != 5:
         raise AssertionError(f"5-state model has NST={s5.NST}")
     if cuda:
-        buckets = [(5, c.D, c.Wb, c.RF, c.senid_first_d.shape[-1], True)
-                   for c in s5.chains]
-        buckets += [(5, c.D, c.Wb, 0, 0, False) for c in s5.ci_chains]
         # at the decode's batch (B=1), and at phase 3's B=8
-        res["chain5"] = {B: check_chain(B, buckets, log) for B in (1, 8)}
+        res["chain5"] = {B: check_chain(B, buckets_of(s5), log)
+                         for B in (1, 8)}
     for level in range(1, s5.lm.order):      # the best-path LM maps
         s5.lm._level_map(level)
     fan.reset_launches()
@@ -718,6 +757,251 @@ def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
     if mode_result(cpu5) != result:
         raise AssertionError(f"5-state {device} vs cpu result differs: "
                              f"{result[0]} / {mode_result(cpu5)[0]}")
+    return res
+
+
+def _results(out):
+    """[(hyp, segs)] as comparable tuples."""
+    return [(h, [(s.word, s.start, s.end) for s in segs]) for h, segs in out]
+
+
+def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
+                    n_sen=None, n_density=None, seconds=None, batch=8,
+                    repeats=3, check_seconds=1.0, profile=False):
+    """Phase 9 (a)-(c): the 126k-word task, `lmfile` (default
+    bench-135k.lm.bin) over `synth.dictionary_for_lm` of its vocabulary
+    with `base_dic`'s pronunciations (default bench-20k.dic), a synthetic
+    en-us-shaped model over that dictionary (unless `n_sen` / `n_density`
+    say otherwise), on `device`.  (a) the LM read and decoder build
+    seconds, LM mode C (asserted), the shapes, and on CUDA both kernels
+    held to their plain versions at this decoder's shapes; (b)
+    `BatchDecodePipeline.decode_corpus` of seeded utterances of
+    `seconds` (default 16 of 2-5 s: two B=`batch` batches) `repeats`
+    times: audio-s/s, stage seconds, peak memory, guard count, launches ==
+    frames stepped; then one `check_seconds` utterance decoded on
+    `device` and by the decoder moved to the CPU from one cost matrix,
+    records equal; (c) `TwoStagePipeline` over the same utterances, equal
+    to (b).  With `profile` (CUDA), `profile_scan` of this decoder after
+    (a).  Returns what it measured."""
+    import torch
+    from pocketsphinx_tpu_torch.fileio.dictionary import Dictionary
+    from pocketsphinx_tpu_torch.lm.ngram import read_lm
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+    from pocketsphinx_tpu_torch.models.dict2pid import Dict2Pid
+    from pocketsphinx_tpu_torch.ops import chain, fan
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline
+    from pocketsphinx_tpu_torch.parallel.pipeline import TwoStagePipeline
+    from pocketsphinx_tpu_torch.search.ngram_fused import NgramFusedDecoder
+    from pocketsphinx_tpu_torch.testing import synth
+
+    lmfile = lmfile or os.path.join(BENCH, "bench-135k.lm.bin")
+    base_dic = base_dic or os.path.join(BENCH, "bench-20k.dic")
+    cuda = torch.device(device).type == "cuda"
+    kw = {k: v for k, v in (("n_sen", n_sen), ("n_density", n_density))
+          if v is not None}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # (a) the task and its decoder
+    res = {}
+    t0 = time.perf_counter()
+    dic = synth.dictionary_for_lm(lmfile, base_dic,
+                                  os.path.join(work, "lm_vocab.dic"))
+    am, noise = synth.make_model([dic], seed=0, **kw).load(
+        os.path.join(work, "model_lm_vocab"))
+    d2p = Dict2Pid(am.mdef, Dictionary(am.mdef, dic, noise))
+    res["model_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = read_lm(lmfile, lw=6.5, wip=0.65)
+    res["lm_read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec = NgramFusedDecoder(am, d2p, lm, device=device)
+    res["build_s"] = sync() - t0
+    if dec.lm_mode != "csr":
+        raise AssertionError(f"LM mode {dec.lm_mode} != csr at V={dec.V}")
+    res["shape"] = dict(V=int(dec.V), W=dec.W, n_multi=dec.n_multi,
+                        E=dec.nE, n_rc=dec.n_rcp, n_fat=dec.N_FAT,
+                        SB=dec.SB, S_TRI=dec.S_TRI,
+                        chain_buckets=[(c.D, c.Wb, c.RF) for c in dec.chains],
+                        ci_buckets=[(c.D, c.Wb) for c in dec.ci_chains])
+    log(f"reference scale: dictionary and model {res['model_s']:.1f} s, LM "
+        f"read {res['lm_read_s']:.1f} s, decoder built (host tables and "
+        f"upload) {res['build_s']:.1f} s; LM mode {dec.lm_mode}: "
+        + json.dumps(res["shape"]))
+    fe = en_us_frontend()
+    if cuda:
+        res["fan"] = check_fan(batch, dec.n_rcp, dec.n_multi,
+                               dec.senid_fin_d.shape[-1], log)
+        res["chain"] = check_chain(batch, buckets_of(dec), log)
+        if profile:
+            res["profile"] = profile_scan(dec, fe, log, batch=batch)
+
+    # (b) the corpus pipeline
+    secs = np.linspace(2.0, 5.0, 2 * batch) if seconds is None else seconds
+    pcms = [synth.make_pcm(500 + i, s) for i, s in enumerate(secs)]
+    audio_s = sum(len(p) for p in pcms) / fe.samprate
+    lens = sorted(len(p) for p in pcms)
+    ch = dec.CHUNK
+    frames = sum(-(-fe.n_frames(max(lens[i:i + batch])) // ch) * ch
+                 for i in range(0, len(lens), batch))
+    pipe = BatchDecodePipeline(dec, fe)
+    fan.reset_launches()
+    chain.reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    runs, first = [], None
+    for _ in range(repeats):
+        st = {}
+        t0 = sync()
+        out = _results(pipe.decode_corpus(pcms, batch_size=batch,
+                                          timings=st))
+        dt = sync() - t0
+        runs.append(dict(seconds=dt, audio_s_per_s=audio_s / dt,
+                         scan_ms_per_frame=st["scan"] / frames * 1e3,
+                         guard_violations=pipe.guard_violations, **st))
+        if first is None:
+            first = out
+        elif out != first:
+            raise AssertionError("repeated decode_corpus changed its result")
+    launches = {"fan": fan.launches, "chain": chain.launches}
+    if cuda and launches != {"fan": frames * repeats,
+                             "chain": frames * repeats}:
+        raise AssertionError(f"decode_corpus launches {launches} != frames "
+                             f"stepped {frames * repeats}")
+    med = sorted(runs, key=lambda r: r["audio_s_per_s"])[len(runs) // 2]
+    res["corpus"] = dict(
+        utts=len(pcms), audio_s=audio_s, frames_per_run=frames,
+        launches=launches, audio_s_per_s=med["audio_s_per_s"],
+        median_run=med, runs=[r["audio_s_per_s"] for r in runs],
+        hyps=[h for h, _ in first][:4],
+        peak_mem_bytes=torch.cuda.max_memory_allocated() if cuda else None)
+    log("decode_corpus: " + json.dumps(res["corpus"], default=float))
+    pcm1 = synth.make_pcm(600, check_seconds)
+    feats, nf = features(fe, pcm1[None].astype(np.float32),
+                         np.array([len(pcm1)], np.int32), device)
+    costs = senone_scores(dec.am.scoring_tensors(dec.device),
+                          feats[:, :int(nf[0])])[0]
+    hyp, segs = dec.decode(None, costs=costs)
+    t0 = time.perf_counter()
+    res["cpu_check"] = check_cpu_equal(dec, costs, dec.raw_records, hyp,
+                                       segs, dec.hyp_score, device)
+    res["cpu_check"]["seconds"] = time.perf_counter() - t0
+    log("reference scale, one utterance on the CPU: "
+        + json.dumps(res["cpu_check"]))
+
+    # (c) the two-stage pipeline
+    t0 = sync()
+    two = _results(TwoStagePipeline(dec, fe).decode_corpus(
+        pcms, micro_batch=batch))
+    res["two_stage_s"] = sync() - t0
+    if two != first:
+        raise AssertionError("TwoStagePipeline differs from decode_corpus")
+    log(f"TwoStagePipeline equals decode_corpus ({res['two_stage_s']:.1f} s)")
+    return res
+
+
+def guard_topm(dec, device, log=print, gm=64, batch=8):
+    """Phase 9(d): one B=`batch` batch (phase 5's utterances) through
+    `dec` and through a copy whose tables add PS_GUARD_TOPM=`gm`: every
+    record but `nviol`, the hypotheses and segments equal; both guard
+    counts, the BMAX table's bytes and the peak memory of each run."""
+    import copy
+    import torch
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+
+    cuda = torch.device(device).type == "cuda"
+    fe = en_us_frontend()
+    pcm, ns = pcm_batch(list(range(10, 10 + batch)),
+                        list(np.linspace(2.0, 5.0, batch)))
+    feats, nf = features(fe, pcm, ns, device)
+    costs = senone_scores(dec.am.scoring_tensors(dec.device), feats,
+                          time_chunk=16)
+    valid = (torch.arange(costs.shape[1], device=costs.device)[None, :]
+             < torch.as_tensor(nf, device=costs.device)[:, None])
+    t0 = time.perf_counter()
+    os.environ["PS_GUARD_TOPM"] = str(gm)
+    try:
+        top = copy.copy(dec)
+        top.host_tables = top._host_tables()
+        top.tables = top.device_tables(top.host_tables, dec.device)
+    finally:
+        del os.environ["PS_GUARD_TOPM"]
+    res = {"build_s": time.perf_counter() - t0, "GM": top.GM,
+           "bmax_bytes": int(top.host_tables["guard_bmax"].nbytes)}
+    if top.GM != gm:
+        raise AssertionError(f"PS_GUARD_TOPM={gm} not in effect ({top.GM})")
+    runs = []
+    for d in (dec, top):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        recs = d.scan(costs, valid)
+        out = _results(d.decode_batch(None, nf, keep_records=False,
+                                      costs=costs))
+        runs.append((recs, out, d.guard_violations,
+                     torch.cuda.max_memory_allocated() if cuda else None))
+    (r0, o0, v0, m0), (rg, og, vg, mg) = runs
+    names = "escore etf etgt ecx entry eprw erw1 erw2 m".split()
+    for n, a, b in zip(names, r0, rg):
+        if not torch.equal(a, b):
+            raise AssertionError(f"PS_GUARD_TOPM={gm} changed record {n}")
+    if o0 != og:
+        raise AssertionError(f"PS_GUARD_TOPM={gm} changed the hypotheses")
+    res.update(guard_violations_gm0=v0, guard_violations=vg,
+               peak_mem_bytes_gm0=m0, peak_mem_bytes=mg,
+               hyps=[h for h, _ in og][:4])
+    log("PS_GUARD_TOPM: " + json.dumps(res))
+    return res
+
+
+def batch_cli(work, device, log=print, dic=None, lmfile=None, n_utts=8,
+              n_sen=None, n_density=None):
+    """Phase 9(e): `cli_batch.main` on `device` over a synthetic model
+    directory with `dic` and `lmfile` (default the 1.7k task) and
+    `n_utts` seeded WAV files (`-adcin yes`), at `-batchsize 8` and 1:
+    the `-hyp` and `-hypseg` files must be identical.  Returns the
+    seconds of each run and the hypotheses."""
+    import wave
+    from pocketsphinx_tpu_torch import cli_batch
+    from pocketsphinx_tpu_torch.testing import synth
+
+    dic = dic or os.path.join(BENCH, "bench-1.7k.dic")
+    lmfile = lmfile or os.path.join(BENCH, "bench-1.7k.lm.bin")
+    kw = {k: v for k, v in (("n_sen", n_sen), ("n_density", n_density))
+          if v is not None}
+    hmm = synth.make_model([dic], seed=0, **kw).write_model_dir(
+        os.path.join(work, "hmm_cli"))
+    wavs = os.path.join(work, "wav")
+    os.makedirs(wavs, exist_ok=True)
+    ids = [f"utt{i}" for i in range(n_utts)]
+    for i, (u, s) in enumerate(zip(ids, np.linspace(1.0, 3.0, n_utts))):
+        with wave.open(os.path.join(wavs, u + ".wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(synth.make_pcm(700 + i, s).tobytes())
+    ctl = os.path.join(work, "cli.ctl")
+    with open(ctl, "w") as f:
+        f.write("\n".join(ids) + "\n")
+    res, outs = {}, {}
+    for bs in (8, 1):
+        hyp, seg = (os.path.join(work, f"b{bs}.{x}") for x in ("hyp", "seg"))
+        t0 = time.perf_counter()
+        rc = cli_batch.main(["-hmm", hmm, "-dict", dic, "-lm", lmfile,
+                             "-ctl", ctl, "-adcin", "yes", "-cepdir", wavs,
+                             "-cepext", ".wav", "-batchsize", str(bs),
+                             "-hyp", hyp, "-hypseg", seg], device=device)
+        res[f"batchsize_{bs}_s"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli_batch -batchsize {bs} exited {rc}")
+        outs[bs] = tuple(open(p).read() for p in (hyp, seg))
+    if outs[8] != outs[1]:
+        raise AssertionError("cli_batch output depends on -batchsize")
+    res["hyps"] = outs[8][0].splitlines()[:4]
+    log("cli_batch: -batchsize 8 and 1 give identical -hyp and -hypseg: "
+        + json.dumps(res))
     return res
 
 
@@ -916,10 +1200,7 @@ def main(argv):
     B = 8
     fan_res = check_fan(B, dec.n_rcp, dec.n_multi,
                         dec.senid_fin_d.shape[-1], log)
-    buckets = [(dec.NST, c.D, c.Wb, c.RF, c.senid_first_d.shape[-1], True)
-               for c in dec.chains]
-    buckets += [(dec.NST, c.D, c.Wb, 0, 0, False) for c in dec.ci_chains]
-    chain_res = check_chain(B, buckets, log)
+    chain_res = check_chain(B, buckets_of(dec), log)
     check_ties(log)
     t0 = time.perf_counter()
     res = main_path(dec, fe, "cuda", log=log)
@@ -932,6 +1213,11 @@ def main(argv):
         f"peak memory {res['peak_mem_bytes'] / 2**30:.2f} GiB on {smi}")
     if "--profile" in argv:
         profile_scan(dec, fe, log)
+    # phase 9(d) runs here, on phase 5's decoder, which is then freed
+    t0 = time.perf_counter()
+    top = guard_topm(dec, "cuda", log=log)
+    top_s = time.perf_counter() - t0
+    log(f"phase 9(d) ({top_s:.1f} s) on {smi}")
     del dec
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
@@ -944,6 +1230,25 @@ def main(argv):
                      dec3=held.pop("decoder"))
         log(f"phase 8 ({time.perf_counter() - t0:.1f} s) on {smi}: "
             + json.dumps(mres, default=float))
+    with tempfile.TemporaryDirectory() as work:
+        t9 = t0 = time.perf_counter()
+        ref = reference_scale(work, "cuda", log=log,
+                              profile="--profile" in argv)
+        log(f"phase 9(a-c) ({time.perf_counter() - t0:.1f} s) on {smi}: "
+            + json.dumps(ref, default=float))
+        t0 = time.perf_counter()
+        batch_cli(work, "cuda", log=log)
+        log(f"phase 9(e) ({time.perf_counter() - t0:.1f} s) on {smi}; "
+            f"phase 9 {time.perf_counter() - t9 + top_s:.1f} s with (d)")
+    co = ref["corpus"]
+    log(f"126k: {co['audio_s_per_s']:.2f} audio-s/s (median of "
+        f"{[round(r, 2) for r in co['runs']]}), scan "
+        f"{co['median_run']['scan_ms_per_frame']:.2f} ms per B={B} frame, "
+        f"peak memory {co['peak_mem_bytes'] / 2**30:.2f} GiB; "
+        f"PS_GUARD_TOPM=64 at 20k: guard {top['guard_violations']} (GM=0: "
+        f"{top['guard_violations_gm0']}), peak memory "
+        f"{top['peak_mem_bytes'] / 2**30:.2f} GiB (GM=0: "
+        f"{top['peak_mem_bytes_gm0'] / 2**30:.2f}) on {smi}")
     # the NST=5 group at the 5-state decode's B=1 (nst5_*), and at B=8
     nst5 = dict(nst5_launches=mres["nst5"]["launches"]["chain"])
     for B, pre in ((1, "nst5_"), (8, "nst5_b8_")):
@@ -962,6 +1267,12 @@ def main(argv):
                             facade_launches=fres["launches"][name],
                             library_ms=None, **r,
                             **(nst5 if name == "chain" else {})))
+    for k in kernels[:2]:              # the same kernels at the 126k shapes
+        kernels.append(dict(
+            k, name=k["name"] + "_126k", launches=co["launches"][k["name"]],
+            facade_launches=0, **ref[k["name"]]))
+        for key in [x for x in k if x.startswith("nst5")]:
+            del kernels[-1][key]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,17 +47,21 @@ def _planes(tp):
 
 
 _INDEX_KEYS = ("fb_ci", "f0p_E", "guard_w", "guard_wf", "guard_fillw",
-               "guard_fillwf")
+               "guard_fillwf", "col_lm_W", "bg_cols")
 
 
 def scan_tables(tables: dict, device) -> dict:
     """Scan tables on `device` for `search.ngram_fused`.
 
     tables: the port decoder's `host_tables`, or the JAX decoder's
-    `_dev_tables` as NumPy (one-hot expansion tables are turned into the
+    `_dev_tables` as NumPy, in any LM mode (mode C's CSR keys `uni_row`,
+    `umeta`, `fat_rows`, `fat_ctx`, `ctx_base`, `bg_cols`, `bg_vals`,
+    `bg_ctx`) and with `PS_GUARD_TOPM`'s `guard_bmax`, `col_lm_W` and
+    `isfill_W` (one-hot expansion tables are turned into the
     index form the port gathers with: `fd_oh{b}` -> `fd_idx{b}`,
     `lp_oh`/`tp_fin` -> `lp_idx`/`tp_fin12` (3 states; other
-    topologies keep `tp_fin`), `f0_onehot` -> `f0p_E`).
+    topologies keep `tp_fin`), `f0_onehot` -> `f0p_E`; index columns
+    become int64).
     The decoder's `device_tables` lays the chain tables and `senid_all`
     out for its scan."""
     dev = torch.device(device)

@@ -147,14 +147,9 @@ class NgramModel:
     def _parents(self, level: int) -> np.ndarray:
         """Parent entry index for each entry of `level` (from the child
         ranges of level-1)."""
-        nxt = self.lv_next[level - 1]
-        n = len(self.lv_words[level])
-        parents = np.zeros(n, dtype=np.int64)
-        starts = nxt[:-1] if len(nxt) > len(self.lv_words[level - 1]) else nxt
-        # nxt has len(entries)+1 with nxt[k]..nxt[k+1] = children of k
-        for k in range(len(self.lv_words[level - 1])):
-            parents[nxt[k]:nxt[k + 1]] = k
-        return parents
+        return _range_owner(self.lv_next[level - 1],
+                            len(self.lv_words[level - 1]),
+                            len(self.lv_words[level]))
 
     def _find(self, hist: list[int]) -> tuple[int, int]:
         """Locate the entry for word sequence hist (oldest..newest);
@@ -573,51 +568,59 @@ def read_arpa(path: str) -> NgramModel:
     return _assemble(order, counts, words, levels)
 
 
+def _level_arrays(entries, n):
+    """A level's (ids [N, n] int64, prob, bo) from a list of (ids, prob,
+    bo) tuples, or the arrays themselves."""
+    if isinstance(entries, tuple):
+        return entries
+    ids = np.array([e[0] for e in entries], np.int64).reshape(-1, n)
+    return (ids, np.array([e[1] for e in entries], np.float64),
+            np.array([e[2] for e in entries], np.float64))
+
+
 def _assemble(order, counts, words, levels) -> NgramModel:
-    """Build flat level arrays with child ranges from (ids, prob, bo)
-    tuples, sorting each level by (parent path, word)."""
+    """Build flat level arrays with child ranges from each level's
+    n-grams (forward word ids, oldest first; `_level_arrays`), sorting
+    each level by (parent entry, word), stably.  An n-gram whose history
+    is not an entry of the level below is dropped; of duplicate entries
+    the last one is the parent of the level above."""
     V = len(words)
-    lv_words, lv_prob, lv_bo, lv_next = [], [], [], []
-    # level 0: by word id
-    uni = {ids[0]: (p, b) for ids, p, b in levels[0]}
+    ids0, p, b = _level_arrays(levels[0], 1)
     p0 = np.full(V, -99 * LOG10_TO_LOG, np.float32)
     b0 = np.zeros(V, np.float32)
-    for w, (p, b) in uni.items():
-        p0[w], b0[w] = p, b
-    lv_words.append(np.arange(V, dtype=np.int64))
-    lv_prob.append(p0)
-    lv_bo.append(b0)
-    entry_index = {(w,): w for w in range(V)}
-    prev_keys = [(w,) for w in range(V)]
+    p0[ids0[:, 0]] = p
+    b0[ids0[:, 0]] = b
+    lv_words, lv_prob, lv_bo = [np.arange(V, dtype=np.int64)], [p0], [b0]
+    lv_next, keys = [], [None]      # keys[l]: sorted parent*V + word
+
+    def find(hist):
+        """Entry index of each history [N, m] at level m-1, and whether
+        it exists."""
+        idx = hist[:, 0]
+        ok = (idx >= 0) & (idx < V)
+        for j in range(1, hist.shape[1]):
+            key = idx * V + hist[:, j]
+            pos = np.searchsorted(keys[j], key, side="right") - 1
+            hit = pos >= 0
+            hit[hit] = keys[j][pos[hit]] == key[hit]
+            ok &= hit
+            idx = np.where(ok, pos, 0)
+        return idx, ok
+
     for lvl in range(1, order):
-        ents = sorted(((entry_index[ids[:-1]], ids[-1], p, b)
-                       for ids, p, b in levels[lvl]
-                       if ids[:-1] in entry_index),
-                      key=lambda t: (t[0], t[1]))
+        ids, p, b = _level_arrays(levels[lvl], lvl + 1)
+        pars, ok = find(ids[:, :-1])
+        ws, pars = ids[ok, -1], pars[ok]
+        srt = np.lexsort((ws, pars))
+        ws, pars = ws[srt], pars[srt]
         n_par = len(lv_words[lvl - 1])
-        nxt = np.zeros(n_par + 1, dtype=np.int64)
-        ws = np.array([e[1] for e in ents], dtype=np.int64)
-        ps = np.array([e[2] for e in ents], dtype=np.float32)
-        bs = np.array([e[3] for e in ents], dtype=np.float32)
-        pars = np.array([e[0] for e in ents], dtype=np.int64)
-        np.add.at(nxt, pars + 1, 1)
-        nxt = np.cumsum(nxt)
+        lv_next.append(np.concatenate(
+            [[0], np.cumsum(np.bincount(pars, minlength=n_par))]))
         lv_words.append(ws)
-        lv_prob.append(ps)
-        lv_bo.append(bs)
-        lv_next[len(lv_next):] = []
-        lv_next.append(None)
-        lv_next[lvl - 1] = nxt
-        # update entry index for next level
-        if lvl < order - 1:
-            new_index = {}
-            # reconstruct full id tuples: parent key + word
-            par_keys = {v: k for k, v in entry_index.items()}
-            for i, e in enumerate(ents):
-                new_index[par_keys[e[0]] + (e[1],)] = i
-            entry_index = new_index
+        lv_prob.append(np.asarray(p)[ok][srt].astype(np.float32))
+        lv_bo.append(np.asarray(b)[ok][srt].astype(np.float32))
+        keys.append(pars * V + ws)
     lv_next.append(np.zeros(len(lv_words[-1]) + 1, dtype=np.int64))
-    # ensure each level's next array exists with right length
     return NgramModel(order=order, counts=list(counts), words=words,
                       lv_words=lv_words, lv_prob=lv_prob, lv_bo=lv_bo,
                       lv_next=lv_next[:order])
@@ -806,37 +809,33 @@ def read_trie_bin(path: str) -> NgramModel:
     words = [w.decode("utf-8", errors="replace")
              for w in data[pos:pos + k].split(b"\0")[:V]]
 
-    # Reconstruct forward n-gram tuples from the reverse trie.
-    levels: list[list] = [[] for _ in range(order)]
-    uni_prob = uni["prob"][:V].astype(np.float32)
-    uni_bo = uni["bo"][:V].astype(np.float32)
-    for w in range(V):
-        levels[0].append(((w,), float(uni_prob[w]), float(uni_bo[w])))
-    # parent paths per level (reversed): entry k of rev level l has path
-    # (w, h1, ..., h_{l+1}); build iteratively
+    # Reconstruct the forward n-grams from the reverse trie: entry k of
+    # reverse level l is the n-gram (h_{l+1}, ..., h1, w), its key
+    # h_{l+1} under the parent entry (h_l, ..., h1, w) of level l-1.
+    levels = [(np.arange(V, dtype=np.int64)[:, None],
+               uni["prob"][:V].astype(np.float32),
+               uni["bo"][:V].astype(np.float32))]
     if order > 1:
-        uni_next = uni["next"].astype(np.int64)
-        # level 1: children of unigram w are keys h1 -> bigram (h1, w)
-        paths = [None] * (order - 1)
-        par = np.zeros(counts[1], dtype=np.int64)
-        for w in range(V):
-            par[uni_next[w]:uni_next[w + 1]] = w
-        paths[0] = np.stack([rev[0]["words"], par], axis=1)  # [n, 2]: h1, w
-        for lvl in range(1, order - 1):
-            n = counts[lvl + 1]
-            nxt = rev[lvl - 1]["next"]
-            par = np.zeros(n, dtype=np.int64)
-            for kk in range(counts[lvl]):
-                par[nxt[kk]:nxt[kk + 1]] = kk
-            # path = (h_{lvl+1},) + parent_path
-            paths[lvl] = np.concatenate(
-                [rev[lvl]["words"][:, None], paths[lvl - 1][par]], axis=1)
+        paths = np.arange(V, dtype=np.int64)[:, None]         # (w,)
+        nxt = uni["next"].astype(np.int64)
         for lvl in range(1, order):
-            r = rev[lvl - 1]
-            pp = paths[lvl - 1]
-            for i in range(counts[lvl]):
-                # reversed path (h_lvl .. h1, w) -> forward ids
-                ids = tuple(int(x) for x in pp[i])
-                levels[lvl].append((ids, float(r["prob"][i]),
-                                    float(r["bo"][i])))
+            n_par = len(paths)
+            par = _range_owner(nxt, n_par, counts[lvl])
+            paths = np.concatenate([rev[lvl - 1]["words"][:, None],
+                                    paths[par]], axis=1)
+            levels.append((paths, rev[lvl - 1]["prob"], rev[lvl - 1]["bo"]))
+            nxt = rev[lvl - 1]["next"]
     return _assemble(order, counts, words, levels)
+
+
+def _range_owner(nxt, n_par, n):
+    """Owner of each of `n` children under the ordered CSR ranges
+    nxt[k]:nxt[k+1] of `n_par` parents (children that no range covers
+    belong to 0)."""
+    par = np.zeros(n, np.int64)
+    lo, hi = np.clip(nxt[:n_par], 0, n), np.clip(nxt[1:n_par + 1], 0, n)
+    cnt = np.maximum(hi - lo, 0)
+    par[np.repeat(lo, cnt) + np.arange(cnt.sum())
+        - np.repeat(np.cumsum(cnt) - cnt, cnt)] = np.repeat(
+            np.arange(n_par), cnt)
+    return par

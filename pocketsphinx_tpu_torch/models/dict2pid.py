@@ -89,6 +89,10 @@ class Dict2Pid:
         # rdiph_rc[b][lc][rc]: end-position triphone
         self.rdiph_rc = ssid_of[
             _nearest_pid_grid(mdef, WPOS_END, B, X, Y)].astype(np.uint16)
+        # internal[b][lc][rc]: word-internal triphone (`internal_ssids`,
+        # whose lookup is elementwise, gathers from it)
+        self.internal = ssid_of[
+            _nearest_pid_grid(mdef, WPOS_INTERNAL, B, X, Y)].astype(np.uint16)
         # compressed right-context sets (xwdssid_t equivalents):
         # for each (b, lc): unique ssids over rc + cimap
         self.rssid_cimap = np.zeros((nc, nc, nc), dtype=np.int16)
@@ -114,15 +118,9 @@ class Dict2Pid:
         """ssids of word-internal phones (positions 1..len-2)."""
         if wid in self._internal_cache:
             return self._internal_cache[wid]
-        p = self.dict.pron(wid)
-        if len(p) <= 2:
-            out = np.zeros(0, dtype=np.uint16)
-        else:
-            b = p[1:-1]
-            lc = p[:-2]
-            rc = p[2:]
-            pid = _nearest_pid_grid(self.mdef, WPOS_INTERNAL, b, lc, rc)
-            out = self.mdef.phone_ssid[pid].astype(np.uint16)
+        p = np.asarray(self.dict.pron(wid), np.int64)
+        out = self.internal[p[1:-1], p[:-2], p[2:]] if len(p) > 2 else \
+            np.zeros(0, dtype=np.uint16)
         self._internal_cache[wid] = out
         return out
 

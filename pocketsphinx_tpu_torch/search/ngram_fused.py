@@ -23,7 +23,10 @@ The network (see the JAX module's docstring for the design):
     as chains without variants (in the same chain launch);
   * top-K word exits per frame, exact trigram successor rows (LM mode
     "rows": one dense row per history; mode "sparse" (B): dense bigram
-    rows + per-context trigram overrides), first-winner entries.
+    rows + per-context trigram overrides; mode "csr" (C): the unigram
+    row + history backoff with per-history CSR bigram overlays, dense
+    "fat" rows for giant-fanout histories, and the same trigram
+    overrides), first-winner entries.
 
 Every one-hot matrix product of the JAX step picks exactly one element
 per output and is an index gather here; `jax.lax.top_k` is a stable
@@ -37,8 +40,9 @@ a frame whose `valid` is false leaves the whole carry as it was.
 `_backtrace` is the host 1-best walk over flat records (the JAX
 `ngram_flat` walk, without the C extension).
 
-Not ported (each raises NotImplementedError): LM mode C (CSR) and the
-PS_GUARD_TOPM guard refinement.
+The exactness guard's opt-in refinement PS_GUARD_TOPM (exact per-word
+bonus rows for the exits ranked K..K+GM) changes only the `nviol`
+count.  Everything of the JAX module is ported.
 """
 
 from __future__ import annotations
@@ -254,9 +258,9 @@ class NgramFusedDecoder:
         W, n_multi, n_single = self.W, self.n_multi, self.n_single
         prons = [[int(x) for x in d.pron(w)] for w in self.words]
 
-        def tp_of(ci):
-            t = tmat_tp[mdef.phone_tmat[ci]].astype(np.float32)
-            return np.where(t == 255, NEG_INF, -t)
+        # transition costs of every CI phone's HMM [n_ci, NST, NST+1]
+        t = tmat_tp[mdef.phone_tmat[:mdef.n_ciphone]].astype(np.float32)
+        tp_ci = np.where(t == 255, NEG_INF, -t).astype(np.float32)
 
         # resolve depth buckets: empty tuple = automatic (the JAX
         # package's rule, so both build the same network).  Small W: one
@@ -298,35 +302,42 @@ class NgramFusedDecoder:
             chains.append(_Chain(w_lo=lo, w_hi=hi, D=D))
             lo = hi
         lc_cls = np.zeros((n_multi, mdef.n_ciphone), np.int32)
+        # the first phone's variant ssids (sorted) and each left
+        # context's variant index, per first diphone (p0, p1)
+        fvar = {}
+        for p in prons[:n_multi]:
+            if (p[0], p[1]) not in fvar:
+                row = d2p.ldiph_lc[p[0], p[1]]
+                uniq = np.unique(row)
+                fvar[p[0], p[1]] = (uniq, np.searchsorted(uniq, row))
         for ch in chains:
             Wb, D = ch.Wb, ch.D
             senid = np.zeros((NST, D, Wb), np.int32)
-            tp = np.tile(tp_of(sil)[None, None], (D, Wb, 1, 1))
-            fd = np.zeros(Wb, np.int64)
-            nvar = np.ones(Wb, np.int64)
-            RF = 1
-            var_ssids = []
-            for k in range(Wb):
-                pron = prons[ch.w_lo + k]
-                L = len(pron)
-                fd[k] = D - (L - 1)
-                uniq = np.unique(d2p.ldiph_lc[pron[0], pron[1]])
-                var_ssids.append(uniq)
-                nvar[k] = len(uniq)
-                RF = max(RF, len(uniq))
-                inv = np.searchsorted(uniq, d2p.ldiph_lc[pron[0], pron[1]])
-                lc_cls[ch.w_lo + k] = inv
-                senid[:, fd[k], k] = sseq[int(uniq[0])]
-                tp[fd[k], k] = tp_of(pron[0])
-                internal = d2p.internal_ssids(self.words[ch.w_lo + k])
-                for j in range(1, L - 1):
-                    senid[:, fd[k] + j, k] = sseq[int(internal[j - 1])]
-                    tp[fd[k] + j, k] = tp_of(pron[j])
-            senid_first = np.zeros((NST, RF, Wb), np.int32)
-            for k in range(Wb):
-                u = var_ssids[k]
-                for v in range(RF):
-                    senid_first[:, v, k] = sseq[int(u[min(v, len(u) - 1)])]
+            tp = np.tile(tp_ci[sil][None, None], (D, Wb, 1, 1))
+            P = prons[ch.w_lo:ch.w_hi]
+            L = np.array([len(p) for p in P])
+            Pm = np.full((Wb, L.max()), -1, np.int64)      # padded phones
+            for k, p in enumerate(P):
+                Pm[k, :len(p)] = p
+            fd = D - (L - 1)
+            var = [fvar[p[0], p[1]] for p in P]
+            nvar = np.array([len(u) for u, _ in var], np.int64)
+            RF = int(nvar.max())
+            lc_cls[ch.w_lo:ch.w_hi] = np.stack([inv for _, inv in var])
+            cols = np.arange(Wb)
+            senid[:, fd, cols] = sseq[[int(u[0]) for u, _ in var]].T
+            tp[fd, cols] = tp_ci[Pm[:, 0]]
+            # interior phones j = 1..L-2 (`Dict2Pid.internal_ssids`)
+            for j in range(1, Pm.shape[1] - 1):
+                k = np.nonzero(L - 1 > j)[0]
+                ss = d2p.internal[Pm[k, j], Pm[k, j - 1], Pm[k, j + 1]]
+                senid[:, fd[k] + j, k] = sseq[ss.astype(np.int64)].T
+                tp[fd[k] + j, k] = tp_ci[Pm[k, j]]
+            # variant v of a word with fewer variants repeats its last
+            vi = np.stack([u[np.minimum(np.arange(RF), len(u) - 1)]
+                           for u, _ in var]).astype(np.int64)  # [Wb, RF]
+            senid_first = np.ascontiguousarray(
+                sseq[vi].transpose(2, 1, 0)).astype(np.int32)
             ch.senid, ch.tp, ch.fd = senid, tp, fd
             ch.firstmask = (np.arange(ch.D)[:, None] == fd[None, :])
             ch.senid_first, ch.n_var, ch.RF = senid_first, nvar, RF
@@ -353,12 +364,14 @@ class NgramFusedDecoder:
 
         # finals fan [3, n_rc, n_multi]
         senid_fin = np.zeros((NST, n_rc, max(n_multi, 1)), np.int32)
-        tp_fin = np.tile(tp_of(sil)[None], (max(n_multi, 1), 1, 1))
-        for k in range(n_multi):
-            pron = prons[k]
-            ss = d2p.rdiph_rc[pron[-1], pron[-2]][rc_set]
-            senid_fin[:, :, k] = sseq[ss.astype(np.int64)].T
-            tp_fin[k] = tp_of(pron[-1])
+        tp_fin = np.tile(tp_ci[sil][None], (max(n_multi, 1), 1, 1))
+        if n_multi:
+            last = np.array([p[-1] for p in prons[:n_multi]])
+            pen = np.array([p[-2] for p in prons[:n_multi]])
+            ss = d2p.rdiph_rc[last, pen][:, rc_set]            # [Wm, n_rc]
+            senid_fin[:, :, :n_multi] = sseq[ss.astype(np.int64)].transpose(
+                2, 1, 0)
+            tp_fin[:n_multi] = tp_ci[last]
         self.senid_fin, self.tp_fin = senid_fin, tp_fin
         # shared per-final-diphone fan planes (rdiph_rc[last, penult] is
         # a function of the final diphone alone; same sharing trick as
@@ -406,13 +419,13 @@ class NgramFusedDecoder:
         self.SP = SP
         self.sp_cmax = Cmax
         senid_sp = np.zeros((NST, n_rc, max(SP, 1)), np.int32)
-        tp_sp = np.tile(tp_of(sil)[None], (max(SP, 1), 1, 1))
+        tp_sp = np.tile(tp_ci[sil][None], (max(SP, 1), 1, 1))
         col_word = np.zeros(max(SP, 1), np.int64)
         for c, (k, v, rep) in enumerate(sp_cols):
             p0 = prons[k][0]
             ss = d2p.lrdiph_rc[p0, rep][rc_set]
             senid_sp[:, :, c] = sseq[ss.astype(np.int64)].T
-            tp_sp[c] = tp_of(p0)
+            tp_sp[c] = tp_ci[p0]
             col_word[c] = k
         self.senid_sp, self.tp_sp, self.sp_col_word = senid_sp, tp_sp, col_word
         self.accept_sp = (np.stack(accept_sp)
@@ -435,7 +448,7 @@ class NgramFusedDecoder:
         for ch in ci_chains:
             Wb, D = ch.Wb, ch.D
             senid = np.zeros((NST, D, Wb), np.int32)
-            tp = np.tile(tp_of(sil)[None, None], (D, Wb, 1, 1))
+            tp = np.tile(tp_ci[sil][None, None], (D, Wb, 1, 1))
             fd = np.zeros(Wb, np.int64)
             for k in range(Wb):
                 pron = prons[ch.w_lo + k]
@@ -443,7 +456,7 @@ class NgramFusedDecoder:
                 fd[k] = D - L
                 for j, ci in enumerate(pron):
                     senid[:, fd[k] + j, k] = sseq[int(mdef.phone_ssid[ci])]
-                    tp[fd[k] + j, k] = tp_of(ci)
+                    tp[fd[k] + j, k] = tp_ci[ci]
             ch.senid, ch.tp, ch.fd = senid, tp, fd
             ch.firstmask = (np.arange(D)[:, None] == fd[None, :])
         self.ci_chains = ci_chains
@@ -529,10 +542,9 @@ class NgramFusedDecoder:
                                 and R * self.nE * 4 > budget
                                 and 2 * (V + 1) * self.nE * 4
                                 > sparse_budget):
-            # mode C (reference scale): fully sparse CSR tables
-            raise NotImplementedError(
-                "LM mode C (CSR) is not ported yet: force "
-                "PS_LM_MODE=sparse or raise PS_LM_SPARSE_BYTES")
+            # mode C (reference scale): fully sparse, since even mode B's
+            # dense [V+1, E] bigram and context tables are O(V*E)
+            return self._lm_tables_csr(cols_E)
         if lm.order < 3 or n_bg == 0 or (
                 force != "sparse" and R * self.nE * 4 <= budget):
             # mode A: one dense successor row per history class
@@ -593,6 +605,79 @@ class NgramFusedDecoder:
         self._lm_rows, self._ctx_next = rows, ctx_next
         self._ctx2h1, self._ctx2h2 = ctx2h1, ctx2h2
         return rows, ctx_next, ctx2h1, ctx2h2
+
+    FAT_CAP = 1024       # CSR rows longer than this densify ("fat" rows)
+
+    def _lm_tables_csr(self, cols_E):
+        """Mode C host tables (the JAX `_lm_tables_csr`): per entry column
+        e the base successor score under history h is uni_row[e] +
+        bo1w[h]; explicit bigrams and successor contexts overlay it
+        through per-history CSR slices (umeta: start, length, bo1w bits,
+        fat index); histories whose row exceeds FAT_CAP (<s>) get dense
+        "fat" rows instead.  Trigram corrections and per-context metadata
+        are mode B's."""
+        lm, V = self.lm, self.V
+        n_bg = lm.counts[1]
+        self.lm_mode = "csr"
+        uni = (lm.lv_prob[0][:V].astype(np.float64) * lm.lw
+               + lm.log_wip).astype(np.float32)
+        bo1w = np.zeros(V + 1, np.float32)
+        bo1w[:V] = lm.lv_bo[0][:V].astype(np.float64) * lm.lw
+        uni_row = uni[cols_E] / SHIFT
+        uni_row[self.isfill_E] = 0.0
+        bo1w = bo1w / SHIFT
+        bg_next, bg_cols, bg_vals, bg_ctx = lm.bigram_csr(
+            cols_E, skip=self.isfill_E)
+        bg_vals = bg_vals / SHIFT
+        rlen = bg_next[1:] - bg_next[:-1]                 # [V+1]
+        fat_hs = np.nonzero(rlen > self.FAT_CAP)[0]
+        n_fat = len(fat_hs)
+        fat_rows = np.zeros((max(n_fat, 1), self.nE), np.float32)
+        fat_ctx = np.zeros((max(n_fat, 1), self.nE), np.float32)
+        ctx_base = (1 + cols_E).astype(np.float32)
+        for i, h in enumerate(fat_hs):
+            lo, hi = int(bg_next[h]), int(bg_next[h + 1])
+            fat_rows[i] = uni_row + bo1w[h]
+            fat_rows[i, bg_cols[lo:hi]] = bg_vals[lo:hi]
+            fat_ctx[i] = ctx_base
+            fat_ctx[i, bg_cols[lo:hi]] = bg_ctx[lo:hi]
+        fat_of = np.full(V + 1, -1, np.int32)
+        fat_of[fat_hs] = np.arange(n_fat)
+        # non-fat rows padded to SB for the step's fixed-width slices;
+        # fat rows start at 0 with length 0
+        kept = rlen[rlen <= self.FAT_CAP]
+        SB = int(kept.max()) if len(kept) else 0
+        keepmask = np.repeat(rlen <= self.FAT_CAP, rlen)
+        rlen_k = np.where(rlen <= self.FAT_CAP, rlen, 0)
+        umeta = np.zeros((V + 1, 4), np.int32)
+        umeta[:, 0] = np.concatenate([[0], np.cumsum(rlen_k)[:-1]])
+        umeta[:, 1] = rlen_k
+        umeta[:, 2] = bo1w.astype(np.float32).view(np.int32)
+        umeta[:, 3] = fat_of
+        tgc_next, tg_cols, tg_vals, bo2w = lm.trigram_corrections(cols_E)
+        S_max = int(np.max(tgc_next[1:] - tgc_next[:-1])) if n_bg else 0
+        pad = lambda x, n, dt: np.concatenate([x, np.zeros(n, dt)])  # noqa: E731
+        self._lm_sparse = dict(
+            csr=True, uni_row=uni_row, umeta=umeta,
+            bg_cols=pad(bg_cols[keepmask], SB, np.int32),
+            bg_vals=pad(bg_vals[keepmask], SB, np.float32),
+            bg_ctx=pad(bg_ctx[keepmask], SB, np.float32),
+            SB=SB, fat_rows=fat_rows, fat_ctx=fat_ctx, n_fat=n_fat,
+            ctx_base=ctx_base, tgc_next=tgc_next.astype(np.int32),
+            tg_cols=pad(tg_cols, S_max, np.int32),
+            tg_vals=pad(tg_vals / SHIFT, S_max, np.float32),
+            bo2w=bo2w / SHIFT, S_max=S_max, n_bg=n_bg)
+        self.lm_order_used = 3 if len(tg_cols) else 2
+        ho, hn = lm.bigram_entries()
+        ctx2h1 = np.full(1 + V + n_bg, V, np.int32)
+        ctx2h1[1:1 + V] = np.arange(V)
+        ctx2h1[1 + V:] = hn
+        ctx2h2 = np.full(1 + V + n_bg, V, np.int32)
+        ctx2h2[1 + V:] = ho
+        self._lm_rows, self._ctx_next = None, None
+        self._ctx2h1, self._ctx2h2 = ctx2h1, ctx2h2
+        return None, None, ctx2h1, ctx2h2
+
     # -- guard tables --------------------------------------------------------
 
     def _guard_tables(self, rows_np, ctx2h1, maxb_np, J):
@@ -665,8 +750,9 @@ class NgramFusedDecoder:
         self.K = K = min(self.topk, W)
         rows_np, ctxn_np, ctx2h1_np, ctx2h2_np = self._lm_tables()
         mode_rows = self.lm_mode == "rows"
-        tabs = {"ctx_next": ctxn_np}
-        self.S_TRI = self.N_BG = 0
+        mode_csr = self.lm_mode == "csr"
+        tabs = {} if mode_csr else {"ctx_next": ctxn_np}
+        self.S_TRI = self.N_BG = self.SB = self.N_FAT = 0
         if mode_rows:
             # rows + [h1, h2] as two appended f32 columns (exact < 2^24)
             tabs["rows"] = np.concatenate(
@@ -692,7 +778,13 @@ class NgramFusedDecoder:
             else:
                 tabs["tg_cols"] = sp["tg_cols"]
                 tabs["tg_vals"] = sp["tg_vals"]
-            tabs["bg"] = sp["bg"]                          # [V+1, E] f32
+            if mode_csr:
+                for k in ("uni_row", "umeta", "fat_rows", "fat_ctx",
+                          "ctx_base", "bg_cols", "bg_vals", "bg_ctx"):
+                    tabs[k] = sp[k]
+                self.SB, self.N_FAT = sp["SB"], sp["n_fat"]
+            else:
+                tabs["bg"] = sp["bg"]                      # [V+1, E] f32
             # per-bigram-context metadata rows [n_bg, 8] i32:
             # (h1, h2, bo2w bits, tgc_start, tgc_count, pad...)
             bgmeta = np.zeros((max(N_BG, 1), 8), np.int32)
@@ -710,7 +802,22 @@ class NgramFusedDecoder:
             maxb_np = rows_np[:, :self.nE].max(axis=0)
         else:
             sp_ = self._lm_sparse
-            maxb_np = sp_["bg"].max(axis=0).astype(np.float64)
+            if mode_csr:
+                bo1w_all = sp_["umeta"][:, 2].view(np.float32).astype(
+                    np.float64)
+                maxb_np = sp_["uni_row"].astype(np.float64) \
+                    + float(bo1w_all.max())
+                nbgx = len(sp_["bg_cols"]) - sp_["SB"]
+                if nbgx:
+                    bgmx = np.full(self.nE, -np.inf)
+                    np.maximum.at(bgmx, sp_["bg_cols"][:nbgx],
+                                  sp_["bg_vals"][:nbgx].astype(np.float64))
+                    maxb_np = np.maximum(maxb_np, bgmx)
+                if sp_["n_fat"]:
+                    maxb_np = np.maximum(maxb_np,
+                                         sp_["fat_rows"].max(axis=0))
+            else:
+                maxb_np = sp_["bg"].max(axis=0).astype(np.float64)
             if sp_["n_bg"]:
                 maxb_np = maxb_np + max(float(sp_["bo2w"].max()), 0.0)
                 n_tg = int(sp_["tgc_next"][-1])
@@ -719,15 +826,12 @@ class NgramFusedDecoder:
                     np.maximum.at(tgmax, sp_["tg_cols"][:n_tg],
                                   sp_["tg_vals"][:n_tg].astype(np.float64))
                     maxb_np = np.maximum(maxb_np, tgmax)
-        # tightened per-predecessor guard (default; PS_GUARD_TOPM is not
-        # ported)
-        if int(os.environ.get("PS_GUARD_TOPM", "0")) > 0:
-            raise NotImplementedError(
-                "PS_GUARD_TOPM (the guard's dynamic-rank refinement) is not "
-                "ported yet")
+        # tightened per-predecessor guard (default; mode C falls back to
+        # the global bound above)
         guard_budget = int(os.environ.get("PS_GUARD_BYTES", 3 << 30))
         GJ = GUARD_TOPJ
         guard_np = None
+        self.GM = 0
         if K < W and GJ > 0 and self.W * self.nE * 4 <= guard_budget:
             guard_np = self._guard_tables(rows_np, ctx2h1_np, maxb_np, GJ)
         if guard_np is not None:
@@ -739,6 +843,19 @@ class NgramFusedDecoder:
             tabs["guard_wf"] = (
                 self.f0p_E[None, :].astype(np.int64) * W
                 + gw_t.astype(np.int64)).astype(np.int32)
+            # dynamic-rank refinement (opt-in, PS_GUARD_TOPM=64): the
+            # exits ranked K..K+GM get their exact per-word bonus row of
+            # the [V+1, E] BMAX table, and the rest-floor drops to
+            # kv[K+GM-1]; only the guard count changes
+            GM = int(os.environ.get("PS_GUARD_TOPM", "0"))
+            bmax_budget = int(os.environ.get("PS_GUARD_BMAX_BYTES", 2 << 30))
+            bmax = self._guard_bmax
+            if GM > 0 and bmax.nbytes <= bmax_budget and K + GM < W:
+                self.GM = GM
+                tabs["guard_bmax"] = bmax.astype(np.float32, copy=False)
+                tabs["col_lm_W"] = np.minimum(self.col_lm, self.V).astype(
+                    np.int32)
+                tabs["isfill_W"] = self.is_fill
             self._guard_bmax = None                   # free the host copy
             if len(fillw_t):
                 tabs["guard_fillwf"] = (
@@ -860,6 +977,37 @@ class NgramFusedDecoder:
                              for k, v in new[name].items()}
         return new
 
+    def _csr_rows(self, h1c):
+        """Mode C's bigram rows and successor-context rows [B, K, E] of
+        the histories h1c [B, K] (V: the empty history), in the JAX
+        step's order of float operations: the unigram row + the
+        history's backoff, the CSR overlay scattered onto a spare column,
+        then the fat rows in place of both rows."""
+        tb, nE = self.tables, self.nE
+        B, K = h1c.shape
+        um = tb["umeta"][h1c]                                     # [B, K, 4]
+        base = tb["uni_row"] + um[..., 2].contiguous().view(
+            torch.float32)[..., None]
+        ctxrow = tb["ctx_base"].expand(B, K, nE)
+        if self.SB:
+            pos = torch.arange(self.SB, device=h1c.device)
+            at = um[..., 0:1].long() + pos                        # [B, K, SB]
+            ok = pos < um[..., 1:2]
+            idx = torch.where(ok, tb["bg_cols"][at], nE)
+            rows = []
+            for row, vals in ((base, tb["bg_vals"]), (ctxrow, tb["bg_ctx"])):
+                row = torch.cat([row, row.new_zeros((B, K, 1))], 2)
+                row.scatter_(2, idx, torch.where(ok, vals[at], 0.0))
+                rows.append(row[..., :nE])
+            base, ctxrow = rows
+        if self.N_FAT:
+            fat = um[..., 3]
+            isfat = (fat >= 0)[..., None]
+            fidx = torch.clamp(fat, 0, self.N_FAT - 1).long()
+            base = torch.where(isfat, tb["fat_rows"][fidx], base)
+            ctxrow = torch.where(isfat, tb["fat_ctx"][fidx], ctxrow)
+        return base, ctxrow
+
     def _step(self, carry, g, t, valid, minimal, mask=False):
         """One frame for B utterances.  g: this frame's senone costs by
         gather name (see `device_tables`); t: frame index; valid [B] bool;
@@ -935,9 +1083,10 @@ class NgramFusedDecoder:
                   if SP else etgt0)
         sv = torch.cat([sv_m, sv_s, esc_c[:, None, :].expand(
             B, n_rc, esc_c.shape[1])], 2)                        # [B,n_rc,W]
-        # top-K exits: stable descending sort = jax.lax.top_k tie order
-        kv, ki = torch.sort(escore, dim=1, descending=True, stable=True)
-        kv, ki = kv[:, :K], ki[:, :K]
+        # top-K exits: stable descending sort = jax.lax.top_k tie order;
+        # ranks K..K+GM refine the exactness guard (PS_GUARD_TOPM)
+        kv2, ki2 = torch.sort(escore, dim=1, descending=True, stable=True)
+        kv, ki = kv2[:, :K], ki2[:, :K]
         ctx_k = torch.gather(ecx_w, 1, ki)                        # [B, K]
         fb_k = tb["fb_ci"][ki]
         svk = torch.gather(sv, 2, ki[:, None, :].expand(B, n_rc, K))
@@ -948,8 +1097,9 @@ class NgramFusedDecoder:
             rw1_k = lmfull[..., nE].to(torch.int32)
             rw2_k = lmfull[..., nE + 1].to(torch.int32)
         else:
-            # mode B: bigram row of the context's newest word (+ trigram
-            # backoff), then the sparse per-context trigram overrides
+            # modes B and C: the bigram row of the context's newest word
+            # (+ trigram backoff), then the sparse per-context trigram
+            # overrides
             is_tri = ctx_k > V
             bidx = torch.clamp(ctx_k - 1 - V, 0, max(self.N_BG - 1, 0)).long()
             meta = tb["bgmeta"][bidx]                             # [B, K, 8]
@@ -959,7 +1109,11 @@ class NgramFusedDecoder:
             rw2_k = torch.where(is_tri, meta[..., 1], V).to(torch.int32)
             bo2w_v = meta[..., 2].contiguous().view(torch.float32)
             h1c = torch.clamp(rw1_k, max=V).long()
-            lmrow = tb["bg"][h1c] + torch.where(is_tri, bo2w_v, 0.0)[..., None]
+            if self.lm_mode == "csr":
+                base, ctxrow = self._csr_rows(h1c)
+            else:
+                base = tb["bg"][h1c]                              # [B, K, E]
+            lmrow = base + torch.where(is_tri, bo2w_v, 0.0)[..., None]
             if self.S_TRI:
                 S_TRI = self.S_TRI
                 if "tg2c" in tb:
@@ -974,7 +1128,8 @@ class NgramFusedDecoder:
                 lmp = torch.cat([lmrow, lmrow.new_zeros((B, K, 1))], 2)
                 lmp.scatter_(2, idx, torch.where(ok, wv, 0.0))
                 lmrow = lmp[..., :nE]
-        ctxrow = tb["ctx_next"][torch.clamp(rw1_k, min=0).long()]  # [B,K,E]
+        if self.lm_mode != "csr":
+            ctxrow = tb["ctx_next"][torch.clamp(rw1_k, min=0).long()]
         accm = tb["accept_T"][fb_k]                               # [B, K, E]
         cand = (exg + torch.where(tb["isfill_E"], tb["fillpen_E"],
                                   lmrow + wpen)
@@ -1041,8 +1196,21 @@ class NgramFusedDecoder:
                                     NEG_INF).amax(dim=1)
                 sv_excl = torch.where(intop[:, None, :], NEG_INF, sv)
                 plane_E = sv_excl.amax(dim=2)[:, tb["f0p_E"]]     # [B, E]
+                rest_kv = kvK
+                if self.GM:
+                    # ranks K..K+GM: exact per-word bonus rows (fillers
+                    # inherit contexts -> the global bound maxb)
+                    wm = ki2[:, K:K + self.GM]                    # [B, M]
+                    svm = torch.gather(
+                        svf, 1, (wm[:, :, None] + tb["f0p_E"] * W)
+                        .view(B, -1)).view(B, self.GM, nE)
+                    brow = torch.where(tb["isfill_W"][wm][..., None],
+                                       tb["maxb_E"],
+                                       tb["guard_bmax"][tb["col_lm_W"][wm]])
+                    breal = torch.maximum(breal, (svm + brow).amax(dim=1))
+                    rest_kv = kv2[:, K + self.GM - 1:K + self.GM]
                 breal = torch.maximum(
-                    breal, torch.minimum(plane_E, kvK) + tb["guard_rest"])
+                    breal, torch.minimum(plane_E, rest_kv) + tb["guard_rest"])
                 if "guard_fillwf" in tb:
                     fsv = svf[:, tb["guard_fillwf"]]              # [B,nf,E]
                     flive = ~intop[:, tb["guard_fillw"]][..., None]

@@ -329,6 +329,30 @@ def small_dictionary(path: str, n_words: int = 40, n_single: int = 3,
     return [ln.split()[0] for ln in pick]
 
 
+def dictionary_for_lm(lm_path: str, base_dic: str, out: str,
+                      seed: int = 0) -> str:
+    """Write a dictionary with one pronunciation for every word of the LM
+    at `lm_path` (the sentence markers excepted, which the noise
+    dictionary holds): a word of `base_dic` keeps its own (first)
+    pronunciation; every other word takes that of a seeded-random
+    `base_dic` word, whose homophone it becomes.  The pronunciation
+    lengths and the triphone set stay those of `base_dic`, so
+    `make_model([out])` covers the same triphones as
+    `make_model([base_dic])`.  Returns `out`."""
+    base = {}
+    for line in open(base_dic, encoding="utf-8", errors="replace"):
+        parts = line.split()
+        if parts and not parts[0].startswith(("##", ";;")):
+            base.setdefault(parts[0], " ".join(parts[1:]))
+    prons = list(base.values())
+    words = [w for w in read_lm(lm_path).words if w not in ("<s>", "</s>")]
+    pick = np.random.default_rng(seed).integers(0, len(prons), len(words))
+    with open(out, "w") as f:
+        f.writelines(f"{w} {base.get(w) or prons[i]}\n"
+                     for w, i in zip(words, pick))
+    return out
+
+
 def build_decoder(spec: SynthModel, workdir: str, dic: str, lmfile: str,
                   lw: float = 6.5, wip: float = 0.65, **kw):
     """The port's `NgramFusedDecoder` over the synthetic model (files

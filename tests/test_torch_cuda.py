@@ -85,6 +85,72 @@ def test_decode_cuda_equals_cpu(cuda, tmp_path):
     assert (hyp, dec.hyp_score) == (hyp_c, cpu.hyp_score)
 
 
+@pytest.mark.parametrize("fat_cap", [None, 2])
+def test_lm_mode_csr_cuda_equals_cpu(cuda, tmp_path, monkeypatch, fat_cap):
+    """LM mode C (forced; with FAT_CAP=2 the fat rows too) and
+    PS_GUARD_TOPM (mode B): a decode and a B=3 minimal scan on CUDA equal
+    the same decoder on the CPU."""
+    from pocketsphinx_tpu_torch.search.ngram_fused import NgramFusedDecoder
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=40, seed=2)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=4)
+    spec = synth.make_model([dic], seed=5, n_sen=126 + 300, n_density=8)
+    monkeypatch.setenv("PS_LM_TABLE_BYTES", "1000")
+    if fat_cap:
+        monkeypatch.setattr(NgramFusedDecoder, "FAT_CAP", fat_cap)
+    decs = []
+    for mode, topm in (("csr", "0"), ("sparse", "4")):
+        monkeypatch.setenv("PS_LM_MODE", mode)
+        monkeypatch.setenv("PS_GUARD_TOPM", topm)
+        decs.append(synth.build_decoder(spec, str(tmp_path), dic, lmf,
+                                        topk=8, device=cuda))
+    assert decs[0].lm_mode == "csr" and (decs[0].N_FAT > 0) == bool(fat_cap)
+    assert decs[1].GM == 4
+    rng = np.random.default_rng(7)
+    costs = rng.uniform(0, 400, (3, 50, decs[0].am.n_sen)).astype(np.float32)
+    costs[:, 20] = 1e29
+    valid = np.arange(50)[None, :] < np.array([50, 31, 12])[:, None]
+    for dec in decs:
+        cpu = dec.to("cpu")
+        hyp, _ = dec.decode(None, costs=costs[0])
+        assert cpu.decode(None, costs=costs[0])[0] == hyp
+        for a, b in zip(dec.raw_records, cpu.raw_records):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(dec.scan(torch.as_tensor(costs, device=cuda),
+                                 torch.as_tensor(valid, device=cuda), True),
+                        cpu.scan(torch.as_tensor(costs),
+                                 torch.as_tensor(valid), True)):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_decode_corpus_cuda(cuda, tmp_path):
+    """`BatchDecodePipeline.decode_corpus` on CUDA equals `decode_batch` on
+    the same padded batch, and `TwoStagePipeline` equals both; the
+    kernels launch once per frame stepped."""
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline
+    from pocketsphinx_tpu_torch.parallel.pipeline import TwoStagePipeline
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=40, seed=1)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=2)
+    spec = synth.make_model([dic], seed=3, n_sen=126 + 300, n_density=16)
+    dec = synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=16,
+                              device=cuda)
+    fe = chip_smoke.en_us_frontend()
+    pcms = [synth.make_pcm(60 + i, s) for i, s in enumerate((1.2, 0.9, 1.1))]
+    n = fan.launches
+    got = chip_smoke._results(BatchDecodePipeline(dec, fe).decode_corpus(
+        pcms, batch_size=4))
+    pcm, ns = chip_smoke.pcm_batch([60, 61, 62], [1.2, 0.9, 1.1])
+    T = fe.n_frames(int(ns.max()))
+    assert fan.launches - n == -(-T // dec.CHUNK) * dec.CHUNK
+    feats, nf = chip_smoke.features(fe, pcm, ns, cuda)
+    want = chip_smoke._results(dec.decode_batch(feats, nf,
+                                                keep_records=False))
+    assert got == want and any(h for h, _ in got)
+    assert chip_smoke._results(TwoStagePipeline(dec, fe).decode_corpus(
+        pcms)) == got
+
+
 def _row_carry(dec, carry, B, b):
     ch, ci = dec._chain_views(carry["chain"], B)
     return ([e[k][b].cpu() for e in ch + ci for k in sorted(e)]

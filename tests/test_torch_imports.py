@@ -115,6 +115,44 @@ def test_decoder_modules_import_alone():
     assert r.returncode == 0, r.stderr
 
 
+def test_corpus_modules_import_alone():
+    """The corpus pipelines, the batch CLI, the sound reader, WER and the
+    evaluation corpus, and `chip_smoke.py`'s phase 9 load with JAX and the
+    JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pocketsphinx_tpu'] = None\n"
+        "from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, "
+        "make_mesh\n"
+        "from pocketsphinx_tpu_torch.parallel.batch import init_distributed, "
+        "shard_ctl, global_metric_sum\n"
+        "from pocketsphinx_tpu_torch.parallel.pipeline import "
+        "TwoStagePipeline\n"
+        "from pocketsphinx_tpu_torch import cli_batch, wer, evalcorpus\n"
+        "from pocketsphinx_tpu_torch.fileio.sound import read_audio\n"
+        "from pocketsphinx_tpu_torch.testing.synth import dictionary_for_lm\n"
+        "import chip_smoke\n"
+        "chip_smoke.reference_scale, chip_smoke.guard_topm, "
+        "chip_smoke.batch_cli\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_corpus_entry_points_default_to_cuda(monkeypatch, capsys):
+    """The mesh, and so the corpus pipeline, and the batch CLI run on CUDA
+    unless asked for the CPU."""
+    from pocketsphinx_tpu_torch import cli_batch
+    from pocketsphinx_tpu_torch.parallel import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    assert make_mesh(device="cpu").shape == {"data": 1, "model": 1}
+    assert cli_batch.main(["-ctl", "x", "-hmm", "y"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+
+
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     from pocketsphinx_tpu_torch import resolve_device
     from pocketsphinx_tpu_torch.frontend.mfcc import MelFrontend

@@ -168,14 +168,3 @@ def test_decode_batch_equal(decoders, keep_records, monkeypatch):
                 np.testing.assert_array_equal(c, np.asarray(a))
     else:
         assert pt.batch_records is None and jx.batch_records is None
-
-
-def test_unported_paths_raise(task, decoders, monkeypatch):
-    d, dic, lmf, spec = task
-    _, pt = decoders
-    monkeypatch.setenv("PS_GUARD_TOPM", "64")
-    with pytest.raises(NotImplementedError, match="PS_GUARD_TOPM"):
-        pt._host_tables()
-    monkeypatch.setenv("PS_LM_MODE", "csr")
-    with pytest.raises(NotImplementedError, match="mode C"):
-        synth.build_decoder(spec, str(d), dic, lmf, topk=TOPK, device="cpu")
