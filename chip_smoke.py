@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --ab TREE [TREE ...]
 
 Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
 
@@ -67,9 +68,12 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    phases 2-3; (b) `BatchDecodePipeline.decode_corpus` of 16 seeded
    utterances of 2-5 s (two B=8 batches), three times: audio-s/s (the
    median), stage seconds, peak memory, the guard count, fan and chain
-   launches equal to the frames stepped; then a 1 s utterance decoded on
-   the card and by the decoder moved to the CPU from one cost matrix,
-   records, hypothesis, segments and score equal; (c) `TwoStagePipeline`
+   launches equal to the frames stepped; then one B=8 batch of short
+   utterances, the first 1 s long, through `decode_batch`'s minimal
+   records, each row's hypothesis, segments and score equal to its own
+   B=1 full-record decode of the same costs, and the 1 s row decoded by
+   the decoder moved to the CPU, records, hypothesis, segments and score
+   equal to the card's; (c) `TwoStagePipeline`
    over the same utterances, equal to (b); (d) `guard_topm` (run right
    after phase 5, before its decoder is freed): PS_GUARD_TOPM=64 on
    phase 5's 20k decoder, one B=8 batch, every record
@@ -85,6 +89,15 @@ the main path's launches, then at the 126k shapes, `*_126k`, with phase
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises; without CUDA it exits non-zero before any
 result.
+
+`--ab TREE [TREE ...]` compares checkouts instead (e.g. the parent
+commit unpacked with `git archive`): for each TREE in the order given,
+in a process of its own and with that tree's code, it builds the kernels
+and phase 5's 20k-word decoder, then scans the costs of seeded 2 s
+utterances four times at B=1 (full records) and at B=8 (minimal
+records), and prints one JSON line per tree: the decoder's build seconds
+and the scan's ms per frame of each repetition.  Give the trees in turns
+(A B B A) to see the host's drift.
 """
 
 from __future__ import annotations
@@ -879,15 +892,34 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
         hyps=[h for h, _ in first][:4],
         peak_mem_bytes=torch.cuda.max_memory_allocated() if cuda else None)
     log("decode_corpus: " + json.dumps(res["corpus"], default=float))
-    pcm1 = synth.make_pcm(600, check_seconds)
-    feats, nf = features(fe, pcm1[None].astype(np.float32),
-                         np.array([len(pcm1)], np.int32), device)
-    costs = senone_scores(dec.am.scoring_tensors(dec.device),
-                          feats[:, :int(nf[0])])[0]
-    hyp, segs = dec.decode(None, costs=costs)
+    # one batch of short utterances, the first `check_seconds` long,
+    # through decode_batch's minimal records: each row equals its own B=1
+    # full-record decode of the same costs; then the first row's decode
+    # equals the CPU's
     t0 = time.perf_counter()
-    res["cpu_check"] = check_cpu_equal(dec, costs, dec.raw_records, hyp,
-                                       segs, dec.hyp_score, device)
+    pcm, ns = pcm_batch(list(range(600, 600 + batch)), [check_seconds] + list(
+        np.linspace(0.3, 0.9, batch - 1)))
+    feats, nf = features(fe, pcm, ns, device)
+    costs = senone_scores(dec.am.scoring_tensors(dec.device), feats,
+                          time_chunk=16)
+    rows = _results(dec.decode_batch(None, nf, keep_records=False,
+                                     costs=costs))
+    scores = list(dec.hyp_scores)
+    for b in reversed(range(batch)):
+        hyp, segs = dec.decode(None, costs=costs[b, :int(nf[b])])
+        if (_results([(hyp, segs)])[0], dec.hyp_score) != (rows[b],
+                                                           scores[b]):
+            raise AssertionError(f"B={batch} minimal records, row {b}: "
+                                 f"differs from its B=1 decode")
+    res["batch_check"] = dict(B=batch, frames=[int(x) for x in nf],
+                              hyps=[h for h, _ in rows],
+                              seconds=time.perf_counter() - t0)
+    log("reference scale, minimal records at B=8 equal each row's B=1 "
+        "decode: " + json.dumps(res["batch_check"]))
+    t0 = time.perf_counter()
+    res["cpu_check"] = check_cpu_equal(dec, costs[0, :int(nf[0])],
+                                       dec.raw_records, hyp, segs,
+                                       dec.hyp_score, device)
     res["cpu_check"]["seconds"] = time.perf_counter() - t0
     log("reference scale, one utterance on the CPU: "
         + json.dumps(res["cpu_check"]))
@@ -1162,6 +1194,54 @@ def check_ties(log):
         "lower index first")
 
 
+AB_RUN = r"""
+import json, tempfile, time
+import torch
+import chip_smoke
+from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+from pocketsphinx_tpu_torch.ops import _build
+_build.build(["fan", "chain"])
+with tempfile.TemporaryDirectory() as w:
+    t0 = time.perf_counter()
+    dec, fe = chip_smoke.build_decoder("bench_data/bench-20k.dic",
+                                       "bench_data/bench-20k.lm.bin", w,
+                                       "cuda")
+    out = {"build_s": time.perf_counter() - t0}
+for B in (1, 8):
+    pcm, ns = chip_smoke.pcm_batch(list(range(10, 10 + B)), [2.0] * B)
+    feats, nf = chip_smoke.features(fe, pcm, ns, "cuda")
+    costs = senone_scores(dec.am.scoring_tensors(dec.device), feats,
+                          time_chunk=16)
+    valid = torch.ones(costs.shape[:2], dtype=torch.bool, device="cuda")
+    ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.scan(costs, valid, minimal=B > 1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) / costs.shape[1] * 1e3)
+    out[f"B{B}_ms_per_frame"] = ms
+print(json.dumps(out))
+"""
+
+
+def ab(trees, log):
+    """`--ab`: the 20k decoder's build and scan of each checkout in turn
+    (`AB_RUN` in the tree's directory, with its own `chip_smoke`)."""
+    if not trees:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for tree in trees:
+        r = subprocess.run([sys.executable, "-c", AB_RUN], cwd=tree,
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode:
+            print(r.stderr[-3000:], file=sys.stderr)
+            return r.returncode
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        log(json.dumps(dict(tree=tree, **res)))
+    return 0
+
+
 def smi_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1181,6 +1261,8 @@ def main(argv):
     smi = smi_line()
     log(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    if argv[:1] == ["--ab"]:
+        return ab(argv[1:], log)
     t0 = time.perf_counter()
     secs = _build.build(["fan", "chain"], verbose=True)
     log(f"built kernels in {time.perf_counter() - t0:.1f} s: {secs}")

@@ -347,14 +347,16 @@ def chain_group_step(grp, S, TF, CTX, VAR, g, pip):
     x0 = torch.empty((3, B, n0), dtype=torch.int32, device=dev)
     x1 = torch.empty((3, B, n1), dtype=torch.int32, device=dev)
     if B and grp.n_blocks:
-        err = lib.chain_group_launch(
-            grp.tab.data_ptr(), grp.n_buckets, grp.n_blocks, grp.NST, B,
-            S.data_ptr(), TF.data_ptr(), CTX.data_ptr(), VAR.data_ptr(),
-            g.data_ptr(), g.stride(0), grp.tp.data_ptr(), grp.fm.data_ptr(),
-            grp.nv.data_ptr(), grp.fd_idx.data_ptr(), float(pip),
-            nS.data_ptr(), nTF.data_ptr(), nCX.data_ptr(), nVAR.data_ptr(),
-            x0.data_ptr(), n0, x1.data_ptr(), n1,
-            torch.cuda.current_stream(dev).cuda_stream)
+        # the launch goes to the current device: make it the tensors'
+        with torch.cuda.device(dev):
+            err = lib.chain_group_launch(
+                grp.tab.data_ptr(), grp.n_buckets, grp.n_blocks, grp.NST, B,
+                S.data_ptr(), TF.data_ptr(), CTX.data_ptr(), VAR.data_ptr(),
+                g.data_ptr(), g.stride(0), grp.tp.data_ptr(),
+                grp.fm.data_ptr(), grp.nv.data_ptr(), grp.fd_idx.data_ptr(),
+                float(pip), nS.data_ptr(), nTF.data_ptr(), nCX.data_ptr(),
+                nVAR.data_ptr(), x0.data_ptr(), n0, x1.data_ptr(), n1,
+                torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError("chain_group_launch: "
                                + lib.chain_error_string(err).decode())

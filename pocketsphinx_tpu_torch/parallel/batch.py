@@ -4,9 +4,9 @@ Port of `pocketsphinx_tpu.parallel.batch`.  The reference has no
 parallelism (its scale is many processes over a -ctl split); here a
 corpus is decoded in padded batches, and each batch is split over a
 `Mesh` of devices along its "data" axis, each device holding a replica
-of the search (`NgramFusedDecoder.to`).  Decoding is embarrassingly
-parallel over utterances: a row's result does not depend on the rows
-beside it.
+of the search (`NgramFusedDecoder.to`) and decoding its rows in a host
+thread of its own.  Decoding is embarrassingly parallel over
+utterances: a row's result does not depend on the rows beside it.
 
 Multi-process: `init_distributed` starts a `torch.distributed` process
 group (gloo), `shard_ctl` splits the control file by process rank,
@@ -22,7 +22,9 @@ NotImplementedError.
 
 from __future__ import annotations
 
+import contextlib
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -143,16 +145,12 @@ class BatchDecodePipeline:
     batched scan -> the backtrace on its rows."""
 
     def __init__(self, decoder_search, frontend, mesh=None,
-                 feat_type: str = "1s_c_d_dd",
-                 svspec: str | None = "0-12/13-25/26-38",
                  cmn: str = "batch"):
         self.search = decoder_search
         self.fe = frontend
         self.mesh = mesh or make_mesh(device=decoder_search.device)
         if self.mesh.shape["model"] > 1:
             raise NotImplementedError(_TP)
-        self.feat_type = feat_type
-        self.svspec = svspec
         self.cmn = cmn
         self.replicas = replicas(decoder_search, self.mesh.devices[:, 0])
         #: guard violations summed over the last `decode_corpus`
@@ -169,51 +167,70 @@ class BatchDecodePipeline:
 
         Utterances are sorted by length and decoded in batches of
         `batch_size` (default 8 per device), each padded to its longest
-        utterance and split over the mesh's data axis.  The scan keeps the
-        minimal (top-K) records: their backtrace is the 1-best walk of
-        the full records (every path predecessor is a top-K exit).  A dict
-        passed as `timings` receives the seconds of each stage (frontend,
-        scoring, scan, backtrace) summed over the batches (the devices
-        are synchronized at each stage boundary)."""
-        from ..frontend.feat import compute_feats
-
+        utterance and split over the mesh's data axis.  With more than one
+        replica, each replica's rows run in a host thread of their own
+        with its device current, so the replicas' work overlaps; the
+        batch ends when every replica has backtraced its rows.  The scan
+        keeps the minimal (top-K) records: their backtrace is the 1-best
+        walk of the full records (every path predecessor is a top-K exit).
+        A dict passed as `timings` receives the seconds of each stage
+        (frontend, scoring, scan, backtrace) summed over the batches and
+        the replicas (the devices are synchronized at each stage
+        boundary)."""
         dp = self.data_parallelism
-        B = batch_size or max(dp, 8 * dp)
+        B = batch_size or 8 * dp
         B = (B // dp) * dp or dp
         order = sorted(range(len(pcm_list)), key=lambda i: len(pcm_list[i]))
         results: list = [None] * len(pcm_list)
         self.guard_violations = 0
-        for i0 in range(0, len(order), B):
-            idx = order[i0:i0 + B]
-            for rows, search in zip(np.array_split(np.array(idx), dp),
-                                    self.replicas):
-                if not len(rows):
-                    continue
-                dev = search.device
-                t0 = _sync(dev, timings)
-                pcm = np.zeros((len(rows), max(len(pcm_list[i])
-                                               for i in rows)), np.float32)
-                for k, i in enumerate(rows):
-                    pcm[k, :len(pcm_list[i])] = pcm_list[i]
-                ns = np.array([len(pcm_list[i]) for i in rows], np.int32)
-                cep, nfr = self.fe.process_batch(pcm, ns, device=dev)
-                feats = compute_feats(cep, nfr, cmn=self.cmn)
-                t1 = _sync(dev, timings)
-                st = {} if timings is not None else None
-                out = search.decode_batch(feats, nfr, keep_records=False,
-                                          timings=st)
-                if timings is not None:
-                    st["frontend"] = t1 - t0
-                    for k, v in st.items():
+
+        def run(part):
+            return self._decode_rows(pcm_list, *part, timings is not None)
+
+        pool = ThreadPoolExecutor(dp) if dp > 1 else None
+        try:
+            for i0 in range(0, len(order), B):
+                parts = [(rows, search) for rows, search in zip(
+                    np.array_split(np.array(order[i0:i0 + B]), dp),
+                    self.replicas) if len(rows)]
+                outs = (list(pool.map(run, parts)) if pool
+                        else [run(p) for p in parts])
+                for (rows, search), (out, st) in zip(parts, outs):
+                    for k, v in (st or {}).items():
                         timings[k] = timings.get(k, 0.0) + v
-                self.guard_violations += search.guard_violations
-                for k, i in enumerate(rows):
-                    results[i] = out[k]
+                    self.guard_violations += search.guard_violations
+                    for k, i in enumerate(rows):
+                        results[i] = out[k]
+        finally:
+            if pool is not None:
+                pool.shutdown()
         return results
 
+    def _decode_rows(self, pcm_list, rows, search, timed: bool):
+        """PCM -> (hyp, segs) of the utterances `rows` through `search`, on
+        its device -> (results, stage seconds or None)."""
+        from ..frontend.feat import compute_feats
 
-def _sync(dev, timings):
+        dev = search.device
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            t0 = _sync(dev, timed)
+            pcm = np.zeros((len(rows), max(len(pcm_list[i]) for i in rows)),
+                           np.float32)
+            for k, i in enumerate(rows):
+                pcm[k, :len(pcm_list[i])] = pcm_list[i]
+            ns = np.array([len(pcm_list[i]) for i in rows], np.int32)
+            cep, nfr = self.fe.process_batch(pcm, ns, device=dev)
+            feats = compute_feats(cep, nfr, cmn=self.cmn)
+            t1 = _sync(dev, timed)
+            st = {"frontend": t1 - t0} if timed else None
+            out = search.decode_batch(feats, nfr, keep_records=False,
+                                      timings=st)
+        return out, st
+
+
+def _sync(dev, timed: bool):
     """The wall clock, after the device's queued work when timing."""
-    if timings is not None and dev.type == "cuda":
+    if timed and dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return time.perf_counter()

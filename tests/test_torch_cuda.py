@@ -124,10 +124,10 @@ def test_lm_mode_csr_cuda_equals_cpu(cuda, tmp_path, monkeypatch, fat_cap):
 
 
 def test_decode_corpus_cuda(cuda, tmp_path):
-    """`BatchDecodePipeline.decode_corpus` on CUDA equals `decode_batch` on
-    the same padded batch, and `TwoStagePipeline` equals both; the
-    kernels launch once per frame stepped."""
-    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline
+    """`BatchDecodePipeline.decode_corpus` on one card equals
+    `decode_batch` on the same padded batch, and `TwoStagePipeline` equals
+    both; the kernels launch once per frame stepped."""
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
     from pocketsphinx_tpu_torch.parallel.pipeline import TwoStagePipeline
     dic = str(tmp_path / "small.dic")
     words = synth.small_dictionary(dic, n_words=40, seed=1)
@@ -138,8 +138,8 @@ def test_decode_corpus_cuda(cuda, tmp_path):
     fe = chip_smoke.en_us_frontend()
     pcms = [synth.make_pcm(60 + i, s) for i, s in enumerate((1.2, 0.9, 1.1))]
     n = fan.launches
-    got = chip_smoke._results(BatchDecodePipeline(dec, fe).decode_corpus(
-        pcms, batch_size=4))
+    got = chip_smoke._results(BatchDecodePipeline(
+        dec, fe, mesh=make_mesh(n_data=1)).decode_corpus(pcms, batch_size=4))
     pcm, ns = chip_smoke.pcm_batch([60, 61, 62], [1.2, 0.9, 1.1])
     T = fe.n_frames(int(ns.max()))
     assert fan.launches - n == -(-T // dec.CHUNK) * dec.CHUNK
@@ -149,6 +149,38 @@ def test_decode_corpus_cuda(cuda, tmp_path):
     assert got == want and any(h for h, _ in got)
     assert chip_smoke._results(TwoStagePipeline(dec, fe).decode_corpus(
         pcms)) == got
+
+
+def test_decode_corpus_cards(cuda, tmp_path):
+    """With two or more cards: `decode_corpus` over every card (a replica
+    on each, its rows in a thread of its own) and `TwoStagePipeline`
+    across the first two cards equal one card's `decode_corpus`."""
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
+    from pocketsphinx_tpu_torch.parallel.pipeline import TwoStagePipeline
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two CUDA cards")
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=40, seed=1)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=2)
+    spec = synth.make_model([dic], seed=3, n_sen=126 + 300, n_density=16)
+    dec = synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=16,
+                              device=cuda)
+    fe = chip_smoke.en_us_frontend()
+    pcms = [synth.make_pcm(70 + i, 0.8 + 0.1 * (i % 5))
+            for i in range(4 * n_cards + 1)]
+    one = chip_smoke._results(BatchDecodePipeline(
+        dec, fe, mesh=make_mesh(n_data=1)).decode_corpus(pcms, batch_size=4))
+    pipe = BatchDecodePipeline(dec, fe)
+    assert pipe.data_parallelism == n_cards
+    assert {r.device.index or 0 for r in pipe.replicas} == set(range(n_cards))
+    # four rows per card: the one-card run's batches, so the same GEMM shapes
+    assert chip_smoke._results(pipe.decode_corpus(
+        pcms, batch_size=4 * n_cards)) == one
+    two = TwoStagePipeline(dec, fe)
+    assert (two.dev_score.index, two.dev_scan.index) == (0, 1)
+    assert chip_smoke._results(two.decode_corpus(pcms, micro_batch=4)) == one
+    assert any(h for h, _ in one)
 
 
 def _row_carry(dec, carry, B, b):

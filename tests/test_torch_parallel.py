@@ -4,7 +4,7 @@ one synthetic model, dictionary and LM, from seeded PCM:
   * `BatchDecodePipeline.decode_corpus` of 5 utterances at batch_size=2
     (the last batch partial) gives the JAX pipeline's (hyp, segments) on
     a one-device CPU mesh, in input order, and the same with two CPU
-    replicas of the search;
+    replicas of the search, whose rows run at the same time;
   * `TwoStagePipeline` gives the JAX one's;
   * `shard_ctl` is strided; `global_metric_sum` sums over two gloo
     processes (`init_distributed` with a TCP coordinator on localhost);
@@ -18,6 +18,7 @@ import pathlib
 import socket
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -83,6 +84,27 @@ def test_two_cpu_replicas(task, port_corpus):
     assert pipe.replicas[0] is pt and pipe.replicas[1] is not pt
     for bs in (2, 4):
         assert _key(pipe.decode_corpus(pcms, batch_size=bs)) == port_corpus
+
+
+def test_replicas_run_concurrently(task, port_corpus, monkeypatch):
+    """Each replica decodes its rows in a thread of its own: both enter
+    `decode_batch` before either leaves it (a barrier that a serial loop
+    would never pass)."""
+    _, pt, pcms = task
+    pipe = BatchDecodePipeline(pt, MelFrontend(**CFG),
+                               mesh=make_mesh(n_data=2, device="cpu"))
+    meet = threading.Barrier(2, timeout=60)
+    threads = set()
+    for rep in pipe.replicas:
+        def decode_batch(*a, _inner=rep.decode_batch, **kw):
+            threads.add(threading.get_ident())
+            meet.wait()
+            return _inner(*a, **kw)
+        monkeypatch.setattr(rep, "decode_batch", decode_batch)
+    # one batch of four: two rows on each replica
+    assert _key(pipe.decode_corpus(pcms[:4], batch_size=4)) == \
+        port_corpus[:4]
+    assert len(threads) == 2 and threading.get_ident() not in threads
 
 
 def test_two_stage_equals_jax(task, port_corpus):
