@@ -69,9 +69,9 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    utterances of 2-5 s (two B=8 batches), three times: audio-s/s (the
    median), stage seconds, peak memory, the guard count, fan and chain
    launches equal to the frames stepped; then one B=8 batch of short
-   utterances, the first 1 s long, through `decode_batch`'s minimal
+   utterances, the first 0.5 s long, through `decode_batch`'s minimal
    records, each row's hypothesis, segments and score equal to its own
-   B=1 full-record decode of the same costs, and the 1 s row decoded by
+   B=1 full-record decode of the same costs, and the 0.5 s row decoded by
    the decoder moved to the CPU, records, hypothesis, segments and score
    equal to the card's; (c) `TwoStagePipeline`
    over the same utterances, equal to (b); (d) `guard_topm` (run right
@@ -81,10 +81,35 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    peak memories; (e) `batch_cli`: `cli_batch.main` over a synthetic model
    directory with bench-1.7k.dic and bench-1.7k.lm.bin and eight seeded
    WAV files (`-adcin yes`), at `-batchsize 8` and 1, identical `-hyp`
-   and `-hypseg` files.
+   and `-hypseg` files;
+10. the command-line program, the compat API and the flat search:
+   (a) `cli_20k`: `cli.main` in-process on phase 7's model directory
+   with bench-20k.dic and bench-20k.lm.bin, `single` on a seeded 2 s WAV
+   and `live` over 8 s of seeded bursts and silences (the WebRTC VAD
+   must find 2 or more segments), each command building its own
+   `Decoder`, every JSON line equal to one `Decoder` built here (`single`
+   through `decode_raw`, each `live` segment streamed through
+   `process_raw` as `live` does), fan and chain launches equal to the
+   frames stepped, each command's seconds; (a') `cli_1k7`, on phase
+   9(e)'s model directory with bench-1.7k.dic and bench-1.7k.lm.bin:
+   `align` of 20 words with -phone_align and -state_align yes equal to
+   `Decoder.get_alignment` of the same PCM, and `compat.AudioFile` over
+   (a)'s `live` file giving `live`'s hypotheses; (b) `flat_1k7`: the
+   flat search (PS_NGRAM_IMPL=flat) at the 1.7k width, one B=8 batch of
+   seeded 2-5 s utterances through `decode_batch`, every row's 7 record
+   arrays, hypothesis and segments equal to the same search on the CPU
+   from the same costs, ms per frame and peak memory, one `decode_raw`
+   with the best-path pass, and how many hypotheses the fused search
+   gives equal (counted, not required); (c) `flat_20k`: the flat search
+   at the 20k width, a 2 s utterance at B=1 equal to its own row of a B=2
+   `decode_batch`, ms per frame and peak memory of each; (d)
+   `topk_exact`, run right after phase 9(d) on phase 5's decoder: two of
+   phase 5's utterances at K=96 and unpruned (K=W), hypotheses, segments
+   and exit records held equal where the K run's guard count is 0.
 
 Prints the kernels' JSON line (the two kernels at the 20k shapes with
-the main path's launches, then at the 126k shapes, `*_126k`, with phase
+the main path's launches, phase 7's (`facade_launches`) and phase
+10(a)'s (`cli_launches`), then at the 126k shapes, `*_126k`, with phase
 9(b)'s), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises; without CUDA it exits non-zero before any
@@ -102,6 +127,7 @@ and the scan's ms per frame of each repetition.  Give the trees in turns
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -303,6 +329,56 @@ def buckets_of(dec):
     return out + [(dec.NST, c.D, c.Wb, 0, 0, False) for c in dec.ci_chains]
 
 
+def seg_key(segs):
+    """Segments as comparable (word, start, end) tuples."""
+    return [(s.word, s.start, s.end) for s in segs]
+
+
+def _sync(device):
+    """Wait for `device` (a no-op off CUDA); then the host clock."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def _peak(device):
+    import torch
+    return (torch.cuda.max_memory_allocated()
+            if torch.device(device).type == "cuda" else None)
+
+
+def _reset_peak(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+@contextlib.contextmanager
+def _env(name, value):
+    """`os.environ[name]` set to `value` inside the block, and back to what
+    it was (or unset) after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def _write_wav(path, pcm, rate=16000):
+    import wave
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(np.asarray(pcm, "<i2").tobytes())
+    return path
+
+
 def check_cpu_equal(dec, costs, raw, hyp, segs, score, device):
     """The decode of `costs` [T, n_sen] on `device` (its raw records,
     hypothesis, segments and score) equals the same decoder's on the CPU
@@ -313,8 +389,8 @@ def check_cpu_equal(dec, costs, raw, hyp, segs, score, device):
     for n, a, b in zip(names, raw, cpu.raw_records):
         if a.shape != b.shape or not np.array_equal(a, b):
             raise AssertionError(f"{device} vs cpu records differ: {n}")
-    key = lambda s: [(x.word, x.start, x.end) for x in s]  # noqa: E731
-    if (hyp, key(segs), score) != (hyp_c, key(segs_c), cpu.hyp_score):
+    if (hyp, seg_key(segs), score) != (hyp_c, seg_key(segs_c),
+                                       cpu.hyp_score):
         raise AssertionError(f"{device} vs cpu hypothesis differs: "
                              f"{hyp!r} / {hyp_c!r}")
     return {"frames": int(costs.shape[0]), "hyp": hyp, "records_equal": True}
@@ -347,12 +423,6 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
     from pocketsphinx_tpu_torch.ops import chain, fan
 
     cuda = torch.device(device).type == "cuda"
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-        return time.perf_counter()
-
     ch = dec.CHUNK
     fan.reset_launches()
     chain.reset_launches()
@@ -378,17 +448,16 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
     pcm, ns = pcm_batch(list(range(10, 10 + batch)),
                         list(np.linspace(2.0, 5.0, batch)))
     audio_s = float(ns.sum()) / fe.samprate
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
+    _reset_peak(device)
     runs = []
     for _ in range(repeats):
-        t0 = sync()
+        t0 = _sync(device)
         feats, nf = features(fe, pcm, ns, device)
-        t1 = sync()
+        t1 = _sync(device)
         timings = {}
         out = dec.decode_batch(feats, nf, keep_records=False,
                                timings=timings)
-        t2 = sync()
+        t2 = _sync(device)
         frames += -(-feats.shape[1] // ch) * ch
         runs.append(dict(frontend=t1 - t0, **timings, seconds=t2 - t0,
                          audio_s_per_s=audio_s / (t2 - t0)))
@@ -404,7 +473,7 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
         if res["launches"] != want:
             raise AssertionError(f"launch counts {res['launches']} != "
                                  f"expected {want}")
-        res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        res["peak_mem_bytes"] = _peak(device)
     rates = sorted(r["audio_s_per_s"] for r in runs)
     res["batch"] = {"B": batch, "audio_s": audio_s, "frames": int(nf.max()),
                     "runs": runs, "audio_s_per_s": rates[len(rates) // 2],
@@ -430,7 +499,9 @@ def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
     `seconds`; (b) `stream_seconds` of seeded PCM streamed in 0.1 s
     chunks; (c) launch counts over (a) and (b); then the checks against
     the CPU and the whole-utterance scan.  Returns what it measured; a
-    dict passed as `hold` receives the decoder (key "decoder")."""
+    dict passed as `hold` receives the decoder (key "decoder") and its CMN
+    state as built (key "cmn0")."""
+    import copy
     import torch
     from pocketsphinx_tpu_torch import Decoder
     from pocketsphinx_tpu_torch.ops import chain, fan
@@ -444,6 +515,7 @@ def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
     hmm = synth.make_model([dic], seed=0, **kw).write_model_dir(
         os.path.join(work, "hmm"))
     dec = Decoder(hmm=hmm, dict=dic, lm=lmfile, device=device)
+    cmn0 = copy.deepcopy(dec.cmn_state)
     search = dec._searches["_default"]
     ch = search.CHUNK
     log(f"facade: Decoder(hmm=<synthetic>, dict={os.path.basename(dic)}, "
@@ -556,7 +628,7 @@ def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
                             equal=True)
     res["stream_check"] = dict(frames=T, equal=True, whole_scan_s=whole_s)
     if hold is not None:
-        hold["decoder"] = dec
+        hold.update(decoder=dec, cmn0=cmn0)
     return res
 
 
@@ -775,7 +847,7 @@ def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
 
 def _results(out):
     """[(hyp, segs)] as comparable tuples."""
-    return [(h, [(s.word, s.start, s.end) for s in segs]) for h, segs in out]
+    return [(h, seg_key(segs)) for h, segs in out]
 
 
 def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
@@ -813,11 +885,6 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
     kw = {k: v for k, v in (("n_sen", n_sen), ("n_density", n_density))
           if v is not None}
 
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-        return time.perf_counter()
-
     # (a) the task and its decoder
     res = {}
     t0 = time.perf_counter()
@@ -832,7 +899,7 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
     res["lm_read_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     dec = NgramFusedDecoder(am, d2p, lm, device=device)
-    res["build_s"] = sync() - t0
+    res["build_s"] = _sync(device) - t0
     if dec.lm_mode != "csr":
         raise AssertionError(f"LM mode {dec.lm_mode} != csr at V={dec.V}")
     res["shape"] = dict(V=int(dec.V), W=dec.W, n_multi=dec.n_multi,
@@ -863,15 +930,14 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
     pipe = BatchDecodePipeline(dec, fe)
     fan.reset_launches()
     chain.reset_launches()
-    if cuda:
-        torch.cuda.reset_peak_memory_stats()
+    _reset_peak(device)
     runs, first = [], None
     for _ in range(repeats):
         st = {}
-        t0 = sync()
+        t0 = _sync(device)
         out = _results(pipe.decode_corpus(pcms, batch_size=batch,
                                           timings=st))
-        dt = sync() - t0
+        dt = _sync(device) - t0
         runs.append(dict(seconds=dt, audio_s_per_s=audio_s / dt,
                          scan_ms_per_frame=st["scan"] / frames * 1e3,
                          guard_violations=pipe.guard_violations, **st))
@@ -890,7 +956,7 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
         launches=launches, audio_s_per_s=med["audio_s_per_s"],
         median_run=med, runs=[r["audio_s_per_s"] for r in runs],
         hyps=[h for h, _ in first][:4],
-        peak_mem_bytes=torch.cuda.max_memory_allocated() if cuda else None)
+        peak_mem_bytes=_peak(device))
     log("decode_corpus: " + json.dumps(res["corpus"], default=float))
     # one batch of short utterances, the first `check_seconds` long,
     # through decode_batch's minimal records: each row equals its own B=1
@@ -925,10 +991,10 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
         + json.dumps(res["cpu_check"]))
 
     # (c) the two-stage pipeline
-    t0 = sync()
+    t0 = _sync(device)
     two = _results(TwoStagePipeline(dec, fe).decode_corpus(
         pcms, micro_batch=batch))
-    res["two_stage_s"] = sync() - t0
+    res["two_stage_s"] = _sync(device) - t0
     if two != first:
         raise AssertionError("TwoStagePipeline differs from decode_corpus")
     log(f"TwoStagePipeline equals decode_corpus ({res['two_stage_s']:.1f} s)")
@@ -944,7 +1010,6 @@ def guard_topm(dec, device, log=print, gm=64, batch=8):
     import torch
     from pocketsphinx_tpu_torch.models.acoustic import senone_scores
 
-    cuda = torch.device(device).type == "cuda"
     fe = en_us_frontend()
     pcm, ns = pcm_batch(list(range(10, 10 + batch)),
                         list(np.linspace(2.0, 5.0, batch)))
@@ -954,26 +1019,21 @@ def guard_topm(dec, device, log=print, gm=64, batch=8):
     valid = (torch.arange(costs.shape[1], device=costs.device)[None, :]
              < torch.as_tensor(nf, device=costs.device)[:, None])
     t0 = time.perf_counter()
-    os.environ["PS_GUARD_TOPM"] = str(gm)
-    try:
+    with _env("PS_GUARD_TOPM", str(gm)):
         top = copy.copy(dec)
         top.host_tables = top._host_tables()
         top.tables = top.device_tables(top.host_tables, dec.device)
-    finally:
-        del os.environ["PS_GUARD_TOPM"]
     res = {"build_s": time.perf_counter() - t0, "GM": top.GM,
            "bmax_bytes": int(top.host_tables["guard_bmax"].nbytes)}
     if top.GM != gm:
         raise AssertionError(f"PS_GUARD_TOPM={gm} not in effect ({top.GM})")
     runs = []
     for d in (dec, top):
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
+        _reset_peak(device)
         recs = d.scan(costs, valid)
         out = _results(d.decode_batch(None, nf, keep_records=False,
                                       costs=costs))
-        runs.append((recs, out, d.guard_violations,
-                     torch.cuda.max_memory_allocated() if cuda else None))
+        runs.append((recs, out, d.guard_violations, _peak(device)))
     (r0, o0, v0, m0), (rg, og, vg, mg) = runs
     names = "escore etf etgt ecx entry eprw erw1 erw2 m".split()
     for n, a, b in zip(names, r0, rg):
@@ -995,7 +1055,6 @@ def batch_cli(work, device, log=print, dic=None, lmfile=None, n_utts=8,
     `n_utts` seeded WAV files (`-adcin yes`), at `-batchsize 8` and 1:
     the `-hyp` and `-hypseg` files must be identical.  Returns the
     seconds of each run and the hypotheses."""
-    import wave
     from pocketsphinx_tpu_torch import cli_batch
     from pocketsphinx_tpu_torch.testing import synth
 
@@ -1009,11 +1068,7 @@ def batch_cli(work, device, log=print, dic=None, lmfile=None, n_utts=8,
     os.makedirs(wavs, exist_ok=True)
     ids = [f"utt{i}" for i in range(n_utts)]
     for i, (u, s) in enumerate(zip(ids, np.linspace(1.0, 3.0, n_utts))):
-        with wave.open(os.path.join(wavs, u + ".wav"), "wb") as w:
-            w.setnchannels(1)
-            w.setsampwidth(2)
-            w.setframerate(16000)
-            w.writeframes(synth.make_pcm(700 + i, s).tobytes())
+        _write_wav(os.path.join(wavs, u + ".wav"), synth.make_pcm(700 + i, s))
     ctl = os.path.join(work, "cli.ctl")
     with open(ctl, "w") as f:
         f.write("\n".join(ids) + "\n")
@@ -1034,6 +1089,354 @@ def batch_cli(work, device, log=print, dic=None, lmfile=None, n_utts=8,
     res["hyps"] = outs[8][0].splitlines()[:4]
     log("cli_batch: -batchsize 8 and 1 give identical -hyp and -hypseg: "
         + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the CLI, the compat API, the flat search, top-K exactness
+# ---------------------------------------------------------------------------
+
+# the seeded bursts (`synth.bursts_pcm`) that `live` reads at both widths
+LIVE_SEED, LIVE_SECONDS = 301, 8.0
+
+
+def run_cli(argv, device):
+    """`cli.main(argv, device=device)` in-process: (its stdout lines, its
+    seconds, the kernels' launches during it).  Raises unless it exits 0."""
+    import gc
+    import io
+    from pocketsphinx_tpu_torch import cli
+    from pocketsphinx_tpu_torch.ops import chain, fan
+
+    fan.reset_launches()
+    chain.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv, device=device)
+    secs = time.perf_counter() - t0
+    gc.collect()                    # the CLI's decoder and its tables
+    if rc != 0:
+        raise AssertionError(f"cli {argv[-2:]} exited {rc}")
+    return (out.getvalue().splitlines(), secs,
+            {"fan": fan.launches, "chain": chain.launches})
+
+
+def cli_20k(work, device, log=print, hmm=None, dic=None, lmfile=None,
+            dec=None, cmn0=None):
+    """Phase 10(a): the `pocketsphinx-tpu-torch` program in-process on
+    `device` over the model directory `hmm` with `dic` and `lmfile`
+    (default the 20k task): `single` on a seeded 2 s WAV and `live` over
+    `LIVE_SECONDS` of seeded bursts (`synth.bursts_pcm`), each command
+    building its own `Decoder`; then one `Decoder` (`dec` over the same
+    files, its CMN state set back to `cmn0`, the state it was built with;
+    else one built here) decodes the same PCM (`single`'s utterance
+    through `decode_raw`, then each VAD segment streamed through
+    `process_raw` from that CMN state, as `live` does), and every JSON
+    line must equal the CLI's; the kernels' launches during each command
+    must equal the frames it stepped.  Returns (what it measured, the
+    decoder)."""
+    import copy
+    from pocketsphinx_tpu_torch import Decoder, cli
+    from pocketsphinx_tpu_torch.testing import synth
+    from pocketsphinx_tpu_torch.vad import Endpointer
+
+    dic = dic or os.path.join(BENCH, "bench-20k.dic")
+    lmfile = lmfile or os.path.join(BENCH, "bench-20k.lm.bin")
+    cuda = device != "cpu"
+    pcm1 = synth.make_pcm(300, 2.0)
+    pcm2 = synth.bursts_pcm(LIVE_SEED, LIVE_SECONDS)
+    w1 = _write_wav(os.path.join(work, "cli_single.wav"), pcm1)
+    w2 = _write_wav(os.path.join(work, "cli_live.wav"), pcm2)
+    base = ["-hmm", hmm, "-dict", dic, "-lm", lmfile]
+    single, single_secs, single_l = run_cli(base + ["single", w1], device)
+    live, live_secs, live_l = run_cli(base + ["live", w2], device)
+    t0 = time.perf_counter()
+    if dec is None:
+        dec = Decoder(hmm=hmm, dict=dic, lm=lmfile, device=device)
+        cmn0 = copy.deepcopy(dec.cmn_state)
+    build_s = time.perf_counter() - t0
+    ch = dec._searches["_default"].CHUNK
+    dec.cmn_state = copy.deepcopy(cmn0)
+    dec.decode_raw(pcm1)
+    want = [json.dumps(cli.hyp_doc(dec))]
+    frames = -(-dec.n_frames // ch) * ch
+    if single != want:
+        raise AssertionError(f"cli single {single} != decode_raw {want}")
+    if cuda and single_l != {"fan": frames, "chain": frames}:
+        raise AssertionError(f"cli single launches {single_l} != frames "
+                             f"stepped {frames}")
+    segs = list(Endpointer(sample_rate=dec.fe.samprate).segment(pcm2))
+    if len(segs) < 2:
+        raise AssertionError(f"the VAD found {len(segs)} segments")
+    # `live` streams each segment (live CMN inside the utterance); so does
+    # the reference here.  `decode_raw` of a segment normalizes it as a
+    # whole, so its words may differ: counted, not required.
+    want, raw_docs, frames_l = [], [], 0
+    for stream in (True, False):
+        dec.cmn_state = copy.deepcopy(cmn0)
+        for start, end, speech in segs:
+            if stream:
+                dec.start_utt()
+                dec.process_raw(speech)
+                dec.end_utt()
+                frames_l += dec.STREAM_BLOCK * len(dec.stream_block_seconds)
+                want.append(json.dumps(cli.segment_doc(dec, start, end)))
+            else:
+                dec.decode_raw(speech)
+                raw_docs.append(cli.segment_doc(dec, start, end))
+    if live != want:
+        raise AssertionError(f"cli live {live} != the decoder's {want}")
+    if cuda and live_l != {"fan": frames_l, "chain": frames_l}:
+        raise AssertionError(f"cli live launches {live_l} != frames "
+                             f"stepped {frames_l}")
+    res = dict(single=dict(seconds=single_secs, launches=single_l,
+                           hyp=json.loads(single[0])["t"]),
+               live=dict(seconds=live_secs, launches=live_l,
+                         segments=len(segs),
+                         hyps=[json.loads(x)["t"] for x in live],
+                         decode_raw_equal_hyps=sum(
+                             json.loads(x)["t"] == d["t"]
+                             for x, d in zip(live, raw_docs))),
+               decoder_build_s=build_s, equal=True)
+    log("phase 10(a) cli: " + json.dumps(res))
+    return res, dec
+
+
+def cli_1k7(work, device, log=print, hmm=None, dic=None, lmfile=None,
+            n_align=20):
+    """Phase 10(a'): at the 1.7k width (`hmm` with `dic` and `lmfile`,
+    default bench-1.7k): `align` of `n_align` dictionary words with
+    -phone_align and -state_align yes over a seeded 6 s WAV, its JSON
+    equal to the alignment of a `Decoder` (`add_align_text`, `decode_raw`)
+    of the same PCM; `live` over phase 10(a)'s seeded bursts, and
+    `compat.AudioFile` over the same file giving the same hypotheses."""
+    import io
+    from pocketsphinx_tpu_torch import Decoder, cli, compat
+    from pocketsphinx_tpu_torch.testing import synth
+
+    dic = dic or os.path.join(BENCH, "bench-1.7k.dic")
+    lmfile = lmfile or os.path.join(BENCH, "bench-1.7k.lm.bin")
+    words = synth.grammar_words(dic)
+    rng = np.random.default_rng(320)
+    text = [words[i] for i in rng.choice(len(words), n_align, replace=False)]
+    pcm = synth.make_pcm(321, 6.0)
+    wav = _write_wav(os.path.join(work, "cli_align.wav"), pcm)
+    live_wav = _write_wav(os.path.join(work, "cli_live.wav"),
+                          synth.bursts_pcm(LIVE_SEED, LIVE_SECONDS))
+    got, align_secs, _ = run_cli(["-hmm", hmm, "-dict", dic, "-phone_align",
+                                  "yes", "-state_align", "yes", "align", wav,
+                                  *text], device)
+    dec = Decoder(hmm=hmm, dict=dic, device=device)
+    dec.add_align_text(" ".join(text))
+    dec.decode_raw(pcm)
+    out = io.StringIO()
+    cli.output_align(dec, True, True, stream=out)
+    if got != out.getvalue().splitlines():
+        raise AssertionError("cli align differs from Decoder.get_alignment")
+    w, p, s = dec.get_alignment()
+    live, live_secs, _ = run_cli(["-hmm", hmm, "-dict", dic, "-lm", lmfile,
+                                  "live", live_wav], device)
+    af = [ps.hypothesis() for ps in compat.AudioFile(
+        live_wav, hmm=hmm, dict=dic, lm=lmfile, device=device)]
+    hyps = [json.loads(x)["t"] for x in live]
+    if af != hyps:
+        raise AssertionError(f"AudioFile {af} != cli live {hyps}")
+    res = dict(align=dict(seconds=align_secs, words=len(w), phones=len(p),
+                          states=len(s), equal=True),
+               live=dict(seconds=live_secs, hyps=hyps), audiofile_equal=True)
+    log("phase 10(a') cli at 1.7k: " + json.dumps(res))
+    return res
+
+
+def _flat_search(hmm, dic, lmfile, device):
+    """The `Decoder` with PS_NGRAM_IMPL=flat over a model directory, and
+    its flat search."""
+    from pocketsphinx_tpu_torch import Decoder
+    with _env("PS_NGRAM_IMPL", "flat"):
+        dec = Decoder(hmm=hmm, dict=dic, lm=lmfile, device=device)
+    return dec, dec._searches["_default"]
+
+
+def _flat_equal(a, b, what):
+    """Two flat decodes' (records, (hyp, segs)) equal."""
+    (ra, (ha, sa)), (rb, (hb, sb)) = a, b
+    names = "escore estf eprw eascr eh1 eh2 ectx".split()
+    for n, x, y in zip(names, ra, rb):
+        if x.shape != y.shape or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: records differ: {n}")
+    if (ha, seg_key(sa)) != (hb, seg_key(sb)):
+        raise AssertionError(f"{what}: {ha!r} != {hb!r}")
+
+
+def _host(x):
+    """An array on the host (a tensor's copy)."""
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+
+
+def flat_1k7(work, device, log=print, hmm=None, dic=None, lmfile=None):
+    """Phase 10(b): the flat search at the 1.7k width through the `Decoder`
+    with PS_NGRAM_IMPL=flat: one B=8 batch of seeded 2-5 s utterances
+    through `decode_batch` on `device`, ms per frame and peak memory; its
+    three shortest rows' 7 record arrays, hypotheses and segments equal to
+    a B=3 batch of the same search on the CPU from the same costs; one
+    `decode_raw` with the best-path pass; how many hypotheses the fused search gives
+    equal on the same costs (counted, not required: the two differ in mpx
+    semantics)."""
+    from pocketsphinx_tpu_torch import Decoder
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+    from pocketsphinx_tpu_torch.testing import synth
+
+    dic = dic or os.path.join(BENCH, "bench-1.7k.dic")
+    lmfile = lmfile or os.path.join(BENCH, "bench-1.7k.lm.bin")
+    t0 = time.perf_counter()
+    dec, flat = _flat_search(hmm, dic, lmfile, device)
+    flat._tables()
+    build_s = time.perf_counter() - t0
+    batch, held = 8, 3
+    pcm, ns = pcm_batch(list(range(330, 330 + batch)),
+                        list(np.linspace(2.0, 5.0, batch)))
+    feats, nf = features(en_us_frontend(), pcm, ns, device)
+    nf = _host(nf)
+    costs = senone_scores(dec.am.scoring_tensors(dec.device), feats,
+                          time_chunk=16)
+    T = costs.shape[1]
+    _reset_peak(device)
+    t0 = _sync(device)
+    out = flat.decode_batch(None, nf, costs=costs)
+    secs = _sync(device) - t0
+    peak = _peak(device)
+    recs = list(flat.batch_records)
+    res = dict(W=flat.W, P=flat.P, batch=batch, frames=int(T),
+               build_s=build_s, seconds=secs, ms_per_frame=secs / T * 1e3,
+               peak_mem_bytes=peak, lm_order_used=flat.lm_order_used,
+               hyps=[h for h, _ in out][:4])
+    cpu = flat.to("cpu")
+    t0 = time.perf_counter()
+    out_c = cpu.decode_batch(None, nf[:held], costs=costs[
+        :held, :int(nf[:held].max())].cpu())
+    res["cpu_s"] = time.perf_counter() - t0
+    for b, n in enumerate(nf[:held]):
+        _flat_equal((tuple(r[:n] for r in recs[b]), out[b]),
+                    (tuple(r[:n] for r in cpu.batch_records[b]), out_c[b]),
+                    f"flat row {b} {device} vs cpu")
+    res["cpu_equal_rows"] = held
+    h = dec.decode_raw(synth.make_pcm(340, 3.0))
+    lat = dec.get_lattice()
+    if not (h and h.hypstr and lat and 0.0 < h.prob <= 1.0):
+        raise AssertionError(f"flat decode_raw: {h}")
+    res["decode_raw"] = dict(hyp=h.hypstr, prob=h.prob, nodes=lat.n_nodes,
+                             links=lat.n_links)
+    fused = Decoder(hmm=hmm, dict=dic, lm=lmfile, device=device)
+    fo = fused._searches["_default"].decode_batch(None, nf, costs=costs)
+    res["fused_equal_hyps"] = sum(a[0] == b[0] for a, b in zip(out, fo))
+    log("phase 10(b) flat at 1.7k: " + json.dumps(res, default=float))
+    return res
+
+
+def flat_20k(dec, device, log=print):
+    """Phase 10(c): the flat search at the 20k width on `dec`'s model,
+    dictionary and LM (phase 10(a)'s decoder): one 2 s utterance at B=1
+    (`decode`), its records, hypothesis and segments equal to its own row
+    of a B=2 `decode_batch` with a 1.2 s partner; ms per frame and peak
+    memory of each."""
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+    from pocketsphinx_tpu_torch.search.ngram_flat import NgramFlatDecoder
+
+    c = dec.config
+    t0 = time.perf_counter()
+    flat = NgramFlatDecoder(dec.am, dec.d2p, dec._searches["_default"].lm,
+                            silprob=c["silprob"], fillprob=c["fillprob"],
+                            pip=c["pip"], nwpen=c["nwpen"], device=device)
+    flat._tables()
+    build_s = _sync(device) - t0
+    pcm, ns = pcm_batch([350, 351], [2.0, 1.2])
+    feats, nf = features(en_us_frontend(), pcm, ns, device)
+    nf = _host(nf)
+    costs = senone_scores(dec.am.scoring_tensors(dec.device), feats,
+                          time_chunk=16)
+    T = int(nf[0])
+    _reset_peak(device)
+    t0 = _sync(device)
+    one = flat.decode(None, costs=costs[0, :T])
+    t1 = _sync(device)
+    peak1 = _peak(device)
+    rec1 = flat.records
+    _reset_peak(device)
+    t2 = _sync(device)
+    two = flat.decode_batch(None, nf, costs=costs)
+    t3 = _sync(device)
+    _flat_equal((rec1, one), (tuple(r[:T] for r in flat.batch_records[0]),
+                              two[0]), "flat 20k B=1 vs its B=2 row")
+    res = dict(W=flat.W, P=flat.P, n_slot=flat.n_slot, build_s=build_s,
+               lm_order_used=flat.lm_order_used, frames=T,
+               b1_ms_per_frame=(t1 - t0) / T * 1e3, b1_peak_mem_bytes=peak1,
+               b2_frames=int(costs.shape[1]),
+               b2_ms_per_frame=(t3 - t2) / costs.shape[1] * 1e3,
+               b2_peak_mem_bytes=_peak(device), hyp=one[0], equal=True)
+    log("phase 10(c) flat at 20k: " + json.dumps(res, default=float))
+    return res
+
+
+def topk_exact(dec, device, log=print):
+    """Top-K exactness on phase 5's decoder `dec`: phase 5's first two
+    utterances decoded at its K and unpruned (a copy with topk = W): the
+    hypotheses, segments and exit records (all but the guard count), held
+    equal only where the K run's guard count is 0; both runs' ms per frame
+    and the unpruned run's peak memory.  If the unpruned scan does not fit
+    on the card, says so and returns the K runs' guard counts alone."""
+    import copy
+    import torch
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+
+    fe = en_us_frontend()
+    costs = []
+    for i in range(2):                  # as `main_path` makes them
+        pcm, ns = pcm_batch([1 + i], [2.0 + 1.5 * i])
+        feats, nf = features(fe, pcm, ns, device)
+        costs.append(senone_scores(dec.am.scoring_tensors(dec.device),
+                                   feats[:, :int(nf[0])])[0])
+
+    def run(d, c):
+        _reset_peak(device)
+        t0 = _sync(device)
+        hyp, segs = d.decode(None, costs=c)
+        secs = _sync(device) - t0
+        return (hyp, seg_key(segs), d.raw_records, d.guard_violations,
+                secs / c.shape[0] * 1e3, _peak(device))
+
+    pruned = [run(dec, c) for c in costs]
+    res = dict(K=dec.K, W=dec.W, utts=[])
+    try:
+        t0 = time.perf_counter()
+        full = copy.copy(dec)
+        full.topk = dec.W
+        full.host_tables = full._host_tables()
+        full.tables = full.device_tables(full.host_tables, dec.device)
+        res["build_s"] = time.perf_counter() - t0
+        unpruned = [run(full, c) for c in costs]
+    except torch.cuda.OutOfMemoryError as e:
+        full = unpruned = None
+        torch.cuda.empty_cache()
+        res.update(unpruned="does not fit", error=str(e)[:400],
+                   guard=[p[3] for p in pruned])
+        log("top-K exactness: " + json.dumps(res, default=float))
+        return res
+    names = "escore etf etgt ecx entry eprw erw1 erw2 m".split()
+    for c, a, b in zip(costs, pruned, unpruned):
+        (h, s, r, v, ms, _), (hf, sf, rf, vf, msf, peak) = a, b
+        same_recs = all(np.array_equal(a, b)
+                        for a, b in zip(r[:len(names)], rf[:len(names)]))
+        u = dict(frames=int(c.shape[0]), guard=v, hyp_equal=h == hf,
+                 segs_equal=s == sf, records_equal=same_recs, ms_per_frame=ms,
+                 unpruned_ms_per_frame=msf, unpruned_peak_mem_bytes=peak,
+                 unpruned_guard=vf)
+        if v == 0 and not (u["hyp_equal"] and u["segs_equal"] and same_recs):
+            raise AssertionError(f"K={dec.K} with guard 0 differs from the "
+                                 f"unpruned search: {u}")
+        res["utts"].append(u)
+    del full
+    log("top-K exactness: " + json.dumps(res, default=float))
     return res
 
 
@@ -1300,6 +1703,11 @@ def main(argv):
     top = guard_topm(dec, "cuda", log=log)
     top_s = time.perf_counter() - t0
     log(f"phase 9(d) ({top_s:.1f} s) on {smi}")
+    # phase 10(d), top-K exactness, on the same decoder
+    t0 = time.perf_counter()
+    topk = topk_exact(dec, "cuda", log=log)
+    t10 = time.perf_counter() - t0
+    log(f"phase 10(d) ({t10:.1f} s) on {smi}")
     del dec
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
@@ -1308,10 +1716,21 @@ def main(argv):
         log(f"facade ({time.perf_counter() - t0:.1f} s) on {smi}: "
             + json.dumps(fres, default=float))
         t0 = time.perf_counter()
+        dec3 = held.pop("decoder")
         mres = modes(work, "cuda", log=log, hmm=os.path.join(work, "hmm"),
-                     dec3=held.pop("decoder"))
+                     dec3=dec3)
         log(f"phase 8 ({time.perf_counter() - t0:.1f} s) on {smi}: "
             + json.dumps(mres, default=float))
+        t0 = time.perf_counter()
+        # phase 7's decoder is 10(a)'s reference, over the same files
+        cres = cli_20k(work, "cuda", log=log, hmm=os.path.join(work, "hmm"),
+                       dec=dec3, cmn0=held.pop("cmn0"))[0]
+        t1 = time.perf_counter()
+        f20 = flat_20k(dec3, "cuda", log=log)
+        del dec3
+        t10 += time.perf_counter() - t0
+        log(f"phase 10(a) ({t1 - t0:.1f} s), 10(c) "
+            f"({time.perf_counter() - t1:.1f} s) on {smi}")
     with tempfile.TemporaryDirectory() as work:
         t9 = t0 = time.perf_counter()
         ref = reference_scale(work, "cuda", log=log,
@@ -1322,6 +1741,24 @@ def main(argv):
         batch_cli(work, "cuda", log=log)
         log(f"phase 9(e) ({time.perf_counter() - t0:.1f} s) on {smi}; "
             f"phase 9 {time.perf_counter() - t9 + top_s:.1f} s with (d)")
+        t0 = time.perf_counter()
+        hmm17 = os.path.join(work, "hmm_cli")        # phase 9(e)'s model
+        cli_1k7(work, "cuda", log=log, hmm=hmm17)
+        t1 = time.perf_counter()
+        f17 = flat_1k7(work, "cuda", log=log, hmm=hmm17)
+        t10 += time.perf_counter() - t0
+        log(f"phase 10(a') ({t1 - t0:.1f} s), 10(b) "
+            f"({time.perf_counter() - t1:.1f} s); phase 10 {t10:.1f} s "
+            f"on {smi}")
+    log(f"phase 10: cli single {cres['single']['seconds']:.2f} s, live "
+        f"{cres['live']['seconds']:.2f} s at 20k (builds included); flat "
+        f"1.7k B={f17['batch']} {f17['ms_per_frame']:.3f} ms/frame, peak "
+        f"{f17['peak_mem_bytes'] / 2**30:.3f} GiB; flat 20k B=1 "
+        f"{f20['b1_ms_per_frame']:.3f} ms/frame, peak "
+        f"{f20['b1_peak_mem_bytes'] / 2**30:.3f} GiB (B=2 "
+        f"{f20['b2_ms_per_frame']:.3f} ms/frame, peak "
+        f"{f20['b2_peak_mem_bytes'] / 2**30:.3f} GiB); top-K guard counts "
+        f"{[u['guard'] for u in topk['utts']]} on {smi}")
     co = ref["corpus"]
     log(f"126k: {co['audio_s_per_s']:.2f} audio-s/s (median of "
         f"{[round(r, 2) for r in co['runs']]}), scan "
@@ -1347,12 +1784,14 @@ def main(argv):
                             replaces=rep,
                             launches=res["launches"][name],
                             facade_launches=fres["launches"][name],
+                            cli_launches=cres["single"]["launches"][name]
+                            + cres["live"]["launches"][name],
                             library_ms=None, **r,
                             **(nst5 if name == "chain" else {})))
     for k in kernels[:2]:              # the same kernels at the 126k shapes
         kernels.append(dict(
             k, name=k["name"] + "_126k", launches=co["launches"][k["name"]],
-            facade_launches=0, **ref[k["name"]]))
+            facade_launches=0, cli_launches=0, **ref[k["name"]]))
         for key in [x for x in k if x.startswith("nst5")]:
             del kernels[-1][key]
     print(json.dumps({"kernels": kernels}), flush=True)

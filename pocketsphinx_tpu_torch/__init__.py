@@ -26,13 +26,19 @@ torch.set_float32_matmul_precision("highest")
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless `device` says
-    otherwise.  Raises when CUDA was implied but is not available."""
+    otherwise.  A CUDA device without an index is the current card
+    (`torch.cuda.current_device()`), so a search built on it stays on that
+    card whatever card is current later.  Raises when CUDA was implied but
+    is not available."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def __getattr__(name):

@@ -19,9 +19,10 @@ each LM of a set, 3- or 5-state models), `fsg` and `jsgf` (grammars),
 `keyphrase` and `kws` (keyword spotting), `allphone`, and forced
 alignment (`add_align_text`), with `update_mllr`.  As in the JAX
 package, only the n-gram search streams; the others buffer the PCM and
-decode at `end_utt`.  `PS_NGRAM_IMPL=flat` raises NotImplementedError
-naming its ROADMAP item.  One extension: `decode_senscr` also aligns
-(the JAX decoder's aligner scores features only).
+decode at `end_utt`.  `PS_NGRAM_IMPL=flat` selects the dense flat search
+(`search.ngram_flat`, the fused search's exactness oracle) for the LM
+searches.  One extension: `decode_senscr` also aligns (the JAX decoder's
+aligner scores features only).
 """
 
 from __future__ import annotations
@@ -206,11 +207,10 @@ class Decoder:
         if isinstance(lm_or_path, str):
             lm = read_lm(lm_or_path, lw=self.config["lw"],
                          wip=self.config["wip"])
+        Impl = NgramFusedDecoder
         if os.environ.get("PS_NGRAM_IMPL", "fused") == "flat":
-            raise NotImplementedError(
-                "PS_NGRAM_IMPL=flat is not ported to pocketsphinx_tpu_torch "
-                "yet (ROADMAP.md §1 queue: search/ngram_flat.py)")
-        self._searches[name] = NgramFusedDecoder(
+            from .search.ngram_flat import NgramFlatDecoder as Impl
+        self._searches[name] = Impl(
             self.am, self.d2p, lm,
             silprob=self.config["silprob"],
             fillprob=self.config["fillprob"],
@@ -417,7 +417,7 @@ class Decoder:
     # -- streaming (incremental) decode -------------------------------------
 
     def _stream_capable(self) -> bool:
-        """Only the n-gram search streams (its `with_carry`); the others
+        """Only the n-gram searches stream (their `with_carry`); the others
         decode the buffered PCM at `end_utt`."""
         return (self._active is not None
                 and hasattr(self._searches[self._active], "with_carry")

@@ -261,6 +261,19 @@ def read_mixw_quantized(path: str, mixwfloor: float,
     return MixtureWeights(mixw=np.ascontiguousarray(q.transpose(1, 2, 0)), n_sen=n_sen)
 
 
+def read_mixw_float(path: str, mixwfloor: float) -> np.ndarray:
+    """Float mixture weights (normalized+floored, linear domain)
+    shaped [n_sen, n_feat, n_comp] — used by the continuous scorer's float
+    path and by senone_init-equivalent loading."""
+    hdr, n_sen, n_feat, n_comp, pdf = _read_mixw_raw(path)
+    pdf = pdf.astype(np.float64)
+    s = pdf.sum(axis=-1, keepdims=True)
+    pdf = np.divide(pdf, s, out=pdf, where=s > 0)
+    pdf = np.maximum(pdf, mixwfloor)
+    pdf /= pdf.sum(axis=-1, keepdims=True)
+    return pdf
+
+
 def _read_mixw_raw(path: str):
     f = S3File(path)
     n_sen = f.read_int32()

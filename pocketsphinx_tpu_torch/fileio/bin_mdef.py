@@ -267,6 +267,141 @@ def read_text_mdef(path: str) -> BinMdef:
     return m
 
 
+def _build_cd_tree(m: BinMdef):
+    """Construct the 4-level context-decision tree (wpos -> base -> lc ->
+    rc leaf) from the phone arrays, with the reference's node layout
+    (bin_mdef_read_text, src/bin_mdef.c:156-255): all wpos nodes first,
+    then all base nodes, then all lc nodes, then the rc leaves.  The
+    reference builds its per-(wpos, base) lc/rc linked lists by
+    prepending (src/mdef.c:149-167), so list order is the reverse of
+    first appearance in the text mdef; we reproduce that to keep
+    text->binary conversion byte-compatible."""
+    n_ci = m.n_ciphone
+    # per (wpos, ci): ordered {lc: [(rc, pid)]}
+    table = [[{} for _ in range(n_ci)] for _ in range(N_WORD_POSN)]
+    for p in range(n_ci, m.n_phone):
+        lcs = table[int(m.phone_wpos[p])][int(m.phone_ci[p])]
+        lcs.setdefault(int(m.phone_lc[p]), []).append((int(m.phone_rc[p]), p))
+    ctx, n_down, down = [], [], []
+
+    def add(c, nd, dn):
+        ctx.append(c)
+        n_down.append(nd)
+        down.append(dn)
+
+    # index bases per level
+    ci_base = N_WORD_POSN
+    lc_base = ci_base + N_WORD_POSN * n_ci
+    n_lc = sum(len(table[i][j]) for i in range(N_WORD_POSN)
+               for j in range(n_ci))
+    rc_base = lc_base + n_lc
+    for i in range(N_WORD_POSN):
+        add(i, n_ci, ci_base + i * n_ci)
+    lc_idx, rc_idx = lc_base, rc_base
+    lc_nodes, rc_nodes = [], []
+    for i in range(N_WORD_POSN):
+        for j in range(n_ci):
+            lcs = table[i][j]
+            if not lcs:
+                add(j, 0, -1)
+                continue
+            add(j, len(lcs), lc_idx)
+            for lc, rcs in reversed(list(lcs.items())):
+                lc_nodes.append((lc, len(rcs), rc_idx))
+                for rc, pid in reversed(rcs):
+                    rc_nodes.append((rc, 0, pid))
+                    rc_idx += 1
+                lc_idx += 1
+    for node in lc_nodes + rc_nodes:
+        add(*node)
+    m.cd_ctx = np.asarray(ctx, np.int16)
+    m.cd_n_down = np.asarray(n_down, np.int16)
+    m.cd_down = np.asarray(down, np.int32)
+
+
+_HDR_TEXT = (b"pocketsphinx-tpu binary mdef: header counts, NUL-separated "
+             b"CI phone names, cd_tree {i16 ctx, i16 n_down, i32 pid/down}, "
+             b"phones {i32 ssid, i32 tmat, u8 info[4]}, i32 sseq_size, "
+             b"u16 sseq[]\0")
+
+
+def write_bin_mdef(m: BinMdef, path: str):
+    """Binary BMDF writer (bin_mdef_write, src/bin_mdef.c:524-602);
+    output loads in the reference (header text is skipped on read)."""
+    if m.cd_ctx.size == 0:
+        # CI-only models still carry the empty wpos/base scaffold
+        _build_cd_tree(m)
+    hdrlen = (len(_HDR_TEXT) + 3) & ~3
+    out = bytearray()
+    out += np.array([NATIVE_MAGIC, FORMAT_VERSION, hdrlen],
+                    "<i4").tobytes()
+    out += _HDR_TEXT + b"\0" * (hdrlen - len(_HDR_TEXT))
+    out += np.array([m.n_ciphone, m.n_phone, m.n_emit_state, m.n_ci_sen,
+                     m.n_sen, m.n_tmat, m.n_sseq, m.n_ctx, len(m.cd_ctx),
+                     m.sil], "<i4").tobytes()
+    for name in m.ciname:
+        out += name.encode("latin-1") + b"\0"
+    out += b"\0" * (-len(out) % 4)
+    tree = np.zeros(len(m.cd_ctx),
+                    np.dtype([("ctx", "<i2"), ("n_down", "<i2"),
+                              ("down", "<i4")]))
+    tree["ctx"], tree["n_down"], tree["down"] = \
+        m.cd_ctx, m.cd_n_down, m.cd_down
+    out += tree.tobytes()
+    ph = np.zeros(m.n_phone, np.dtype([("ssid", "<i4"), ("tmat", "<i4"),
+                                       ("info", np.uint8, 4)]))
+    ph["ssid"], ph["tmat"] = m.phone_ssid, m.phone_tmat
+    nc = m.n_ciphone
+    ph["info"][:nc, 0] = m.phone_filler[:nc]
+    if m.n_phone > nc:
+        ph["info"][nc:, 0] = m.phone_wpos[nc:]
+        ph["info"][nc:, 1] = m.phone_ci[nc:]
+        ph["info"][nc:, 2] = m.phone_lc[nc:]
+        ph["info"][nc:, 3] = m.phone_rc[nc:]
+    out += ph.tobytes()
+    out += np.array([m.n_sseq * m.n_emit_state], "<i4").tobytes()
+    out += m.sseq.astype("<u2").tobytes()
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def write_text_mdef(m: BinMdef, path: str):
+    """Sphinx-3 text mdef writer (bin_mdef_write_text,
+    src/bin_mdef.c:604-694); field widths match the reference so text
+    output is byte-comparable."""
+    import contextlib
+    import sys
+    with (contextlib.nullcontext(sys.stdout) if path == "-"
+          else open(path, "w")) as f:
+        _write_text_mdef(m, f)
+
+
+def _write_text_mdef(m: BinMdef, f):
+    f.write("0.3\n")
+    f.write(f"{m.n_ciphone} n_base\n")
+    f.write(f"{m.n_phone - m.n_ciphone} n_tri\n")
+    f.write(f"{m.n_phone * (m.n_emit_state + 1)} n_state_map\n")
+    f.write(f"{m.n_sen} n_tied_state\n")
+    f.write(f"{m.n_ci_sen} n_tied_ci_state\n")
+    f.write(f"{m.n_tmat} n_tied_tmat\n")
+    f.write("#\n# Columns definitions\n")
+    f.write("#%4s %3s %3s %1s %6s %4s %s\n"
+            % ("base", "lft", "rt", "p", "attrib", "tmat",
+               "     ... state id's ..."))
+    for p in range(m.n_phone):
+        if p < m.n_ciphone:
+            f.write("%5s %3s %3s %1s" % (m.ciname[p], "-", "-", "-"))
+        else:
+            f.write("%5s %3s %3s %c"
+                    % (m.ciname[m.phone_ci[p]], m.ciname[m.phone_lc[p]],
+                       m.ciname[m.phone_rc[p]], WPOS_NAME[m.phone_wpos[p]]))
+        f.write(" %6s" % ("filler" if m.phone_filler[p] else "n/a"))
+        f.write(" %4d" % m.phone_tmat[p])
+        for s in m.sseq[m.phone_ssid[p]]:
+            f.write(" %6u" % s)
+        f.write(" N\n")
+
+
 def read_bin_mdef(path: str) -> BinMdef:
     with open(path, "rb") as f:
         data = f.read(4)

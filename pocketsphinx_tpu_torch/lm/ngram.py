@@ -626,6 +626,276 @@ def _assemble(order, counts, words, levels) -> NgramModel:
                       lv_next=lv_next[:order])
 
 
+def write_arpa(model: NgramModel, path: str):
+    """ARPA text writer (ngram_model_trie_write_arpa equivalent)."""
+    inv = 1.0 / LOG10_TO_LOG
+
+    def fmt(v):
+        return f"{v * inv:.4f}"
+
+    # reconstruct full id tuples per level
+    paths = [[(w,) for w in range(model.counts[0])]]
+    for lvl in range(1, model.order):
+        par = model._parents(lvl)
+        paths.append([paths[lvl - 1][int(p)] + (int(w),)
+                      for p, w in zip(par, model.lv_words[lvl])])
+    with open(path, "w") as f:
+        f.write("\\data\\\n")
+        for i, c in enumerate(model.counts):
+            f.write(f"ngram {i + 1}={c}\n")
+        for lvl in range(model.order):
+            f.write(f"\n\\{lvl + 1}-grams:\n")
+            has_bo = lvl < model.order - 1
+            for i in range(len(model.lv_words[lvl])):
+                grams = " ".join(model.words[w] for w in paths[lvl][i])
+                line = f"{fmt(model.lv_prob[lvl][i])}\t{grams}"
+                if has_bo and model.lv_bo[lvl][i] != 0.0:
+                    line += f"\t{fmt(model.lv_bo[lvl][i])}"
+                f.write(line + "\n")
+        f.write("\n\\end\\\n")
+
+
+def _write_bits(mem: bytearray, offset: int, nbits: int, value: int):
+    """bitarr_write_int25/57: little-endian bit-field insert."""
+    byte_off = offset >> 3
+    shift = offset & 7
+    cur = int.from_bytes(mem[byte_off:byte_off + 8], "little")
+    cur |= (value & ((1 << nbits) - 1)) << shift
+    mem[byte_off:byte_off + 8] = cur.to_bytes(8, "little")
+
+
+def write_trie_bin(model: NgramModel, path: str):
+    """Write the bit-packed reverse-trie .lm.bin format
+    (lm_trie_write_bin, src/lm/lm_trie.c:437-460): the inverse of
+    read_trie_bin, readable by the reference binary.
+
+    Quantization bins hold the sorted unique prob/backoff values per
+    level (exact when <= 2^16 distinct values, else quantile bins)."""
+    order = model.order
+    counts = [len(model.lv_words[l]) for l in range(order)]
+    V = counts[0]
+
+    # reconstruct forward tuples, then regroup as the reverse trie:
+    # level l>=1 entry (h_l ... h_1 w): parent = (h_{l-1} ... h_1 w).
+    paths = [[(w,) for w in range(V)]]
+    for lvl in range(1, order):
+        par = model._parents(lvl)
+        paths.append([paths[lvl - 1][int(p)] + (int(w),)
+                      for p, w in zip(par, model.lv_words[lvl])])
+
+    def rev_key(ids):
+        # forward (h_k ... h_1, w) -> trie path (w, h_1, ..., h_k)
+        return (ids[-1],) + tuple(reversed(ids[:-1]))
+
+    # order entries per level by (parent trie path, context key)
+    lv_entries = []   # per level: list of (rev_path, prob, bo, fwd_index)
+    for lvl in range(order):
+        ents = []
+        for i in range(counts[lvl]):
+            rp = rev_key(paths[lvl][i])
+            ents.append((rp, float(model.lv_prob[lvl][i]),
+                         float(model.lv_bo[lvl][i]), i))
+        ents.sort(key=lambda e: e[0])
+        lv_entries.append(ents)
+
+    def make_bins(values):
+        u = np.unique(np.asarray(values, np.float32))
+        if len(u) > (1 << 16):
+            qs = np.quantile(u, np.linspace(0, 1, 1 << 16))
+            u = np.unique(qs.astype(np.float32))
+        bins = np.full(1 << 16, u[-1] if len(u) else 0.0, np.float32)
+        bins[:len(u)] = u
+        return bins
+
+    def encode(bins, v):
+        # lower_bound (lm_trie_quant bins_encode)
+        return int(np.searchsorted(bins, np.float32(v), side="left"))
+
+    out = bytearray()
+    out += b"Trie Language Model"
+    out += bytes([order])
+    for c in counts:
+        out += np.array([c], "<u4").tobytes()
+    quant_parts = []
+    mid_bins = []
+    for lvl in range(1, order - 1):
+        pb = make_bins([e[1] for e in lv_entries[lvl]])
+        bb = make_bins([e[2] for e in lv_entries[lvl]])
+        mid_bins.append((pb, bb))
+        quant_parts += [pb, bb]
+    longest_bins = make_bins([e[1] for e in lv_entries[order - 1]]) \
+        if order > 1 else None
+    if order > 1:
+        quant_parts.append(longest_bins)
+        out += np.array([1], "<i4").tobytes()   # quant type
+        for q in quant_parts:
+            out += q.astype("<f4").tobytes()
+
+    # child ranges: entries of level l+1 grouped under level-l rev path
+    child_begin = []
+    for lvl in range(order - 1):
+        parent_pos = {e[0]: k for k, e in enumerate(lv_entries[lvl])}
+        nxt = np.zeros(counts[lvl] + 1, np.int64)
+        for e in (lv_entries[lvl + 1] if lvl + 1 < order else []):
+            nxt[parent_pos[e[0][:-1]] + 1] += 1
+        child_begin.append(np.cumsum(nxt))
+
+    # unigrams: trie order == word id order (rev path = (w,))
+    uni = np.zeros(V + 1, dtype=np.dtype([("prob", "<f4"), ("bo", "<f4"),
+                                          ("next", "<u4")]))
+    for k, e in enumerate(lv_entries[0]):
+        uni["prob"][k] = e[1]
+        uni["bo"][k] = e[2]
+    if order > 1:
+        uni["next"][:V + 1] = child_begin[0]
+    out += uni.tobytes()
+
+    word_bits = _required_bits(V)
+    for lvl in range(1, order):
+        n = counts[lvl]
+        is_longest = (lvl == order - 1)
+        if is_longest:
+            quant_bits, next_bits = 16, 0
+        else:
+            quant_bits, next_bits = 32, _required_bits(counts[lvl + 1])
+        total_bits = word_bits + quant_bits + next_bits
+        nbytes = ((1 + n) * total_bits + 7) // 8 + 8
+        mem = bytearray(nbytes)
+        for k, e in enumerate(lv_entries[lvl]):
+            off = k * total_bits
+            key = e[0][-1]          # deepest context word
+            _write_bits(mem, off, word_bits, key)
+            if is_longest:
+                _write_bits(mem, off + word_bits, 16,
+                            encode(longest_bins, e[1]))
+            else:
+                pb, bb = mid_bins[lvl - 1]
+                _write_bits(mem, off + word_bits, 16, encode(bb, e[2]))
+                _write_bits(mem, off + word_bits + 16, 16,
+                            encode(pb, e[1]))
+                _write_bits(mem, off + word_bits + quant_bits, next_bits,
+                            int(child_begin[lvl][k]))
+        if not is_longest:
+            _write_bits(mem, n * total_bits + word_bits + quant_bits,
+                        next_bits, int(child_begin[lvl][n]))
+        out += bytes(mem)
+    words_blob = b"\0".join(w.encode("utf-8") for w in model.words) + b"\0"
+    out += np.array([len(words_blob)], "<i4").tobytes()
+    out += words_blob
+    with open(path, "wb") as f:
+        f.write(out)
+
+
+def write_dmp(model: NgramModel, path: str):
+    """Legacy Sphinx DMP ("Darpa Trigram LM") binary *writer* — the
+    inverse of read_dmp, producing files the reference binary reads
+    (ngram_model_trie_read_dmp, src/lm/ngram_model_trie.c:489-690 +
+    ngrams_raw_read_dmp, src/lm/ngrams_raw.c:236-360).
+
+    Divergence note: the reference's own lm_convert advertises
+    `-ofmt dmp` (programs/pocketsphinx_lm_convert.c:102-103) but its
+    ngram_model_write supports only ARPA/BIN
+    (src/lm/ngram_model.c:185-206) — DMP *write* is dead code there.
+    This writer restores the full three-way conversion; correctness is
+    checked by round-trip through read_dmp and by score parity.
+
+    Format limits (inherent to DMP): trigram max order, 16-bit word ids
+    (vocab < 65536), 16-bit quantized prob/backoff tables (values beyond
+    2^16 distinct are quantile-binned), 512-entry trigram segment bases
+    with 16-bit relative offsets."""
+    order = model.order
+    if order > 3:
+        raise ValueError("DMP format supports at most trigram models")
+    counts = [len(model.lv_words[l]) for l in range(order)]
+    V = counts[0]
+    if V >= (1 << 16):
+        raise ValueError("DMP format limits vocabulary to 65535 words")
+    bcount = counts[1] if order > 1 else 0
+    tcount = counts[2] if order > 2 else 0
+    inv = np.float32(1.0 / LOG10_TO_LOG)
+
+    def quant_table(vals32):
+        """Unique-value table + u16 index per entry (quantile-binned to
+        nearest when > 2^16 distinct, like lm_trie_quant training)."""
+        u = np.unique(vals32)
+        if len(u) > (1 << 16):
+            q = np.unique(np.quantile(
+                u, np.linspace(0, 1, 1 << 16)).astype(np.float32))
+            u = q
+        idx = np.searchsorted(u, vals32)
+        idx = np.clip(idx, 0, len(u) - 1)
+        # snap to nearest of the two neighbors
+        lo = np.clip(idx - 1, 0, len(u) - 1)
+        idx = np.where(np.abs(u[lo] - vals32) < np.abs(u[idx] - vals32),
+                       lo, idx)
+        return u.astype(np.float32), idx.astype(np.uint16)
+
+    out = bytearray()
+    hdr = b"Darpa Trigram LM\0"
+    out += np.array([len(hdr)], "<u4").tobytes() + hdr
+    name = (path.rsplit("/", 1)[-1]).encode() + b"\0"
+    out += np.array([len(name)], "<i4").tobytes() + name
+    # version block: version <= 0 => timestamp + format strings until 0
+    out += np.array([-7, 0, 0], "<i4").tobytes()   # version, ts, end-of-fmt
+    out += np.array([V, bcount, tcount], "<i4").tobytes()
+
+    p1 = (model.lv_prob[0].astype(np.float32) * inv)
+    b1 = (model.lv_bo[0].astype(np.float32) * inv)
+    unext = (model.lv_next[0].astype(np.int64) if order > 1
+             else np.zeros(V + 1, np.int64))
+    uni = np.zeros(V + 1, np.dtype([("mapid", "<i4"), ("prob", "<f4"),
+                                    ("bo", "<f4"), ("next", "<i4")]))
+    uni["mapid"][:V] = np.arange(V)
+    uni["mapid"][V] = -1
+    uni["prob"][:V] = p1
+    uni["bo"][:V] = b1
+    uni["next"] = unext
+    out += uni.tobytes()
+
+    if order > 1:
+        prob2_tab, p2i = quant_table(
+            model.lv_prob[1].astype(np.float32) * inv)
+        if order > 2:
+            bo2_tab, b2i = quant_table(
+                model.lv_bo[1].astype(np.float32) * inv)
+            prob3_tab, p3i = quant_table(
+                model.lv_prob[2].astype(np.float32) * inv)
+            tnext_abs = model.lv_next[1].astype(np.int64)   # [bcount+1]
+            tseg = tnext_abs[np.arange(0, bcount + 1, 1 << 9)]
+            next_rel = tnext_abs - tseg[np.arange(bcount + 1) >> 9]
+            if next_rel.max(initial=0) >= (1 << 16):
+                raise ValueError("DMP trigram segment overflow "
+                                 "(>65535 trigrams in a 512-bigram block)")
+        else:
+            b2i = np.zeros(bcount, np.uint16)
+            next_rel = np.zeros(bcount + 1, np.int64)
+        bg = np.zeros(bcount + 1, np.dtype([("wid", "<u2"), ("p", "<u2"),
+                                            ("b", "<u2"), ("next", "<u2")]))
+        bg["wid"][:bcount] = model.lv_words[1].astype(np.uint16)
+        bg["p"][:bcount] = p2i
+        bg["b"][:bcount] = b2i
+        bg["next"] = next_rel.astype(np.uint16)
+        out += bg.tobytes()
+        if order > 2:
+            tg = np.zeros(tcount, np.dtype([("wid", "<u2"), ("p", "<u2")]))
+            tg["wid"] = model.lv_words[2].astype(np.uint16)
+            tg["p"] = p3i
+            out += tg.tobytes()
+        out += np.array([len(prob2_tab)], "<i4").tobytes() \
+            + prob2_tab.tobytes()
+        if order > 2:
+            out += np.array([len(bo2_tab)], "<i4").tobytes() \
+                + bo2_tab.tobytes()
+            out += np.array([len(prob3_tab)], "<i4").tobytes() \
+                + prob3_tab.tobytes()
+            out += np.array([len(tseg)], "<i4").tobytes() \
+                + tseg.astype("<i4").tobytes()
+    words_blob = b"\0".join(w.encode("utf-8") for w in model.words) + b"\0"
+    out += np.array([len(words_blob)], "<i4").tobytes() + words_blob
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
 def read_dmp(path: str) -> NgramModel:
     """Legacy Sphinx DMP ("Darpa Trigram LM") binary reader
     (ngram_model_trie_read_dmp, src/lm/ngram_model_trie.c:489-690 +

@@ -120,7 +120,7 @@ def make_mesh(n_data: int | None = None, n_model: int = 1, device=None):
 
 
 def _same(a: torch.device, b: torch.device) -> bool:
-    return a.type == b.type and (a.index or 0) == (b.index or 0)
+    return resolve_device(a) == resolve_device(b)
 
 
 def replicas(search, devices) -> list:

@@ -270,6 +270,34 @@ def make_pcm(seed: int, seconds: float, samprate: int = 16000) -> np.ndarray:
     return np.clip(x, -32768, 32767).astype(np.int16)
 
 
+def bursts_pcm(seed: int, seconds: float, samprate: int = 16000,
+               level: float = 4000.0) -> np.ndarray:
+    """Seeded int16 PCM for the VAD and the `live` command: loud voiced
+    bursts (0.5-1.2 s of harmonic tones with gliding pitch at `level`,
+    over noise) between gaps of 0.7-1.2 s, the gaps in turn digital
+    silence and quiet noise, after a quiet lead-in."""
+    rng = np.random.default_rng(seed)
+    n = int(seconds * samprate)
+    x = np.zeros(n)
+    pos = int(rng.uniform(0.3, 0.6) * samprate)
+    x[:pos] = rng.normal(0.0, 20.0, pos)
+    quiet = False
+    while pos < n:
+        end = min(pos + int(rng.uniform(0.5, 1.2) * samprate), n)
+        tt = np.arange(end - pos) / samprate
+        f0 = rng.uniform(100, 220) * (1 + 0.15 * np.sin(
+            2 * np.pi * tt * rng.uniform(1, 3)))
+        phase = 2 * np.pi * np.cumsum(f0) / samprate
+        env = np.minimum(1.0, np.minimum(tt, tt[-1] - tt) / 0.02)
+        voiced = sum(np.sin(k * phase) / k for k in range(1, 11))
+        x[pos:end] = level * env * voiced + rng.normal(0.0, 200.0, end - pos)
+        pos = min(end + int(rng.uniform(0.7, 1.2) * samprate), n)
+        if quiet:
+            x[end:pos] = rng.normal(0.0, 20.0, pos - end)
+        quiet = not quiet
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
 def write_arpa(words, path: str, seed: int = 0, p_bigram: float = 0.3,
                p_context: float = 0.2, max_tri: int = 4, order: int = 3):
     """A seeded ARPA trigram LM over `words` (+ <s>, </s>): random

@@ -173,7 +173,7 @@ def test_decode_corpus_cards(cuda, tmp_path):
         dec, fe, mesh=make_mesh(n_data=1)).decode_corpus(pcms, batch_size=4))
     pipe = BatchDecodePipeline(dec, fe)
     assert pipe.data_parallelism == n_cards
-    assert {r.device.index or 0 for r in pipe.replicas} == set(range(n_cards))
+    assert {r.device.index for r in pipe.replicas} == set(range(n_cards))
     # four rows per card: the one-card run's batches, so the same GEMM shapes
     assert chip_smoke._results(pipe.decode_corpus(
         pcms, batch_size=4 * n_cards)) == one
@@ -181,6 +181,79 @@ def test_decode_corpus_cards(cuda, tmp_path):
     assert (two.dev_score.index, two.dev_scan.index) == (0, 1)
     assert chip_smoke._results(two.decode_corpus(pcms, micro_batch=4)) == one
     assert any(h for h, _ in one)
+
+
+def test_decode_corpus_current_card(cuda, tmp_path):
+    """With two or more cards: a decoder built with card 1 current lives on
+    card 1 and stays there once card 0 is current again; its
+    `decode_corpus` on card 1 equals the one-card result on card 0."""
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
+    from pocketsphinx_tpu_torch.parallel.batch import Mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=40, seed=1)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=2)
+    spec = synth.make_model([dic], seed=3, n_sen=126 + 300, n_density=16)
+    dec0 = synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=16,
+                               device="cuda:0")
+    with torch.cuda.device(1):
+        dec1 = synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=16)
+    assert dec1.device == torch.device("cuda", 1)
+    fe = chip_smoke.en_us_frontend()
+    pcms = [synth.make_pcm(80 + i, 0.8 + 0.1 * i) for i in range(5)]
+    one = chip_smoke._results(BatchDecodePipeline(
+        dec0, fe, mesh=make_mesh(n_data=1)).decode_corpus(pcms, batch_size=4))
+    pipe = BatchDecodePipeline(dec1, fe, mesh=Mesh([["cuda:1"]]))
+    assert pipe.replicas[0] is dec1
+    assert chip_smoke._results(pipe.decode_corpus(pcms, batch_size=4)) == one
+    assert any(h for h, _ in one)
+
+
+def test_flat_cuda_equals_cpu(cuda, tmp_path):
+    """The flat search on CUDA: a decode and a B=3 batch of unequal
+    lengths give the CPU's records, hypotheses and segments."""
+    from pocketsphinx_tpu_torch import Decoder
+    from pocketsphinx_tpu_torch.lm.ngram import read_lm
+    from pocketsphinx_tpu_torch.search.ngram_flat import NgramFlatDecoder
+    hmm, dic, lmf = synth.small_task(str(tmp_path), seed=7)
+    d = Decoder(hmm=hmm, dict=dic, device="cpu")
+    cpu = NgramFlatDecoder(d.am, d.d2p, read_lm(lmf, lw=6.5, wip=0.65),
+                           device="cpu")
+    dev = cpu.to(cuda)
+    rng = np.random.default_rng(31)
+    costs = rng.uniform(0, 400, (3, 60, d.am.n_sen)).astype(np.float32)
+    costs[:, 25] = 200.0
+    nf = [60, 41, 17]
+    key = lambda s: [(x.word, x.start, x.end) for x in s]  # noqa: E731
+    one = [f.decode(None, costs=costs[0]) for f in (dev, cpu)]
+    assert one[0][0] == one[1][0] and key(one[0][1]) == key(one[1][1])
+    for a, b in zip(dev.records, cpu.records):
+        np.testing.assert_array_equal(a, b)
+    outs = [f.decode_batch(None, nf, costs=costs) for f in (dev, cpu)]
+    for b, n in enumerate(nf):
+        assert outs[0][b][0] == outs[1][b][0]
+        assert key(outs[0][b][1]) == key(outs[1][b][1])
+        for x, y in zip(dev.batch_records[b], cpu.batch_records[b]):
+            np.testing.assert_array_equal(x[:n], y[:n])
+    assert one[0][0]
+
+
+def test_cli_single_cuda_equals_cpu(cuda, tmp_path, capsys):
+    """`cli.main(["single", ...])` on CUDA, by default and asked for,
+    prints the CPU's JSON line, and the kernels launch."""
+    from pocketsphinx_tpu_torch import cli
+    hmm, dic, lmf = synth.small_task(str(tmp_path), seed=7)
+    wav = chip_smoke._write_wav(str(tmp_path / "a.wav"),
+                                synth.make_pcm(41, 1.5))
+    argv = ["-hmm", hmm, "-dict", dic, "-lm", lmf, "single", wav]
+    out = []
+    for device in ("cpu", None, cuda):
+        n = fan.launches
+        assert cli.main(argv, device=device) == 0
+        out.append(capsys.readouterr().out)
+        assert (fan.launches > n) == (device != "cpu")
+    assert out[0] == out[1] == out[2] and '"t": ' in out[0]
 
 
 def _row_carry(dec, carry, B, b):

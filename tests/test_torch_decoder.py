@@ -15,7 +15,8 @@ feat.params), a 40-word dictionary and a seeded ARPA trigram LM:
   * the rest of the API: `add_word` + re-decode, `lookup_word`,
     `get_cmn` / `set_cmn` across two utterances, the no-search error,
     the JAX decoder's errors for bad grammar, keyword and align calls,
-    and NotImplementedError for `PS_NGRAM_IMPL=flat`;
+    and `PS_NGRAM_IMPL=flat` (the flat search's first pass, best path and
+    lattice equal to the JAX decoder's);
   * every other search mode through the constructor (`-fsg`, `-jsgf`,
     `-keyphrase`, `-kws`, `-allphone` CI with a phone LM and triphone
     without) and `add_align_text`: `decode_senscr` hyps and segments
@@ -217,9 +218,26 @@ def test_lookup_and_errors(task, decoders, monkeypatch):
         with pytest.raises(KeyError, match="Unknown word"):
             d.add_align_text("x")
         assert sorted(d._searches) == ["_default"]
+    # PS_NGRAM_IMPL=flat: the flat search decodes the same costs to the
+    # same first pass, best path and lattice as the JAX decoder's
     monkeypatch.setenv("PS_NGRAM_IMPL", "flat")
-    with pytest.raises(NotImplementedError, match="ngram_flat"):
-        pd.add_lm("flat", lmf)
+    costs = np.random.default_rng(15).uniform(
+        0, 400, (80, pd.am.n_sen)).astype(np.float32)
+    res = []
+    for d in decoders:
+        d.add_lm("flat", lmf)
+        d.activate_search("flat")
+        try:
+            d.decode_senscr(costs)
+            res.append((_hyp(d), _segs(d, post=True),
+                        _lists(d.get_lattice())))
+        finally:
+            d.activate_search("_default")
+            d.remove_search("flat")
+    assert res[0] == res[1]
+    assert res[1][0][0] and res[1][0][2] < 1.0
+    assert type(pd.add_lm("flat", lmf)).__name__ == "NgramFlatDecoder"
+    pd.remove_search("flat")
 
 
 def test_device_defaults_to_cuda(task, monkeypatch):

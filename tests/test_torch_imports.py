@@ -140,6 +140,37 @@ def test_corpus_modules_import_alone():
     assert r.returncode == 0, r.stderr
 
 
+def test_cli_modules_import_alone():
+    """The CLI, the compat API, the VAD, the host tools, the flat search
+    and the int-parity scorer, and `chip_smoke.py`'s phase 10, load with
+    JAX and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pocketsphinx_tpu'] = None\n"
+        "from pocketsphinx_tpu_torch import cli, compat, cli_tools\n"
+        "from pocketsphinx_tpu_torch.vad import Vad, Endpointer\n"
+        "from pocketsphinx_tpu_torch.vad.webrtc import VadCore\n"
+        "from pocketsphinx_tpu_torch.lm.arpabo import ArpaBoLM, to_textgrid\n"
+        "from pocketsphinx_tpu_torch.lm.ngram import write_arpa, "
+        "write_trie_bin, write_dmp\n"
+        "from pocketsphinx_tpu_torch.fileio.bin_mdef import write_bin_mdef, "
+        "write_text_mdef\n"
+        "from pocketsphinx_tpu_torch.fileio.acoustic import read_mixw_float\n"
+        "from pocketsphinx_tpu_torch.models.chains import "
+        "append_word_chain_mpx\n"
+        "from pocketsphinx_tpu_torch.search.ngram_flat import "
+        "NgramFlatDecoder\n"
+        "from pocketsphinx_tpu_torch.ops.senone_parity import "
+        "PTMParityScorer\n"
+        "import chip_smoke\n"
+        "chip_smoke.cli_20k, chip_smoke.cli_1k7, chip_smoke.flat_1k7, "
+        "chip_smoke.flat_20k, chip_smoke.topk_exact\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_corpus_entry_points_default_to_cuda(monkeypatch, capsys):
     """The mesh, and so the corpus pipeline, and the batch CLI run on CUDA
     unless asked for the CPU."""
@@ -169,7 +200,7 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     spec = synth.make_model([dic], n_sen=126 + 60, n_density=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         synth.build_decoder(spec, str(tmp_path), dic, lmf)
-    # the grammar, keyword, allphone and align searches too
+    # the grammar, keyword, allphone, align and flat searches too
     from pocketsphinx_tpu_torch.fileio.dictionary import Dictionary
     from pocketsphinx_tpu_torch.lm.fsg import FsgModel
     from pocketsphinx_tpu_torch.models.dict2pid import Dict2Pid
@@ -182,12 +213,27 @@ def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     word = d2p.dict.wordstr(0)
     fsg = FsgModel("g", 2, 0, 1)
     fsg.trans_add(0, 1, 0.0, fsg.word_add(word))
+    from pocketsphinx_tpu_torch.lm.ngram import read_lm
+    from pocketsphinx_tpu_torch.search.ngram_flat import NgramFlatDecoder
     for make in (lambda: FsgDecoder(am, d2p, fsg),
                  lambda: KwsDecoder(am, d2p, [(word, 1e-30)]),
-                 lambda: AllphoneDecoder(am), lambda: Aligner(am, d2p)):
+                 lambda: AllphoneDecoder(am), lambda: Aligner(am, d2p),
+                 lambda: NgramFlatDecoder(am, d2p, read_lm(lmf))):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     assert len(fsg.links) == 1            # refused before editing the grammar
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_default_card_is_current(monkeypatch):
+    """The default device, and "cuda" without an index, is the card
+    current when it is resolved."""
+    from pocketsphinx_tpu_torch import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert resolve_device() == torch.device("cuda", 1)
+    assert resolve_device("cuda") == torch.device("cuda", 1)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
