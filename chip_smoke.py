@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --tp [--profile]
     python3 chip_smoke.py --ab TREE [TREE ...]
 
 Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
@@ -65,8 +66,8 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    the LM read and decoder build seconds, W, E, the chain buckets, the
    fat rows and SB, and both kernels held bit-equal to their plain
    versions at this decoder's shapes (ties on and off) and timed as in
-   phases 2-3; (b) `BatchDecodePipeline.decode_corpus` of 16 seeded
-   utterances of 2-5 s (two B=8 batches), three times: audio-s/s (the
+   phases 2-3; (b) `BatchDecodePipeline.decode_corpus` on one card of 16
+   seeded utterances of 2-5 s (two B=8 batches), three times: audio-s/s (the
    median), stage seconds, peak memory, the guard count, fan and chain
    launches equal to the frames stepped; then one B=8 batch of short
    utterances, the first 0.5 s long, through `decode_batch`'s minimal
@@ -105,15 +106,41 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    `decode_batch`, ms per frame and peak memory of each; (d)
    `topk_exact`, run right after phase 9(d) on phase 5's decoder: two of
    phase 5's utterances at K=96 and unpruned (K=W), hypotheses, segments
-   and exit records held equal where the K run's guard count is 0.
+   and exit records held equal where the K run's guard count is 0;
+11. tensor parallelism over the mesh's "model" axis (`tensor_parallel`:
+   `decode_corpus` on a mesh whose rows split the scoring by codebooks
+   or senone slots and the scan's word-transition block by the LM
+   tables' entry columns, `NgramFusedDecoder.shard`), once per mesh: the
+   kernels launch once per frame stepped, on the leads; each data row's
+   split costs against the unsplit scoring (largest difference printed,
+   within the scoring tolerance); the (hyp, segments) and the guard
+   count equal the unsplit run's where the costs are equal, and always
+   equal the unsplit search's on the split costs; the first row's
+   minimal records equal the unsplit scan's; audio-s/s, scan ms per
+   frame, peak memory per card, the block's device ms on each part and
+   the per-frame copy ms.  (a) `tp_20k`, right after phase 10(d): phase
+   5's decoder (LM mode B) in two parts on one card
+   (`Mesh([["cuda:0", "cuda:0"]])`), one B=8 batch, beside the unsplit
+   run; (b) `tp_126k`, right after phase 9(c): phase 9's decoder (LM mode
+   C) and its 16 utterances in two parts on one card, against phase
+   9(b)'s first run; (c) with two or more cards, over cards 0 and 1
+   (`make_mesh(1, 2)`); (d) with four, `make_mesh(2, 2)`, 8 utterances
+   per data row.  (c) and (d) print that they were skipped on fewer
+   cards.
 
 Prints the kernels' JSON line (the two kernels at the 20k shapes with
-the main path's launches, phase 7's (`facade_launches`) and phase
-10(a)'s (`cli_launches`), then at the 126k shapes, `*_126k`, with phase
-9(b)'s), then as its last line
+the main path's launches, phase 11(a)'s (`tp_launches`), phase 7's
+(`facade_launches`) and phase 10(a)'s (`cli_launches`), then at the
+126k shapes, `*_126k`, with phase 9(b)'s and phase 11(b)-(d)'s), then as
+its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises; without CUDA it exits non-zero before any
 result.
+
+`--tp` runs phase 11(b)-(d) alone (phase 9's task built and decoded
+once unsplit as their reference), e.g. on a machine with four cards;
+with `--profile` it also profiles (c)'s split scan and the unsplit one
+(each card's busy share).
 
 `--ab TREE [TREE ...]` compares checkouts instead (e.g. the parent
 commit unpacked with `git archive`): for each TREE in the order given,
@@ -850,42 +877,23 @@ def _results(out):
     return [(h, seg_key(segs)) for h, segs in out]
 
 
-def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
-                    n_sen=None, n_density=None, seconds=None, batch=8,
-                    repeats=3, check_seconds=1.0, profile=False):
-    """Phase 9 (a)-(c): the 126k-word task, `lmfile` (default
-    bench-135k.lm.bin) over `synth.dictionary_for_lm` of its vocabulary
-    with `base_dic`'s pronunciations (default bench-20k.dic), a synthetic
-    en-us-shaped model over that dictionary (unless `n_sen` / `n_density`
-    say otherwise), on `device`.  (a) the LM read and decoder build
-    seconds, LM mode C (asserted), the shapes, and on CUDA both kernels
-    held to their plain versions at this decoder's shapes; (b)
-    `BatchDecodePipeline.decode_corpus` of seeded utterances of
-    `seconds` (default 16 of 2-5 s: two B=`batch` batches) `repeats`
-    times: audio-s/s, stage seconds, peak memory, guard count, launches ==
-    frames stepped; then one `check_seconds` utterance decoded on
-    `device` and by the decoder moved to the CPU from one cost matrix,
-    records equal; (c) `TwoStagePipeline` over the same utterances, equal
-    to (b).  With `profile` (CUDA), `profile_scan` of this decoder after
-    (a).  Returns what it measured."""
-    import torch
+def reference_decoder(work, device, lmfile=None, base_dic=None, n_sen=None,
+                      n_density=None):
+    """Phase 9's task: `lmfile` (default bench-135k.lm.bin) over
+    `synth.dictionary_for_lm` of its vocabulary with `base_dic`'s
+    pronunciations (default bench-20k.dic) and a synthetic en-us-shaped
+    model over that dictionary, on `device`.  Returns (decoder, the
+    seconds of the model, the LM read and the decoder build)."""
     from pocketsphinx_tpu_torch.fileio.dictionary import Dictionary
     from pocketsphinx_tpu_torch.lm.ngram import read_lm
-    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
     from pocketsphinx_tpu_torch.models.dict2pid import Dict2Pid
-    from pocketsphinx_tpu_torch.ops import chain, fan
-    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline
-    from pocketsphinx_tpu_torch.parallel.pipeline import TwoStagePipeline
     from pocketsphinx_tpu_torch.search.ngram_fused import NgramFusedDecoder
     from pocketsphinx_tpu_torch.testing import synth
 
     lmfile = lmfile or os.path.join(BENCH, "bench-135k.lm.bin")
     base_dic = base_dic or os.path.join(BENCH, "bench-20k.dic")
-    cuda = torch.device(device).type == "cuda"
     kw = {k: v for k, v in (("n_sen", n_sen), ("n_density", n_density))
           if v is not None}
-
-    # (a) the task and its decoder
     res = {}
     t0 = time.perf_counter()
     dic = synth.dictionary_for_lm(lmfile, base_dic,
@@ -900,6 +908,47 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
     t0 = time.perf_counter()
     dec = NgramFusedDecoder(am, d2p, lm, device=device)
     res["build_s"] = _sync(device) - t0
+    return dec, res
+
+
+def reference_utterances(batch=8):
+    """Phase 9(b)'s utterances: 2 * `batch` seeded ones of 2-5 s."""
+    from pocketsphinx_tpu_torch.testing import synth
+    return [synth.make_pcm(500 + i, s)
+            for i, s in enumerate(np.linspace(2.0, 5.0, 2 * batch))]
+
+
+def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
+                    n_sen=None, n_density=None, seconds=None, batch=8,
+                    repeats=3, check_seconds=1.0, profile=False, hold=None):
+    """Phase 9 (a)-(c): the 126k-word task, `lmfile` (default
+    bench-135k.lm.bin) over `synth.dictionary_for_lm` of its vocabulary
+    with `base_dic`'s pronunciations (default bench-20k.dic), a synthetic
+    en-us-shaped model over that dictionary (unless `n_sen` / `n_density`
+    say otherwise), on `device`.  (a) the LM read and decoder build
+    seconds, LM mode C (asserted), the shapes, and on CUDA both kernels
+    held to their plain versions at this decoder's shapes; (b)
+    `BatchDecodePipeline.decode_corpus` on one card of seeded utterances of
+    `seconds` (default 16 of 2-5 s: two B=`batch` batches) `repeats`
+    times: audio-s/s, stage seconds, peak memory, guard count, launches ==
+    frames stepped; then one `check_seconds` utterance decoded on
+    `device` and by the decoder moved to the CPU from one cost matrix,
+    records equal; (c) `TwoStagePipeline` over the same utterances, equal
+    to (b).  With `profile` (CUDA), `profile_scan` of this decoder after
+    (a).  A dict passed as `hold` receives the decoder, the utterances,
+    (b)'s first result, its guard count and its median scan ms per frame
+    (phase 11's reference).  Returns what it measured."""
+    import torch
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+    from pocketsphinx_tpu_torch.ops import chain, fan
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
+    from pocketsphinx_tpu_torch.parallel.pipeline import TwoStagePipeline
+    from pocketsphinx_tpu_torch.testing import synth
+
+    cuda = torch.device(device).type == "cuda"
+    # (a) the task and its decoder
+    dec, res = reference_decoder(work, device, lmfile, base_dic, n_sen,
+                                 n_density)
     if dec.lm_mode != "csr":
         raise AssertionError(f"LM mode {dec.lm_mode} != csr at V={dec.V}")
     res["shape"] = dict(V=int(dec.V), W=dec.W, n_multi=dec.n_multi,
@@ -920,14 +969,14 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
             res["profile"] = profile_scan(dec, fe, log, batch=batch)
 
     # (b) the corpus pipeline
-    secs = np.linspace(2.0, 5.0, 2 * batch) if seconds is None else seconds
-    pcms = [synth.make_pcm(500 + i, s) for i, s in enumerate(secs)]
+    pcms = (reference_utterances(batch) if seconds is None else
+            [synth.make_pcm(500 + i, s) for i, s in enumerate(seconds)])
     audio_s = sum(len(p) for p in pcms) / fe.samprate
     lens = sorted(len(p) for p in pcms)
     ch = dec.CHUNK
     frames = sum(-(-fe.n_frames(max(lens[i:i + batch])) // ch) * ch
                  for i in range(0, len(lens), batch))
-    pipe = BatchDecodePipeline(dec, fe)
+    pipe = BatchDecodePipeline(dec, fe, mesh=make_mesh(1, device=dec.device))
     fan.reset_launches()
     chain.reset_launches()
     _reset_peak(device)
@@ -998,6 +1047,10 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
     if two != first:
         raise AssertionError("TwoStagePipeline differs from decode_corpus")
     log(f"TwoStagePipeline equals decode_corpus ({res['two_stage_s']:.1f} s)")
+    if hold is not None:
+        hold.update(decoder=dec, pcms=pcms, first=first,
+                    guard=runs[0]["guard_violations"],
+                    scan_ms_per_frame=med["scan_ms_per_frame"])
     return res
 
 
@@ -1441,12 +1494,282 @@ def topk_exact(dec, device, log=print):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: tensor parallelism over the mesh's "model" axis
+# ---------------------------------------------------------------------------
+
+def _parts(n_utts, lens, batch, dp):
+    """`decode_corpus`'s rows: for each batch of `batch` utterances in
+    length order, the utterance indices of each of the `dp` data rows."""
+    order = sorted(range(n_utts), key=lambda i: lens[i])
+    return [[rows.tolist() for rows in np.array_split(
+        np.array(order[i0:i0 + batch]), dp) if len(rows)]
+            for i0 in range(0, n_utts, batch)]
+
+
+def block_times(sp, costs, reps=10):
+    """Device ms of the word-transition block of one frame on each part
+    of `sp`'s "model" group (CUDA events on that part's card), and of the
+    frame's copies to and from the parts off the lead (events on the
+    lead's stream, which waits for them); the exits of the frame come
+    from a short scan of `costs`."""
+    import torch
+    from pocketsphinx_tpu_torch import on_device
+    seen = []
+    inner = sp._transitions
+
+    def spy(*a):
+        seen.append(a)
+        return inner(*a)
+    sp._transitions = spy
+    try:
+        T = min(costs.shape[1], 2 * sp.CHUNK)
+        sp.scan(costs[:, :T], torch.ones(costs.shape[0], T, dtype=torch.bool,
+                                         device=sp.device), minimal=True)
+    finally:
+        del sp._transitions
+    args, wpen = seen[-1][:5], seen[-1][5]
+    lead = sp.device
+
+    def ms(dev, fn):
+        with on_device(dev):
+            fn()
+            torch.cuda.synchronize(dev)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(reps):
+                fn()
+            ev[1].record()
+            torch.cuda.synchronize(dev)
+            return ev[0].elapsed_time(ev[1]) / reps
+
+    shard_ms = []
+    copy_ms = 0.0
+    for dev, tb in sp.tables["columns"]:
+        xs = [x.to(dev) for x in args]
+        shard_ms.append(ms(dev, lambda: sp._columns(tb, *xs, wpen)))
+        if dev != lead:
+            outs = sp._columns(tb, *xs, wpen)
+            torch.cuda.synchronize(dev)
+            copy_ms += ms(lead, lambda: ([x.to(dev) for x in args],
+                                         [o.to(lead) for o in outs]))
+    return shard_ms, copy_ms
+
+
+def tensor_parallel(dec, fe, mesh, pcms, ref, ref_guard, log=print, batch=8,
+                    what=""):
+    """Phase 11: `decode_corpus` of `pcms` through `dec` on `mesh` (a
+    "model" axis), once.  The kernels launch once per frame stepped, on
+    the leads.  The split costs of each data row's batch are held to the
+    unsplit ones (largest difference printed; within the scoring
+    tolerance); where they are equal the (hyp, segments) must equal
+    `ref` (the unsplit run's) and the guard count `ref_guard`, else each
+    row's result must equal the unsplit search's on the split costs.  The
+    first row's minimal records equal the unsplit scan's on the same
+    costs, every record.  Returns audio-s/s, scan ms per frame, peak
+    memory per card and the block's device times per part."""
+    import torch
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+    from pocketsphinx_tpu_torch.ops import chain, fan
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline
+
+    cuda = mesh.devices[0, 0].type == "cuda"
+    cards = sorted({d.index for d in mesh.devices.reshape(-1)}) if cuda \
+        else []
+    t0 = time.perf_counter()
+    pipe = BatchDecodePipeline(dec, fe, mesh=mesh)
+    res = dict(mesh=[[str(d) for d in row] for row in mesh.devices],
+               shard_build_s=time.perf_counter() - t0)
+    lens = [len(p) for p in pcms]
+    parts = _parts(len(pcms), lens, batch, mesh.shape["data"])
+    ch = dec.CHUNK
+    frames = sum(-(-fe.n_frames(max(lens[i] for i in rows)) // ch) * ch
+                 for b in parts for rows in b)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    fan.reset_launches()
+    chain.reset_launches()
+    st = {}
+    t0 = time.perf_counter()
+    out = _results(pipe.decode_corpus(pcms, batch_size=batch, timings=st))
+    for c in cards:
+        torch.cuda.synchronize(c)
+    dt = time.perf_counter() - t0
+    res["launches"] = {"fan": fan.launches, "chain": chain.launches}
+    if cuda and res["launches"] != {"fan": frames, "chain": frames}:
+        raise AssertionError(f"phase 11{what}: launches {res['launches']} "
+                             f"!= frames stepped {frames}")
+    # scan seconds are summed over the data rows, which run at once
+    res.update(audio_s_per_s=sum(lens) / fe.samprate / dt, seconds=dt,
+               scan_ms_per_frame=st["scan"] / frames * 1e3,
+               frames=frames, guard_violations=pipe.guard_violations,
+               peak_mem_bytes={c: torch.cuda.max_memory_allocated(c)
+                               for c in cards}, stages=st)
+    # the costs, and the split search against the unsplit one
+    err, want = 0.0, [None] * len(pcms)
+    for b in parts:
+        for rows, rep in zip(b, pipe.replicas):
+            feats, nf = _row_feats(fe, pcms, rows, rep.device)
+            costs = senone_scores(rep.scoring(), feats, time_chunk=16)
+            whole = senone_scores(dec.am.scoring_tensors(rep.device), feats,
+                                  time_chunk=16)
+            e = float((costs - whole).abs().max())
+            if e:
+                torch.testing.assert_close(costs, whole, atol=2e-2,
+                                           rtol=1e-5)
+            err = max(err, e)
+            got = dec.decode_batch(None, nf, False, costs.to(dec.device))
+            for k, i in enumerate(rows):
+                want[i] = _results([got[k]])[0]
+            if res.get("min_records_equal") is None:
+                valid = (torch.arange(costs.shape[1], device=rep.device)
+                         [None, :] < torch.as_tensor(nf, device=rep.device)
+                         [:, None])
+                a = rep.scan(costs, valid, minimal=True)
+                r = dec.scan(costs.to(dec.device), valid.to(dec.device),
+                             minimal=True)
+                for n, x, y in zip("kv ki etf etgt rank m nviol".split(), a,
+                                   r):
+                    if not torch.equal(x.to(dec.device), y):
+                        raise AssertionError(f"phase 11{what}: minimal "
+                                             f"record {n} differs")
+                res["min_records_equal"] = True
+                if cuda:
+                    res["block_ms"], res["copy_ms"] = block_times(rep, costs)
+    res["cost_max_abs_diff"] = err
+    if err == 0.0 and (out != ref or res["guard_violations"] != ref_guard):
+        raise AssertionError(f"phase 11{what}: split decode_corpus differs "
+                             f"from the unsplit one on equal costs")
+    if out != want:
+        raise AssertionError(f"phase 11{what}: split decode_corpus differs "
+                             f"from the unsplit search on the split costs")
+    res["hyps"] = [h for h, _ in out][:4]
+    log(f"phase 11{what}: " + json.dumps(res, default=float))
+    return res
+
+
+def tp_20k(dec, fe, log=print, batch=8):
+    """Phase 11(a): phase 5's 20k decoder (LM mode B) split in two parts
+    on one card (`Mesh([["cuda:0", "cuda:0"]])`), one B=`batch` batch of
+    phase 5's utterances through `decode_corpus`, held to the unsplit
+    run (`tensor_parallel`); with its scan ms per frame and peak memory
+    beside the unsplit run's."""
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
+    from pocketsphinx_tpu_torch.parallel.batch import Mesh
+    from pocketsphinx_tpu_torch.testing import synth
+    pcms = [synth.make_pcm(10 + i, s) for i, s in
+            enumerate(np.linspace(2.0, 5.0, batch))]
+    dev = str(dec.device)
+    st = {}
+    _reset_peak(dev)
+    pipe = BatchDecodePipeline(dec, fe, mesh=make_mesh(1, device=dec.device))
+    t0 = _sync(dev)
+    ref = _results(pipe.decode_corpus(pcms, batch_size=batch, timings=st))
+    dt = _sync(dev) - t0
+    frames = -(-fe.n_frames(max(len(p) for p in pcms)) // dec.CHUNK) \
+        * dec.CHUNK
+    unsplit = dict(scan_ms_per_frame=st["scan"] / frames * 1e3, seconds=dt,
+                   peak_mem_bytes=_peak(dev))
+    res = tensor_parallel(dec, fe, Mesh([[dev, dev]]), pcms, ref,
+                          pipe.guard_violations, log=log, batch=batch,
+                          what="(a) 20k mode B, one card")
+    res["unsplit"] = unsplit
+    log(f"phase 11(a): scan {res['scan_ms_per_frame']:.3f} ms per B={batch} "
+        f"frame split in two on one card, {unsplit['scan_ms_per_frame']:.3f} "
+        f"unsplit; peak "
+        f"{max(res['peak_mem_bytes'].values(), default=0) / 2**30:.2f} GiB "
+        f"({(unsplit['peak_mem_bytes'] or 0) / 2**30:.2f} unsplit); costs "
+        f"differ by at most {res['cost_max_abs_diff']}")
+    return res
+
+
+def tp_cards(work, log=print, batch=8, profile=False):
+    """`--tp`: phase 11(b)-(d) alone.  Builds phase 9's task, decodes its
+    utterances once unsplit on one card through `decode_corpus` (the
+    reference), then runs `tp_126k`."""
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
+    t0 = time.perf_counter()
+    dec, res = reference_decoder(work, "cuda")
+    fe = en_us_frontend()
+    pcms = reference_utterances(batch)
+    lens = [len(p) for p in pcms]
+    frames = sum(-(-fe.n_frames(max(lens[i] for i in rows)) // dec.CHUNK)
+                 * dec.CHUNK for b in _parts(len(pcms), lens, batch, 1)
+                 for rows in b)
+    pipe = BatchDecodePipeline(dec, fe, mesh=make_mesh(1, device=dec.device))
+    st = {}
+    first = _results(pipe.decode_corpus(pcms, batch_size=batch, timings=st))
+    held = dict(decoder=dec, pcms=pcms, first=first,
+                guard=pipe.guard_violations,
+                scan_ms_per_frame=st["scan"] / frames * 1e3)
+    log(f"--tp: 126k task built and decoded unsplit in "
+        f"{time.perf_counter() - t0:.1f} s ({json.dumps(res)}), scan "
+        f"{held['scan_ms_per_frame']:.3f} ms per frame")
+    return tp_126k(held, fe, log=log, batch=batch, profile=profile)
+
+
+def tp_126k(held, fe, log=print, batch=8, profile=False):
+    """Phase 11(b)-(d) on phase 9's 126k decoder (LM mode C) and its
+    utterances, each once, held to phase 9(b)'s first run
+    (`tensor_parallel`): (b) two parts on one card; (c) with two or more
+    cards, `make_mesh(1, 2)` over cards 0 and 1; (d) with four,
+    `make_mesh(2, 2)` with `batch` utterances per data row.  (c) and (d)
+    say so when they are skipped.  With `profile`, `profile_scan` of (c)'s
+    split decoder and of the unsplit one (each card's busy share)."""
+    import torch
+    from pocketsphinx_tpu_torch.parallel import make_mesh
+    from pocketsphinx_tpu_torch.parallel.batch import Mesh
+    dec, pcms = held["decoder"], held["pcms"]
+    ref, guard = held["first"], held["guard"]
+    res = {}
+    dev = str(dec.device)
+    res["b"] = tensor_parallel(dec, fe, Mesh([[dev, dev]]), pcms, ref, guard,
+                               log=log, batch=batch,
+                               what="(b) 126k mode C, one card")
+    n = torch.cuda.device_count()
+    for key, nd, nm in (("c", 1, 2), ("d", 2, 2)):
+        if n < nd * nm:
+            res[key] = f"skipped: {n} card(s), needs {nd * nm}"
+            log(f"phase 11({key}) {res[key]}")
+            continue
+        # `batch` rows per data row: phase 9(b)'s batches, so its shapes
+        res[key] = tensor_parallel(dec, fe, make_mesh(nd, nm), pcms, ref,
+                                   guard, log=log, batch=batch * nd,
+                                   what=f"({key}) 126k mode C, "
+                                        f"make_mesh({nd}, {nm})")
+        if profile and key == "c":
+            res["c"]["profile"] = profile_scan(
+                dec.shard(make_mesh(1, 2).devices[0]), fe, log, batch=batch)
+            res["c"]["profile_tp1"] = profile_scan(dec, fe, log, batch=batch)
+    for key in ("b", "c", "d"):
+        r = res[key]
+        if isinstance(r, dict):
+            gib = {c: round(m / 2**30, 3)
+                   for c, m in r["peak_mem_bytes"].items()}
+            log(f"phase 11({key}): {r['audio_s_per_s']:.2f} audio-s/s, scan "
+                f"{r['scan_ms_per_frame']:.3f} ms per frame (tp=1: "
+                f"{held['scan_ms_per_frame']:.3f}), peak per card {gib} "
+                f"GiB, block ms per part {r.get('block_ms')}, copy ms per "
+                f"frame {r.get('copy_ms')}")
+    return res
+
+
+def _row_feats(fe, pcms, rows, device):
+    """The features [B, T, F, L] and frame counts of utterances `rows`,
+    padded as `decode_corpus` pads one data row's batch."""
+    pcm = np.zeros((len(rows), max(len(pcms[i]) for i in rows)), np.float32)
+    for k, i in enumerate(rows):
+        pcm[k, :len(pcms[i])] = pcms[i]
+    ns = np.array([len(pcms[i]) for i in rows], np.int32)
+    return features(fe, pcm, ns, device)
+
+
+# ---------------------------------------------------------------------------
 # phases (need CUDA)
 # ---------------------------------------------------------------------------
 
 def profile_scan(dec, fe, log, frames=64, batch=8):
     """torch.profiler over `frames` scan steps of a B=`batch` minimal-
-    record decode: device time by kernel and the device's busy share of
+    record decode: device time by kernel and each device's busy share of
     the wall time (the profiler's own overhead lowers that share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1455,8 +1778,7 @@ def profile_scan(dec, fe, log, frames=64, batch=8):
     pcm, ns = pcm_batch(list(range(10, 10 + batch)),
                         list(np.linspace(2.0, 5.0, batch)))
     feats, _ = features(fe, pcm, ns, "cuda")
-    costs = senone_scores(dec.am.scoring_tensors(dec.device),
-                          feats[:, :frames], time_chunk=16)
+    costs = senone_scores(dec.scoring(), feats[:, :frames], time_chunk=16)
     valid = torch.ones(costs.shape[:2], dtype=torch.bool, device=dec.device)
     dec.scan(costs, valid, minimal=True)                  # warm-up
     torch.cuda.synchronize()
@@ -1478,15 +1800,23 @@ def profile_scan(dec, fe, log, frames=64, batch=8):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     dev_us = sum(r[2] for r in rows)
+    busy = {}                          # device time by card (a model group)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy[e.device_index] = busy.get(e.device_index, 0.0) \
+                + e.device_time_total
     log(f"profile: {frames} frames at B={batch}: wall {plain_wall * 1e3:.1f} "
         f"ms unprofiled ({plain_wall / frames * 1e3:.3f} ms/frame), "
         f"{wall * 1e3:.1f} ms profiled; device busy {dev_us / 1e3:.1f} ms "
         f"= {dev_us / 1e6 / wall:.3f} of the profiled wall, "
-        f"{dev_us / 1e6 / plain_wall:.3f} of the unprofiled one")
+        f"{dev_us / 1e6 / plain_wall:.3f} of the unprofiled one; by card "
+        f"{ {c: round(us / 1e6 / wall, 3) for c, us in sorted(busy.items())} }"
+        f" of the profiled wall")
     for key, count, us in rows[:15]:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {us / dev_us:6.3f}  {key[:90]}")
     return dict(frames=frames, batch=batch, wall_s=plain_wall,
-                device_s=dev_us / 1e6, top=rows[:15])
+                device_s=dev_us / 1e6, top=rows[:15], profiled_wall_s=wall,
+                device_s_by_card={c: us / 1e6 for c, us in busy.items()})
 
 
 def check_fan(B, NRC, W, LP, log):
@@ -1669,6 +1999,12 @@ def main(argv):
     t0 = time.perf_counter()
     secs = _build.build(["fan", "chain"], verbose=True)
     log(f"built kernels in {time.perf_counter() - t0:.1f} s: {secs}")
+    if argv[:1] == ["--tp"]:
+        with tempfile.TemporaryDirectory() as work:
+            res = tp_cards(work, log=log, profile="--profile" in argv)
+        print(json.dumps({"tp": res}, default=float), flush=True)
+        print(smi, flush=True)
+        return 0
 
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
@@ -1708,6 +2044,11 @@ def main(argv):
     topk = topk_exact(dec, "cuda", log=log)
     t10 = time.perf_counter() - t0
     log(f"phase 10(d) ({t10:.1f} s) on {smi}")
+    # phase 11(a), tensor parallelism at 20k, on the same decoder
+    t0 = time.perf_counter()
+    tp = {"a": tp_20k(dec, fe, log=log)}
+    t11 = time.perf_counter() - t0
+    log(f"phase 11(a) ({t11:.1f} s) on {smi}")
     del dec
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
@@ -1733,10 +2074,20 @@ def main(argv):
             f"({time.perf_counter() - t1:.1f} s) on {smi}")
     with tempfile.TemporaryDirectory() as work:
         t9 = t0 = time.perf_counter()
+        held = {}
         ref = reference_scale(work, "cuda", log=log,
-                              profile="--profile" in argv)
+                              profile="--profile" in argv, hold=held)
         log(f"phase 9(a-c) ({time.perf_counter() - t0:.1f} s) on {smi}: "
             + json.dumps(ref, default=float))
+        # phase 11(b)-(d), tensor parallelism at 126k, on phase 9's decoder
+        t1 = time.perf_counter()
+        tp.update(tp_126k(held, en_us_frontend(), log=log,
+                          profile="--profile" in argv))
+        held.clear()
+        t11 += time.perf_counter() - t1
+        log(f"phase 11(b-d) ({time.perf_counter() - t1:.1f} s); phase 11 "
+            f"{t11:.1f} s on {smi}")
+        t9 += time.perf_counter() - t1
         t0 = time.perf_counter()
         batch_cli(work, "cuda", log=log)
         log(f"phase 9(e) ({time.perf_counter() - t0:.1f} s) on {smi}; "
@@ -1783,6 +2134,7 @@ def main(argv):
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep,
                             launches=res["launches"][name],
+                            tp_launches=tp["a"]["launches"][name],
                             facade_launches=fres["launches"][name],
                             cli_launches=cres["single"]["launches"][name]
                             + cres["live"]["launches"][name],
@@ -1791,6 +2143,8 @@ def main(argv):
     for k in kernels[:2]:              # the same kernels at the 126k shapes
         kernels.append(dict(
             k, name=k["name"] + "_126k", launches=co["launches"][k["name"]],
+            tp_launches=sum(tp[x]["launches"][k["name"]] for x in "bcd"
+                            if isinstance(tp[x], dict)),
             facade_launches=0, cli_launches=0, **ref[k["name"]]))
         for key in [x for x in k if x.startswith("nst5")]:
             del kernels[-1][key]

@@ -15,6 +15,8 @@ matrix products run at full precision (no TF32), as the JAX package
 scores at `Precision.HIGHEST`.
 """
 
+import contextlib
+
 import torch
 
 __version__ = "0.1.0"
@@ -39,6 +41,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_device(device):
+    """A context in which `device` is the current CUDA card (the card its
+    ops launch and allocate on when they do not name one); a no-op off
+    CUDA."""
+    device = torch.device(device)
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def __getattr__(name):

@@ -5,12 +5,51 @@ functions turn such arrays into the port's device tensors.  They accept
 the JAX package's own arrays (`AcousticModel.scoring_arrays` and
 `cb_groups`, `NgramFusedDecoder._dev_tables` as NumPy) as well as the
 port's, so a test can feed both packages the same parameters.
+
+Tensor parallelism over a "model" group of devices splits two sets of
+tables (the JAX package's TP shardings, without `NamedSharding`'s rule
+that the split axis divide evenly): the scoring tables by codebooks or
+senone slots (`split_scoring_tensors`), and the word-transition block's
+LM tables by entry columns (`split_scan_tables`, `column_ranges`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def _ranges(n: int, parts: int) -> list:
+    """`parts` contiguous, near-equal [lo, hi) ranges covering range(n),
+    the first n % parts of them one longer (as `np.array_split`)."""
+    q, r = divmod(n, parts)
+    bounds = np.cumsum([0] + [q + (i < r) for i in range(parts)])
+    return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def column_ranges(n_columns: int, tp: int) -> list:
+    """The entry-column ranges [e0, e1) of a "model" group of `tp`
+    devices: contiguous, near-equal, in order."""
+    if not 1 <= tp <= n_columns:
+        raise ValueError(f"cannot split {n_columns} columns over {tp} "
+                         f"devices")
+    return _ranges(n_columns, tp)
+
+
+def _grouped_weights(w_lin, cb_groups):
+    """[F, D, S] mixture weights -> [CB, F, D, Smax] per codebook group."""
+    return w_lin[:, :, np.asarray(cb_groups["sen_pad"])].transpose(2, 0, 1, 3)
+
+
+def _sen_slot(cb_groups, S):
+    """Each senone's slot in the flattened [CB * Smax] group axis (CB *
+    Smax for a senone in no group)."""
+    sen_pad = np.asarray(cb_groups["sen_pad"])
+    mask = np.asarray(cb_groups["mask"], bool)
+    slot = np.full(S, sen_pad.size, np.int64)
+    flat = np.nonzero(mask.reshape(-1))[0]
+    slot[sen_pad.reshape(-1)[flat]] = flat
+    return slot
 
 
 def scoring_tensors(scoring_arrays: dict, cb_groups: dict, device) -> dict:
@@ -29,13 +68,55 @@ def scoring_tensors(scoring_arrays: dict, cb_groups: dict, device) -> dict:
     CB = out["prec"].shape[0]
     S = w_lin.shape[-1]
     if CB != S:
-        sen_pad = np.asarray(cb_groups["sen_pad"])
-        mask = np.asarray(cb_groups["mask"], bool)
-        out["Wg"] = t(w_lin[:, :, sen_pad].transpose(2, 0, 1, 3))
-        slot = np.full(S, sen_pad.size, np.int64)
-        flat = np.nonzero(mask.reshape(-1))[0]
-        slot[sen_pad.reshape(-1)[flat]] = flat
-        out["sen_slot"] = t(slot)
+        out["Wg"] = t(_grouped_weights(w_lin, cb_groups))
+        out["sen_slot"] = t(_sen_slot(cb_groups, S))
+    return out
+
+
+def split_scoring_tensors(scoring_arrays: dict, cb_groups: dict,
+                          devices) -> list:
+    """The scoring operands split over a "model" group of devices, one
+    dict per device, in the group's order:
+
+      * `axis` "cb" when the codebook count CB divides by the group's
+        size, and for a fully continuous model (whose codebooks are its
+        senones) in near-equal ranges: each device holds its codebooks'
+        Gaussians (prec, muprec, const) and mixture weights (Wg, or
+        w_lin's columns);
+      * `axis` "slot" otherwise: each device holds every Gaussian and a
+        contiguous range of Wg's senone-slot axis.
+
+    The first dict (the lead's) also holds `sen_slot`.  `senone_scores`,
+    given the list, takes the per-stream norm and the per-frame max over
+    the whole group and gathers the costs on the lead."""
+    devs = [torch.device(d) for d in devices]
+    tp = len(devs)
+    w_lin = np.asarray(scoring_arrays["w_lin"], np.float32)
+    gauss = {k: np.asarray(scoring_arrays[k], np.float32)
+             for k in ("prec", "muprec", "const")}
+    CB, S = gauss["prec"].shape[0], w_lin.shape[-1]
+    cont = CB == S
+    Wg = None if cont else _grouped_weights(w_lin, cb_groups)
+    axis = "cb" if cont or CB % tp == 0 else "slot"
+    n = CB if axis == "cb" else Wg.shape[-1]
+    if tp > n:
+        raise ValueError(f"cannot split {n} scoring {axis}s over {tp} "
+                         f"devices")
+    out = []
+    for dev, (a, b) in zip(devs, _ranges(n, tp)):
+        t = lambda x: torch.as_tensor(  # noqa: E731
+            np.ascontiguousarray(x), device=dev)
+        cb = slice(a, b) if axis == "cb" else slice(None)
+        sh = {k: t(v[cb]) for k, v in gauss.items()}
+        if cont:
+            sh["w_lin"] = t(w_lin[..., a:b])
+        else:
+            sh["Wg"] = t(Wg[cb] if axis == "cb" else Wg[..., a:b])
+        sh["axis"] = axis
+        out.append(sh)
+    if not cont:
+        out[0]["sen_slot"] = torch.as_tensor(_sen_slot(cb_groups, S),
+                                             device=devs[0])
     return out
 
 
@@ -49,6 +130,75 @@ def _planes(tp):
 _INDEX_KEYS = ("fb_ci", "f0p_E", "guard_w", "guard_wf", "guard_fillw",
                "guard_fillwf", "col_lm_W", "bg_cols")
 
+#: the word-transition block's tables with an entry-column (E) axis, by
+#: that axis: each device of a "model" group holds its range of columns
+COLUMN_AXES = {"rows": 1, "bg": 1, "ctx_next": 1, "fat_rows": 1,
+               "fat_ctx": 1, "accept_T": 1, "uni_row": 0, "ctx_base": 0,
+               "isfill_E": 0, "fillpen_E": 0, "isreal_E": 0, "lmwid_E": 0,
+               "f0p_E": 0}
+#: the block's tables of global column ids (scatter targets), rebased to
+#: each device's range, an id outside it sent to the range's spare column
+COLUMN_IDS = ("bg_cols", "tg2c", "tg_cols")
+#: what else only the block reads, whole on each device of the group
+COLUMN_WHOLE = ("rows_h", "bgmeta", "umeta", "bg_vals", "bg_ctx", "tg2v",
+                "tg_vals")
+#: tables the lead of a split group does not hold (the [E] tables the
+#: lead's guard reads, `isfill_E`, `fillpen_E` and `f0p_E`, stay whole)
+_BLOCK_ONLY = (set(COLUMN_AXES) | set(COLUMN_IDS) | set(COLUMN_WHOLE)
+               | {"accept_E"}) - {"isfill_E", "fillpen_E", "f0p_E"}
+
+
+def _host_forms(tables: dict) -> dict:
+    """The scan tables as the port's NumPy forms (see `scan_tables`)."""
+    tabs = {k: np.asarray(v) for k, v in tables.items()}
+    for k in [k for k in tabs if k.startswith("fd_oh")]:
+        tabs["fd_idx" + k[5:]] = np.argmax(tabs.pop(k), axis=0)
+    if "lp_oh" in tabs:
+        tabs["lp_idx"] = np.argmax(tabs.pop("lp_oh"), axis=0)
+        if tabs["tp_fin"].shape[1] == 3:      # the fan kernel's layout
+            tp_fin = tabs.pop("tp_fin")
+            tabs["tp_fin12"] = tp_fin.transpose(1, 2, 0).reshape(
+                12, tp_fin.shape[0])
+    if "f0_onehot" in tabs:
+        tabs["f0p_E"] = np.argmax(tabs.pop("f0_onehot"), axis=1)
+    if "rows" in tabs:
+        # mode rows: each context's (h1, h2) ride as two last columns
+        tabs["rows_h"] = tabs["rows"][:, -2:]
+        tabs["rows"] = tabs["rows"][:, :-2]
+    tabs["accept_T"] = tabs["accept_E"].T
+    for k, v in tabs.items():
+        if k.startswith(("ch_tp", "ci_tp")):
+            v = _planes(v.astype(np.float32))
+        elif k.startswith(("fd_idx", "ch_nv", "lp_idx")) or k in (
+                "lmwid_E", "etgt0", "lc_cls_T"):
+            v = v.astype(np.int32)
+        elif k in _INDEX_KEYS:
+            v = v.astype(np.int64)
+        tabs[k] = v
+    return tabs
+
+
+def _upload(tabs: dict, device, cache=None) -> dict:
+    """NumPy tables -> contiguous tensors on `device`; `cache` (key,
+    device) -> tensor shares a whole table between two parts of a group
+    on one device."""
+    dev = torch.device(device)
+    out = {}
+    for k, v in tabs.items():
+        if cache is not None and (k, dev) in cache:
+            out[k] = cache[k, dev]
+            continue
+        v = np.ascontiguousarray(v)
+        out[k] = torch.as_tensor(v if v.flags.writeable else v.copy(),
+                                 device=dev)
+        if cache is not None:
+            cache[k, dev] = out[k]
+    for k in [k for k in out if k.startswith(("ch_fm", "ci_fm"))]:
+        # first depth per word (exactly one first-node row per word)
+        out[k.replace("_fm", "_fd")] = torch.argmax(
+            out[k].to(torch.int32), dim=0)
+    return out
+
 
 def scan_tables(tables: dict, device) -> dict:
     """Scan tables on `device` for `search.ngram_fused`.
@@ -61,36 +211,40 @@ def scan_tables(tables: dict, device) -> dict:
     index form the port gathers with: `fd_oh{b}` -> `fd_idx{b}`,
     `lp_oh`/`tp_fin` -> `lp_idx`/`tp_fin12` (3 states; other
     topologies keep `tp_fin`), `f0_onehot` -> `f0p_E`; index columns
-    become int64).
+    become int64; mode rows' [R, E + 2] `rows` becomes `rows` [R, E]
+    and its (h1, h2) columns `rows_h` [R, 2]; `accept_T` is `accept_E`
+    transposed).
     The decoder's `device_tables` lays the chain tables and `senid_all`
     out for its scan."""
-    dev = torch.device(device)
-    tabs = {k: np.asarray(v) for k, v in tables.items()}
-    for k in [k for k in tabs if k.startswith("fd_oh")]:
-        tabs["fd_idx" + k[5:]] = np.argmax(tabs.pop(k), axis=0)
-    if "lp_oh" in tabs:
-        tabs["lp_idx"] = np.argmax(tabs.pop("lp_oh"), axis=0)
-        if tabs["tp_fin"].shape[1] == 3:      # the fan kernel's layout
-            tp_fin = tabs.pop("tp_fin")
-            tabs["tp_fin12"] = tp_fin.transpose(1, 2, 0).reshape(
-                12, tp_fin.shape[0])
-    if "f0_onehot" in tabs:
-        tabs["f0p_E"] = np.argmax(tabs.pop("f0_onehot"), axis=1)
-    out = {}
-    for k, v in tabs.items():
-        if k.startswith(("ch_tp", "ci_tp")):
-            v = _planes(v.astype(np.float32))
-        elif k.startswith(("fd_idx", "ch_nv", "lp_idx")) or k in (
-                "lmwid_E", "etgt0", "lc_cls_T"):
-            v = v.astype(np.int32)
-        elif k in _INDEX_KEYS:
-            v = v.astype(np.int64)
-        v = np.ascontiguousarray(v)
-        out[k] = torch.as_tensor(v if v.flags.writeable else v.copy(),
-                                 device=dev)
-    for k in [k for k in out if k.startswith(("ch_fm", "ci_fm"))]:
-        # first depth per word (exactly one first-node row per word)
-        out[k.replace("_fm", "_fd")] = torch.argmax(
-            out[k].to(torch.int32), dim=0)
-    out["accept_T"] = out["accept_E"].T.contiguous()
-    return out
+    return _upload(_host_forms(tables), device)
+
+
+def split_scan_tables(tables: dict, device, shards) -> tuple:
+    """`scan_tables` with the word-transition block split by entry
+    columns over a "model" group: `shards` lists (device, e0, e1) in
+    column order (`column_ranges`).  Returns (the lead's tables on
+    `device`: every table but the block's own; [(device, that device's
+    block tables)]).  A device's block tables are the columns [e0, e1)
+    of each `COLUMN_AXES` table, the `COLUMN_IDS` tables rebased to e0
+    (ids outside the range -> e1 - e0, the block's spare scatter
+    column) and the `COLUMN_WHOLE` tables whole (one copy per device)."""
+    host = _host_forms(tables)
+    lead = _upload({k: v for k, v in host.items() if k not in _BLOCK_ONLY},
+                   device)
+    whole, parts = {}, []
+    for dev, e0, e1 in shards:
+        part = {}
+        for k, ax in COLUMN_AXES.items():
+            if k in host:
+                v = host[k]
+                part[k] = v[e0:e1] if ax == 0 else v[:, e0:e1]
+        for k in COLUMN_IDS:
+            if k in host:
+                c = host[k]
+                part[k] = np.where((c >= e0) & (c < e1), c - e0,
+                                   e1 - e0).astype(c.dtype)
+        block = _upload(part, dev)
+        block.update(_upload({k: host[k] for k in COLUMN_WHOLE if k in host},
+                             dev, whole))
+        parts.append((torch.device(dev), block))
+    return lead, parts

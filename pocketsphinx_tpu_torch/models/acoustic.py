@@ -24,6 +24,7 @@ from functools import cached_property
 import numpy as np
 import torch
 
+from .. import on_device
 from ..fileio import (read_bin_mdef, read_gauden, read_sendump,
                       read_mixw_quantized, read_tmat, BinMdef, Gauden,
                       MixtureWeights, Tmat)
@@ -138,14 +139,29 @@ class AcousticModel:
                                          self.cb_groups, device)
         return cache[key]
 
+    def scoring_shards(self, devices) -> list:
+        """The scoring tensors split over a "model" group of devices
+        (`convert.split_scoring_tensors`; cached per group)."""
+        from ..convert import split_scoring_tensors
+        cache = self.__dict__.setdefault("_scoring_tensors", {})
+        key = tuple(str(torch.device(d)) for d in devices)
+        if key not in cache:
+            cache[key] = split_scoring_tensors(self.scoring_arrays,
+                                               self.cb_groups, devices)
+        return cache[key]
 
-def senone_scores(model: dict, feats, topn: int = 4,
+
+def senone_scores(model, feats, topn: int = 4,
                   time_chunk: int | None = None, ds: int = 1):
     """Batched senone scoring: feats [B, T, F, L] float32 ->
     costs [B, T, n_sen] float32 (shifted units, 0 = per-frame best).
 
     `model` is the tensor dict of `convert.scoring_tensors` (on the
-    device the scoring runs on).  Port of `senone_scores_jax`:
+    device the scoring runs on), or the list of a "model" group's dicts
+    (`convert.split_scoring_tensors`): each device then scores its
+    codebooks or senone slots, the per-stream norm and the per-frame max
+    are taken over the whole group (exact max reductions), and the costs
+    come back on the first device.  Port of `senone_scores_jax`:
 
     ds > 1: frame GMM downsampling (the reference's -ds): every ds-th
     frame is scored and held for the following ds-1 frames.
@@ -155,7 +171,9 @@ def senone_scores(model: dict, feats, topn: int = 4,
     on the dense product (only the N-th value is read, so tie order does
     not matter); topn == 0: exact log-sum-exp over all densities.
     Products run in full float32 (TF32 is off, see the package init)."""
-    feats = torch.as_tensor(feats, device=model["prec"].device)
+    shards = model if isinstance(model, list) else [model]
+    lead = shards[0]["prec"].device
+    feats = torch.as_tensor(feats, device=lead)
     if ds > 1:
         T = feats.shape[1]
         out = senone_scores(model, feats[:, ::ds], topn=topn,
@@ -167,39 +185,51 @@ def senone_scores(model: dict, feats, topn: int = 4,
                                         topn=topn)
                           for t in range(0, T, time_chunk)], dim=1)
 
-    prec, muprec, const = model["prec"], model["muprec"], model["const"]
-    CB, F, D, L = prec.shape
     x = feats.to(torch.float32)                     # [B, T, F, L]
     B, T = x.shape[:2]
-    x2 = x * x
-    quad = torch.einsum("btfl,cfdl->btcfd", x2, prec)
-    cross = torch.einsum("btfl,cfdl->btcfd", x, muprec)
-    dens = const[None, None] - quad + 2.0 * cross   # [B, T, CB, F, D]
+    dens = []
+    for sh in shards:
+        with on_device(sh["prec"].device):
+            xs = x.to(sh["prec"].device, non_blocking=True)
+            x2 = xs * xs
+            quad = torch.einsum("btfl,cfdl->btcfd", x2, sh["prec"])
+            cross = torch.einsum("btfl,cfdl->btcfd", xs, sh["muprec"])
+            dens.append(sh["const"][None, None] - quad + 2.0 * cross)
     # per-stream normalization (best over codebooks), clamped at
     # -MAX_NEG_ASCR like ptm_mgau_codebook_norm
-    norm = dens.amax(dim=(2, 4), keepdim=True)
-    dnorm = torch.clamp(dens - norm, min=-96.0)
-    E = torch.exp(dnorm * UNIT_NATS)
-    if topn and topn < D:
-        kth = torch.topk(dnorm, topn, dim=-1).values[..., -1:]
-        E = torch.where(dnorm >= kth, E, torch.zeros_like(E))
-    w_lin = model["w_lin"]                          # [F, D, S]
-    S = w_lin.shape[-1]
-    if CB == S:
-        # fully continuous (one codebook per senone): the mixture sum is
-        # diagonal in the codebook axis
-        P_diag = torch.einsum("btcfd,fdc->btcf", E, w_lin)
-        fden = torch.log(torch.clamp(P_diag, min=1e-37)) / UNIT_NATS
-        goodness = fden.sum(dim=-1)                 # [B, T, S]
-        return goodness.amax(dim=-1, keepdim=True) - goodness
-    # block-diagonal mixture product over codebook groups
-    Wg = model["Wg"]                                # [CB, F, D, Smax]
-    P = torch.einsum("btcfd,cfds->btcfs", E, Wg)
-    fden = torch.log(torch.clamp(P, min=1e-37)) / UNIT_NATS
-    grouped = fden.sum(dim=3).reshape(B, T, -1)     # [B, T, CB*Smax]
-    # back to senone order: each real senone sits at exactly one group
-    # slot; a senone in no group reads the appended -inf column
-    grouped = torch.cat([grouped, grouped.new_full((B, T, 1), -math.inf)],
-                        dim=-1)
-    goodness = grouped[..., model["sen_slot"]]      # [B, T, S]
+    norm = dens[0].amax(dim=(2, 4), keepdim=True)   # [B, T, 1, F, 1]
+    for d in dens[1:]:
+        norm = torch.maximum(norm, d.amax(dim=(2, 4), keepdim=True)
+                             .to(lead, non_blocking=True))
+    parts = []
+    for sh, d in zip(shards, dens):
+        with on_device(d.device):
+            dnorm = torch.clamp(d - norm.to(d.device, non_blocking=True),
+                                min=-96.0)
+            E = torch.exp(dnorm * UNIT_NATS)        # [B, T, CB, F, D]
+            D = E.shape[-1]
+            if topn and topn < D:
+                kth = torch.topk(dnorm, topn, dim=-1).values[..., -1:]
+                E = torch.where(dnorm >= kth, E, torch.zeros_like(E))
+            if "Wg" not in sh:
+                # fully continuous (one codebook per senone): the
+                # mixture sum is diagonal in the codebook axis
+                P = torch.einsum("btcfd,fdc->btcf", E, sh["w_lin"])
+                fden = torch.log(torch.clamp(P, min=1e-37)) / UNIT_NATS
+                part = fden.sum(dim=-1)             # [B, T, S]
+            else:
+                # block-diagonal mixture product over codebook groups
+                P = torch.einsum("btcfd,cfds->btcfs", E, sh["Wg"])
+                fden = torch.log(torch.clamp(P, min=1e-37)) / UNIT_NATS
+                part = fden.sum(dim=3)              # [B, T, CB, Smax]
+        parts.append(part.to(lead, non_blocking=True))
+    axis = 3 if shards[0].get("axis") == "slot" else 2
+    goodness = parts[0] if len(parts) == 1 else torch.cat(parts, axis)
+    if "Wg" in shards[0]:
+        # back to senone order: each real senone sits at exactly one
+        # group slot; a senone in no group reads the appended -inf column
+        grouped = goodness.reshape(B, T, -1)        # [B, T, CB*Smax]
+        grouped = torch.cat([grouped,
+                             grouped.new_full((B, T, 1), -math.inf)], dim=-1)
+        goodness = grouped[..., shards[0]["sen_slot"]]   # [B, T, S]
     return goodness.amax(dim=-1, keepdim=True) - goodness

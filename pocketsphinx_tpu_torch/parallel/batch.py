@@ -1,12 +1,21 @@
-"""Data-parallel corpus decoding on torch devices.
+"""Data- and tensor-parallel corpus decoding on torch devices.
 
 Port of `pocketsphinx_tpu.parallel.batch`.  The reference has no
 parallelism (its scale is many processes over a -ctl split); here a
 corpus is decoded in padded batches, and each batch is split over a
-`Mesh` of devices along its "data" axis, each device holding a replica
-of the search (`NgramFusedDecoder.to`) and decoding its rows in a host
-thread of its own.  Decoding is embarrassingly parallel over
-utterances: a row's result does not depend on the rows beside it.
+`Mesh` of devices along its "data" axis, each row of the mesh holding a
+replica of the search and decoding its utterances in a host thread of
+its own.  Decoding is embarrassingly parallel over utterances: a row's
+result does not depend on the rows beside it.
+
+Along the "model" axis a row's devices share one replica (tensor
+parallelism, `NgramFusedDecoder.shard`): the row's first device, its
+lead, steps the search, and every device of the row runs the
+word-transition block over its range of the LM tables' entry columns
+and scores its share of the codebooks or senone slots.  Cross-device
+traffic is peer copies ordered by the devices' current streams, in one
+process; two parts on one device (`Mesh([["cuda:0", "cuda:0"]])`) check
+the split on one card.
 
 Multi-process: `init_distributed` starts a `torch.distributed` process
 group (gloo), `shard_ctl` splits the control file by process rank,
@@ -14,26 +23,17 @@ each process decodes its shard over its local mesh, and
 `global_metric_sum` reduces corpus metrics (utterance, frame, error
 counts) across processes with an all-reduce of a CPU tensor over gloo,
 as the JAX package reduces on its CPU backend.
-
-Not ported: tensor parallelism over a "model" axis (the JAX package
-shards the LM and mixture tables across it); `n_model > 1` raises
-NotImplementedError.
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from .. import resolve_device
-
-_TP = ("tensor parallelism over the mesh's 'model' axis is not ported "
-       "(ROADMAP.md §1 queue: TP over the \"model\" axis)")
-
+from .. import on_device, resolve_device
 
 def _rank_count():
     import torch.distributed as dist
@@ -100,59 +100,62 @@ class Mesh:
 
 
 def make_mesh(n_data: int | None = None, n_model: int = 1, device=None):
-    """A ("data", "model") mesh: the CUDA cards (CUDA unless `device`
-    says otherwise; default all of them), or `n_data` replicas on the
-    CPU (default 1)."""
-    if n_model > 1:
-        raise NotImplementedError(_TP)
+    """A ("data", "model") mesh of [n_data, n_model] devices: the first
+    n_data * n_model CUDA cards, row by row (CUDA unless `device` says
+    otherwise; n_data defaults to every card over n_model), or as many
+    entries of the CPU (n_data default 1)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         cards = [torch.device("cuda", i)
                  for i in range(torch.cuda.device_count())]
-        n_data = len(cards) if n_data is None else n_data
-        if n_data > len(cards):
-            raise ValueError(f"{n_data} data replicas but {len(cards)} "
-                             f"CUDA devices")
-        devs = cards[:n_data]
+        n_data = len(cards) // n_model if n_data is None else n_data
+        if n_data * n_model > len(cards) or n_data < 1:
+            raise ValueError(f"{n_data} data replicas x {n_model} model "
+                             f"shards but {len(cards)} CUDA devices")
+        devs = cards[:n_data * n_model]
     else:
-        devs = [dev] * (1 if n_data is None else n_data)
-    return Mesh([[d] for d in devs])
+        devs = [dev] * ((1 if n_data is None else n_data) * n_model)
+    return Mesh([devs[i:i + n_model] for i in range(0, len(devs), n_model)])
 
 
 def _same(a: torch.device, b: torch.device) -> bool:
     return resolve_device(a) == resolve_device(b)
 
 
-def replicas(search, devices) -> list:
-    """One search per device: `search` itself on the first device it
-    already lives on, `search.to(device)` on every other."""
+def replicas(search, rows) -> list:
+    """One search per row of a mesh's devices: with one device per row,
+    `search` itself on the first device it already lives on and
+    `search.to(device)` on every other; with a "model" axis,
+    `search.shard(row)`."""
     out, used = [], False
-    for d in devices:
-        if not used and _same(d, search.device):
+    for row in rows:
+        if len(row) > 1:
+            out.append(search.shard(list(row)))
+        elif not used and _same(row[0], search.device):
             out.append(search)
             used = True
         else:
-            out.append(search.to(d))
+            out.append(search.to(row[0]))
     return out
 
 
 class BatchDecodePipeline:
-    """Corpus decoding over a mesh's data axis.
+    """Corpus decoding over a mesh's data axis, and its model axis.
 
     Wraps a search with `decode_batch` (`NgramFusedDecoder`) and the
-    frontend: each batch of padded utterances is split over the devices,
-    and each device runs PCM -> MFCC -> features -> senone scores -> the
-    batched scan -> the backtrace on its rows."""
+    frontend: each batch of padded utterances is split over the mesh's
+    rows, and each row runs PCM -> MFCC -> features -> senone scores ->
+    the batched scan -> the backtrace on its utterances, on its lead
+    device, with the scoring and the scan's word-transition block split
+    over the row's devices when the mesh has a "model" axis."""
 
     def __init__(self, decoder_search, frontend, mesh=None,
                  cmn: str = "batch"):
         self.search = decoder_search
         self.fe = frontend
         self.mesh = mesh or make_mesh(device=decoder_search.device)
-        if self.mesh.shape["model"] > 1:
-            raise NotImplementedError(_TP)
         self.cmn = cmn
-        self.replicas = replicas(decoder_search, self.mesh.devices[:, 0])
+        self.replicas = replicas(decoder_search, self.mesh.devices)
         #: guard violations summed over the last `decode_corpus`
         self.guard_violations = 0
 
@@ -166,11 +169,12 @@ class BatchDecodePipeline:
         order.
 
         Utterances are sorted by length and decoded in batches of
-        `batch_size` (default 8 per device), each padded to its longest
-        utterance and split over the mesh's data axis.  With more than one
-        replica, each replica's rows run in a host thread of their own
-        with its device current, so the replicas' work overlaps; the
-        batch ends when every replica has backtraced its rows.  The scan
+        `batch_size` (default 8 per row of the mesh), each padded to its
+        longest utterance and split over the mesh's data axis.  With more
+        than one replica, each replica's rows run in a host thread of
+        their own with its (lead) device current, so the replicas' work
+        overlaps; the batch ends when every replica has backtraced its
+        rows.  The scan
         keeps the minimal (top-K) records: their backtrace is the 1-best
         walk of the full records (every path predecessor is a top-K exit).
         A dict passed as `timings` receives the seconds of each stage
@@ -212,8 +216,7 @@ class BatchDecodePipeline:
         from ..frontend.feat import compute_feats
 
         dev = search.device
-        with (torch.cuda.device(dev) if dev.type == "cuda"
-              else contextlib.nullcontext()):
+        with on_device(dev):
             t0 = _sync(dev, timed)
             pcm = np.zeros((len(rows), max(len(pcm_list[i]) for i in rows)),
                            np.float32)

@@ -39,7 +39,7 @@ class TwoStagePipeline:
         self.dev_score = torch.device(dev_score or devs[0])
         self.dev_scan = torch.device(dev_scan or devs[min(1, len(devs) - 1)])
         self.cmn = cmn
-        self.scan_search = replicas(decoder_search, [self.dev_scan])[0]
+        self.scan_search = replicas(decoder_search, [[self.dev_scan]])[0]
 
     def _stage_score(self, pcm_batch, n_samps):
         from ..frontend.feat import compute_feats

@@ -55,8 +55,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
-from ..convert import scan_tables
+from .. import on_device, resolve_device
+from ..convert import column_ranges, scan_tables, split_scan_tables
 from ..models.dict2pid import Dict2Pid
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..lm.ngram import NgramModel
@@ -165,13 +165,18 @@ class NgramFusedDecoder:
         self.depth_buckets = tuple(depth_buckets)
         self.rebuild()
 
+    #: a "model" group's devices (`shard`), the lead first; None: one
+    #: device holds every table
+    model_devices = None
+
     def rebuild(self):
         """Build the network and its host and device tables, again after
         the dictionary or the LM changed (the JAX decoder's `_build`,
         which also drops its compiled scan and device tables)."""
         self._build()
         self.host_tables = self._host_tables()
-        self.tables = self.device_tables(self.host_tables, self.device)
+        self.tables = self.device_tables(self.host_tables, self.device,
+                                         self.model_devices)
 
     def to(self, device) -> "NgramFusedDecoder":
         """A decoder sharing this one's host network, with its tables on
@@ -179,18 +184,54 @@ class NgramFusedDecoder:
         other = object.__new__(type(self))
         other.__dict__.update(self.__dict__)
         other.device = torch.device(device)
+        other.model_devices = None
         other.tables = self.device_tables(self.host_tables, other.device)
         return other
 
-    def device_tables(self, tables: dict, device) -> dict:
+    def shard(self, devices) -> "NgramFusedDecoder":
+        """A decoder sharing this one's host network, split over the
+        "model" group `devices` (tensor parallelism; one device may hold
+        several parts).  The first device, the lead, holds the carry and
+        runs the chain and fan kernels, the top-K sort, the exactness
+        guard, the renormalization and the records; the word-transition
+        block (the LM row fetch, `cand` and its max over the top-K exits)
+        runs on every device of the group over its own contiguous range
+        of entry columns (`convert.column_ranges`), and the senone
+        scoring over its codebooks or senone slots
+        (`convert.split_scoring_tensors`).  The records equal the
+        unsplit decoder's bit for bit on the same costs; the split costs
+        agree with the unsplit ones within the scoring's float32
+        tolerance."""
+        devs = [resolve_device(d) for d in devices]
+        other = object.__new__(type(self))
+        other.__dict__.update(self.__dict__)
+        other.device = devs[0]
+        other.model_devices = devs
+        other.tables = self.device_tables(self.host_tables, devs[0], devs)
+        return other
+
+    def device_tables(self, tables: dict, device, model_devices=None) -> dict:
         """Scan tables on `device` (`convert.scan_tables`) from this
         decoder's `host_tables`, or from the JAX decoder's `_dev_tables`
         as NumPy, which hold the same keys.  The chain buckets' tables
         become one `ops.chain.ChainGroup` (`chain`), and `senid_all`, cut
         by `seg_shapes`, becomes the per-chunk pre-gather's index lists
         (`gather`: name -> (ids, per-utterance shape of the result)): the
-        chain group's g row, the finals' and the single-phone columns'."""
-        out = scan_tables(tables, device)
+        chain group's g row, the finals' and the single-phone columns'.
+        With a "model" group `model_devices` (lead first) the
+        word-transition block's tables are split by entry columns
+        (`convert.split_scan_tables`): `columns` lists each device's
+        (device, block tables); without one it is None and the block
+        reads these tables."""
+        if model_devices is None:
+            out = scan_tables(tables, device)
+            out["columns"] = None
+        else:
+            ranges = column_ranges(
+                np.asarray(tables["accept_E"]).shape[0], len(model_devices))
+            out, out["columns"] = split_scan_tables(
+                tables, device, [(d, e0, e1) for d, (e0, e1)
+                                 in zip(model_devices, ranges)])
         buckets = [dict(tp=out.pop(f"ch_tp{k}"), fm=out[f"ch_fm{k}"],
                         nv=out.pop(f"ch_nv{k}"), fd_idx=out.pop(f"fd_idx{k}"),
                         RF=ch.senid_first_d.shape[1],
@@ -977,13 +1018,14 @@ class NgramFusedDecoder:
                              for k, v in new[name].items()}
         return new
 
-    def _csr_rows(self, h1c):
+    def _csr_rows(self, tb, h1c):
         """Mode C's bigram rows and successor-context rows [B, K, E] of
-        the histories h1c [B, K] (V: the empty history), in the JAX
-        step's order of float operations: the unigram row + the
-        history's backoff, the CSR overlay scattered onto a spare column,
-        then the fat rows in place of both rows."""
-        tb, nE = self.tables, self.nE
+        the histories h1c [B, K] (V: the empty history) over the entry
+        columns of the block tables `tb`, in the JAX step's order of
+        float operations: the unigram row + the history's backoff, the
+        CSR overlay scattered onto a spare column, then the fat rows in
+        place of both rows."""
+        nE = tb["isfill_E"].shape[0]
         B, K = h1c.shape
         um = tb["umeta"][h1c]                                     # [B, K, 4]
         base = tb["uni_row"] + um[..., 2].contiguous().view(
@@ -1008,6 +1050,101 @@ class NgramFusedDecoder:
             ctxrow = torch.where(isfat, tb["fat_ctx"][fidx], ctxrow)
         return base, ctxrow
 
+    def _transitions(self, kv, ki, ctx_k, fb_k, svk, wpen):
+        """The word-transition block over every entry column: (entry, am,
+        prw_e, ctx_new, erw1, erw2, fb_e) [B, E] on the lead from this
+        frame's top-K exits (scores kv, word ids ki, contexts ctx_k,
+        final base phones fb_k [B, K], right-context exit planes svk
+        [B, n_rc, K]).  On a "model" group each device computes its own
+        column range (`_columns`) from copies of the exits, and the lead
+        joins the ranges in column order: the max and first argmax over
+        K are per column, so the joined tensors are the unsplit block's
+        bit for bit."""
+        shards = self.tables["columns"]
+        if shards is None:
+            return self._columns(self.tables, kv, ki, ctx_k, fb_k, svk, wpen)
+        lead = kv.device
+        outs = []
+        for dev, tb in shards:
+            with on_device(dev):
+                outs.append(self._columns(
+                    tb, *(x.to(dev, non_blocking=True)
+                          for x in (kv, ki, ctx_k, fb_k, svk)), wpen))
+        return tuple(torch.cat([o[i].to(lead, non_blocking=True)
+                                for o in outs], 1) for i in range(7))
+
+    def _columns(self, tb, kv, ki, ctx_k, fb_k, svk, wpen):
+        """The word-transition block over the entry columns of the block
+        tables `tb` (the decoder's own, or one device's part of a "model"
+        group, `convert.split_scan_tables`): each column's LM score from
+        each top-K exit's context (the exact trigram row: modes rows, B
+        and C), `cand` = exit score + LM score (+ the accept mask), and
+        the first winner over K with its payloads.  Returns (entry, am,
+        prw_e, ctx_new, erw1, erw2, fb_e) [B, columns]."""
+        nE = tb["isfill_E"].shape[0]
+        B, K = ki.shape
+        V = self.V
+        dev = ki.device
+        exg = svk.transpose(1, 2)[:, :, tb["f0p_E"]]              # [B, K, E]
+        if self.lm_mode == "rows":
+            lmrow = tb["rows"][ctx_k.long()]                      # [B, K, E]
+            rh = tb["rows_h"][ctx_k.long()]                       # [B, K, 2]
+            rw1_k = rh[..., 0].to(torch.int32)
+            rw2_k = rh[..., 1].to(torch.int32)
+        else:
+            # modes B and C: the bigram row of the context's newest word
+            # (+ trigram backoff), then the sparse per-context trigram
+            # overrides
+            is_tri = ctx_k > V
+            bidx = torch.clamp(ctx_k - 1 - V, 0, max(self.N_BG - 1, 0)).long()
+            meta = tb["bgmeta"][bidx]                             # [B, K, 8]
+            rw1_k = torch.where(is_tri, meta[..., 0],
+                                torch.where(ctx_k > 0, ctx_k - 1, V)
+                                .to(torch.int32))
+            rw2_k = torch.where(is_tri, meta[..., 1], V).to(torch.int32)
+            bo2w_v = meta[..., 2].contiguous().view(torch.float32)
+            h1c = torch.clamp(rw1_k, max=V).long()
+            if self.lm_mode == "csr":
+                base, ctxrow = self._csr_rows(tb, h1c)
+            else:
+                base = tb["bg"][h1c]                              # [B, K, E]
+            lmrow = base + torch.where(is_tri, bo2w_v, 0.0)[..., None]
+            if self.S_TRI:
+                S_TRI = self.S_TRI
+                if "tg2c" in tb:
+                    wc, wv = tb["tg2c"][bidx], tb["tg2v"][bidx]   # [B, K, S]
+                else:
+                    pos0 = (meta[..., 3:4].long()
+                            + torch.arange(S_TRI, device=dev))
+                    wc, wv = tb["tg_cols"][pos0], tb["tg_vals"][pos0]
+                pos = torch.arange(S_TRI, device=dev)
+                ok = (pos < meta[..., 4:5]) & is_tri[..., None]
+                idx = torch.where(ok, wc, nE).long()
+                lmp = torch.cat([lmrow, lmrow.new_zeros((B, K, 1))], 2)
+                lmp.scatter_(2, idx, torch.where(ok, wv, 0.0))
+                lmrow = lmp[..., :nE]
+        if self.lm_mode != "csr":
+            ctxrow = tb["ctx_next"][torch.clamp(rw1_k, min=0).long()]
+        accm = tb["accept_T"][fb_k]                               # [B, K, E]
+        cand = (exg + torch.where(tb["isfill_E"], tb["fillpen_E"],
+                                  lmrow + wpen)
+                + (accm - 1.0) * 1e30
+                + torch.where(kv > NEG_INF / 2, 0.0, NEG_INF)[..., None])
+        # first-winner entry per column: one argmax over K, payload gathers
+        entry, am = torch.max(cand, dim=1)                        # [B, E]
+        prw_e = torch.gather(ki, 1, am)
+        srcctx = torch.gather(ctx_k, 1, am)
+        srcrw1 = torch.gather(rw1_k, 1, am)
+        srcrw2 = torch.gather(rw2_k, 1, am)
+        fb_e = torch.gather(fb_k, 1, am)
+        ctxsel = torch.gather(ctxrow, 1, am[:, None, :])[:, 0]
+        ctx_new = torch.where(tb["isfill_E"], srcctx,
+                              ctxsel.to(torch.int32))
+        erw1 = torch.where(tb["isreal_E"], tb["lmwid_E"], srcrw1)
+        # fillers inherit the source's full history; real words shift it
+        erw2 = torch.where(tb["isreal_E"], srcrw1, srcrw2)
+        return entry, am, prw_e, ctx_new, erw1, erw2, fb_e
+
     def _step(self, carry, g, t, valid, minimal, mask=False):
         """One frame for B utterances.  g: this frame's senone costs by
         gather name (see `device_tables`); t: frame index; valid [B] bool;
@@ -1015,7 +1152,7 @@ class NgramFusedDecoder:
         Returns (new carry, records)."""
         tb = self.tables
         NST, n_rc, W, nE, K = self.NST, self.n_rcp, self.W, self.nE, self.K
-        n_multi, SP, V = self.n_multi, self.SP, self.V
+        n_multi, SP = self.n_multi, self.SP
         B = valid.shape[0]
         dev = valid.device
         pip = float(np.float32(self.pip))
@@ -1090,64 +1227,8 @@ class NgramFusedDecoder:
         ctx_k = torch.gather(ecx_w, 1, ki)                        # [B, K]
         fb_k = tb["fb_ci"][ki]
         svk = torch.gather(sv, 2, ki[:, None, :].expand(B, n_rc, K))
-        exg = svk.transpose(1, 2)[:, :, tb["f0p_E"]]              # [B, K, E]
-        if self.lm_mode == "rows":
-            lmfull = tb["rows"][ctx_k.long()]                     # [B,K,E+2]
-            lmrow = lmfull[..., :nE]
-            rw1_k = lmfull[..., nE].to(torch.int32)
-            rw2_k = lmfull[..., nE + 1].to(torch.int32)
-        else:
-            # modes B and C: the bigram row of the context's newest word
-            # (+ trigram backoff), then the sparse per-context trigram
-            # overrides
-            is_tri = ctx_k > V
-            bidx = torch.clamp(ctx_k - 1 - V, 0, max(self.N_BG - 1, 0)).long()
-            meta = tb["bgmeta"][bidx]                             # [B, K, 8]
-            rw1_k = torch.where(is_tri, meta[..., 0],
-                                torch.where(ctx_k > 0, ctx_k - 1, V)
-                                .to(torch.int32))
-            rw2_k = torch.where(is_tri, meta[..., 1], V).to(torch.int32)
-            bo2w_v = meta[..., 2].contiguous().view(torch.float32)
-            h1c = torch.clamp(rw1_k, max=V).long()
-            if self.lm_mode == "csr":
-                base, ctxrow = self._csr_rows(h1c)
-            else:
-                base = tb["bg"][h1c]                              # [B, K, E]
-            lmrow = base + torch.where(is_tri, bo2w_v, 0.0)[..., None]
-            if self.S_TRI:
-                S_TRI = self.S_TRI
-                if "tg2c" in tb:
-                    wc, wv = tb["tg2c"][bidx], tb["tg2v"][bidx]   # [B, K, S]
-                else:
-                    pos0 = (meta[..., 3:4].long()
-                            + torch.arange(S_TRI, device=dev))
-                    wc, wv = tb["tg_cols"][pos0], tb["tg_vals"][pos0]
-                pos = torch.arange(S_TRI, device=dev)
-                ok = (pos < meta[..., 4:5]) & is_tri[..., None]
-                idx = torch.where(ok, wc, nE).long()
-                lmp = torch.cat([lmrow, lmrow.new_zeros((B, K, 1))], 2)
-                lmp.scatter_(2, idx, torch.where(ok, wv, 0.0))
-                lmrow = lmp[..., :nE]
-        if self.lm_mode != "csr":
-            ctxrow = tb["ctx_next"][torch.clamp(rw1_k, min=0).long()]
-        accm = tb["accept_T"][fb_k]                               # [B, K, E]
-        cand = (exg + torch.where(tb["isfill_E"], tb["fillpen_E"],
-                                  lmrow + wpen)
-                + (accm - 1.0) * 1e30
-                + torch.where(kv > NEG_INF / 2, 0.0, NEG_INF)[..., None])
-        # first-winner entry per column: one argmax over K, payload gathers
-        entry, am = torch.max(cand, dim=1)                        # [B, E]
-        prw_e = torch.gather(ki, 1, am)
-        srcctx = torch.gather(ctx_k, 1, am)
-        srcrw1 = torch.gather(rw1_k, 1, am)
-        srcrw2 = torch.gather(rw2_k, 1, am)
-        fb_e = torch.gather(fb_k, 1, am)
-        ctxsel = torch.gather(ctxrow, 1, am[:, None, :])[:, 0]
-        ctx_new = torch.where(tb["isfill_E"], srcctx,
-                              ctxsel.to(torch.int32))
-        erw1 = torch.where(tb["isreal_E"], tb["lmwid_E"], srcrw1)
-        # fillers inherit the source's full history; real words shift it
-        erw2 = torch.where(tb["isreal_E"], srcrw1, srcrw2)
+        entry, am, prw_e, ctx_new, erw1, erw2, fb_e = self._transitions(
+            kv, ki, ctx_k, fb_k, svk, wpen)
         # new left-context class per multi word from the winner's final
         # base phone
         var_new = tb["lc_cls_T"][fb_e[:, :n_multi],
@@ -1419,14 +1500,20 @@ class NgramFusedDecoder:
 
     # -- decode --------------------------------------------------------------
 
+    def scoring(self):
+        """The scoring tensors `decode` and `decode_batch` score with: the
+        decoder's device's, or split over its "model" group."""
+        if self.model_devices:
+            return self.am.scoring_shards(self.model_devices)
+        return self.am.scoring_tensors(self.device)
+
     def decode(self, feats, costs=None):
         """Decode one utterance: feats [T, F, L] (or costs [T, n_sen]
         given directly).  Returns (hyp, segs); sets `hyp_score`,
         `guard_violations` and the lazily copied `records`."""
         if costs is None:
             feats = torch.as_tensor(feats, device=self.device)
-            costs = senone_scores(self.am.scoring_tensors(self.device),
-                                  feats[None])[0]
+            costs = senone_scores(self.scoring(), feats[None])[0]
         costs = torch.as_tensor(costs, device=self.device).to(torch.float32)
         T = costs.shape[0]
         raw = self.scan(costs[None], torch.ones((1, T), dtype=torch.bool,
@@ -1471,8 +1558,7 @@ class NgramFusedDecoder:
         t0 = sync()
         if costs is None:
             feats = torch.as_tensor(feats, device=dev)
-            costs = senone_scores(self.am.scoring_tensors(dev), feats,
-                                  time_chunk=16)
+            costs = senone_scores(self.scoring(), feats, time_chunk=16)
         costs = torch.as_tensor(costs, device=dev).to(torch.float32)
         B, T = costs.shape[:2]
         nf = (n_frames.cpu().numpy() if torch.is_tensor(n_frames)

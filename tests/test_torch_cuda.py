@@ -210,6 +210,97 @@ def test_decode_corpus_current_card(cuda, tmp_path):
     assert any(h for h, _ in one)
 
 
+def _tp_decoders(tmp_path, monkeypatch, device):
+    """A small decoder on `device` in LM modes B and C (C with fat rows):
+    {mode: decoder}."""
+    from pocketsphinx_tpu_torch.search.ngram_fused import NgramFusedDecoder
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=40, seed=2)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=4)
+    spec = synth.make_model([dic], seed=5, n_sen=126 + 300, n_density=8)
+    monkeypatch.setenv("PS_LM_TABLE_BYTES", "1000")
+    monkeypatch.setattr(NgramFusedDecoder, "FAT_CAP", 2)
+    out = {}
+    for mode in ("sparse", "csr"):
+        monkeypatch.setenv("PS_LM_MODE", mode)
+        out[mode] = synth.build_decoder(spec, str(tmp_path), dic, lmf,
+                                        topk=8, device=device)
+        assert out[mode].lm_mode == mode
+    return out
+
+
+def _tp_equal(dec, group):
+    """`dec.shard(group)` equals `dec` on one B=3 cost matrix: full and
+    minimal records (nviol among them), hypotheses, scores, guard counts;
+    the kernels launch once per frame, on the lead."""
+    sp = dec.shard(group)
+    assert sp.device == dec.device and len(sp.tables["columns"]) == 2
+    rng = np.random.default_rng(7)
+    costs = rng.uniform(0, 400, (3, 50, dec.am.n_sen)).astype(np.float32)
+    costs[:, 20] = 1e29
+    costs = torch.as_tensor(costs, device=dec.device)
+    nf = np.array([50, 31, 12])
+    valid = torch.as_tensor(np.arange(50)[None, :] < nf[:, None],
+                            device=dec.device)
+    for minimal in (False, True):
+        n = (fan.launches, chain.launches)
+        got = sp.scan(costs, valid, minimal)
+        assert (fan.launches - n[0], chain.launches - n[1]) == (64, 64)
+        for a, b in zip(got, dec.scan(costs, valid, minimal)):
+            assert a.device == dec.device and torch.equal(a, b)
+    want = chip_smoke._results(dec.decode_batch(None, nf, False, costs))
+    assert chip_smoke._results(sp.decode_batch(None, nf, False, costs)) == \
+        want
+    assert sp.hyp_scores == dec.hyp_scores and any(h for h, _ in want)
+    assert sp.guard_violations_batch == dec.guard_violations_batch
+
+
+def test_tp_one_card_equals_unsplit(cuda, tmp_path, monkeypatch):
+    """Two model parts on one card (LM modes B and C) equal the unsplit
+    decoder."""
+    for dec in _tp_decoders(tmp_path, monkeypatch, cuda).values():
+        _tp_equal(dec, ["cuda:0", "cuda:0"])
+
+
+def test_tp_split_scoring_cuda(cuda, tmp_path):
+    """The scoring split over codebooks (tp=2) and over senone slots (a tp
+    that does not divide CB) stays within the scoring tolerance of the
+    unsplit scoring on the card."""
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+    dic = str(tmp_path / "small.dic")
+    synth.small_dictionary(dic, n_words=40, seed=2)
+    am, _ = synth.make_model([dic], seed=5, n_sen=126 + 300,
+                             n_density=8).load(str(tmp_path / "model"))
+    CB = am.scoring_arrays["prec"].shape[0]
+    F, L = am.scoring_arrays["prec"].shape[1::2]
+    feats = torch.as_tensor(np.random.default_rng(3).normal(
+        0, 2, (2, 21, F, L)).astype(np.float32), device=cuda)
+    whole = senone_scores(am.scoring_tensors(cuda), feats, time_chunk=16)
+    for tp in (2, next(k for k in range(2, CB) if CB % k)):
+        got = senone_scores(am.scoring_shards(["cuda:0"] * tp), feats,
+                            time_chunk=16)
+        assert got.device == whole.device
+        torch.testing.assert_close(got, whole, atol=2e-2, rtol=1e-5)
+
+
+def test_tp_two_cards(cuda, tmp_path, monkeypatch):
+    """With two or more cards: the model parts on cards 0 and 1 (modes B
+    and C) equal the unsplit decoder on card 0, and the split scoring
+    stays within the tolerance."""
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    for dec in _tp_decoders(tmp_path, monkeypatch, "cuda:0").values():
+        _tp_equal(dec, ["cuda:0", "cuda:1"])
+    F, L = dec.am.scoring_arrays["prec"].shape[1::2]
+    feats = torch.as_tensor(np.random.default_rng(3).normal(
+        0, 2, (2, 21, F, L)).astype(np.float32), device="cuda:0")
+    got = senone_scores(dec.shard(["cuda:0", "cuda:1"]).scoring(), feats)
+    torch.testing.assert_close(
+        got, senone_scores(dec.am.scoring_tensors("cuda:0"), feats),
+        atol=2e-2, rtol=1e-5)
+
+
 def test_flat_cuda_equals_cpu(cuda, tmp_path):
     """The flat search on CUDA: a decode and a B=3 batch of unequal
     lengths give the CPU's records, hypotheses and segments."""

@@ -140,6 +140,31 @@ def test_corpus_modules_import_alone():
     assert r.returncode == 0, r.stderr
 
 
+def test_tp_modules_import_alone():
+    """Tensor parallelism (the 2-D mesh, the decoder's split, the split
+    tables and scoring) and `chip_smoke.py`'s phase 11 load and run on a
+    CPU mesh with JAX and the JAX package blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pocketsphinx_tpu'] = None\n"
+        "from pocketsphinx_tpu_torch.parallel import make_mesh\n"
+        "from pocketsphinx_tpu_torch.convert import column_ranges, "
+        "split_scan_tables, split_scoring_tensors\n"
+        "from pocketsphinx_tpu_torch.search.ngram_fused import "
+        "NgramFusedDecoder\n"
+        "from pocketsphinx_tpu_torch.models.acoustic import senone_scores\n"
+        "assert make_mesh(2, 2, device='cpu').devices.shape == (2, 2)\n"
+        "assert column_ranges(7, 2) == [(0, 4), (4, 7)]\n"
+        "NgramFusedDecoder.shard, senone_scores\n"
+        "import chip_smoke\n"
+        "chip_smoke.tensor_parallel, chip_smoke.tp_20k, chip_smoke.tp_126k, "
+        "chip_smoke.tp_cards\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def test_cli_modules_import_alone():
     """The CLI, the compat API, the VAD, the host tools, the flat search
     and the int-parity scorer, and `chip_smoke.py`'s phase 10, load with
@@ -179,7 +204,11 @@ def test_corpus_entry_points_default_to_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(n_data=1, n_model=2)
     assert make_mesh(device="cpu").shape == {"data": 1, "model": 1}
+    assert make_mesh(n_model=2, device="cpu").shape == {"data": 1,
+                                                        "model": 2}
     assert cli_batch.main(["-ctl", "x", "-hmm", "y"]) == 1
     assert "CUDA" in capsys.readouterr().err
 

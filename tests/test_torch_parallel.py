@@ -8,7 +8,8 @@ one synthetic model, dictionary and LM, from seeded PCM:
   * `TwoStagePipeline` gives the JAX one's;
   * `shard_ctl` is strided; `global_metric_sum` sums over two gloo
     processes (`init_distributed` with a TCP coordinator on localhost);
-  * tensor parallelism (`n_model > 1`) raises NotImplementedError.
+  * a [1, 2] mesh (tensor parallelism over the "model" axis) gives the
+    (1, 1) mesh's results.
 
 The two packages' costs differ within the frontend's tolerances (see
 tests/test_torch_slice.py); the results are equal at these seeds."""
@@ -22,6 +23,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import cpu_mesh
 from pocketsphinx_tpu.frontend.mfcc import MelFrontend as JaxFrontend
@@ -115,14 +117,18 @@ def test_two_stage_equals_jax(task, port_corpus):
     assert got == want == port_corpus
 
 
-def test_tensor_parallelism_not_ported(task):
-    _, pt, _ = task
-    with pytest.raises(NotImplementedError, match="model"):
-        make_mesh(n_data=1, n_model=2, device="cpu")
-    from pocketsphinx_tpu_torch.parallel.batch import Mesh
-    with pytest.raises(NotImplementedError, match="model"):
-        BatchDecodePipeline(pt, MelFrontend(**CFG),
-                            mesh=Mesh([["cpu", "cpu"]]))
+def test_tensor_parallel_mesh(task, port_corpus):
+    """A [1, 2] ("data", "model") mesh: one replica split over two CPU
+    parts gives the (1, 1) mesh's results."""
+    _, pt, pcms = task
+    mesh = make_mesh(n_data=1, n_model=2, device="cpu")
+    assert mesh.shape == {"data": 1, "model": 2}
+    assert mesh.devices.shape == (1, 2)
+    pipe = BatchDecodePipeline(pt, MelFrontend(**CFG), mesh=mesh)
+    assert pipe.data_parallelism == 1
+    (rep,) = pipe.replicas
+    assert rep.model_devices == [torch.device("cpu")] * 2
+    assert _key(pipe.decode_corpus(pcms, batch_size=2)) == port_corpus
 
 
 def test_shard_ctl_strided():
