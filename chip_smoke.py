@@ -10,9 +10,12 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    (`pocketsphinx_tpu_torch/csrc/*.cu`, one nvcc per source, in
    parallel) into build/torch_kernels/;
 2. the fan kernel against its plain torch version at the main path's
-   shapes (B=8), ties on and off, bit-equal; both timed with CUDA events
-   as device time (calls captured in a CUDA graph and replayed) and as
-   per call through the Python wrapper;
+   shapes (B=8; the fan carry padded to a multiple of 4 columns), ties
+   on and off, bit-equal, with the exit plane written into a strided
+   view of a wider buffer and the partial maxima of the new scores
+   (`check_fan`); both timed with CUDA events as device time (calls
+   captured in a CUDA graph and replayed) and as per call through the
+   Python wrapper, and the kernel at each choice of its plane groups;
 3. the grouped chain kernel (one launch per frame over every chain
    bucket) the same way at the 20k-word decoder's bucket list (the
    variant buckets and the CI bucket), against its plain version, ties
@@ -28,8 +31,9 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    segments held bit-equal against the same port run on the CPU with the
    plain kernels, from the same cost matrix;
 6. with --profile only: torch.profiler over 64 scan steps of the B=8
-   decode, device time by kernel and the device's busy share (and the
-   same at the 126k width in phase 9(a));
+   decode, device time by kernel, the device's busy share, device
+   launches and device ms per frame and the fan's share of the device
+   time (and the same at the 126k width in phase 9(a));
 7. the `Decoder` facade at the same width: a synthetic en-us-shaped
    model directory (`synth.SynthModel.write_model_dir`) with
    bench-20k.dic and bench-20k.lm.bin, on CUDA: the seconds to build
@@ -147,9 +151,11 @@ commit unpacked with `git archive`): for each TREE in the order given,
 in a process of its own and with that tree's code, it builds the kernels
 and phase 5's 20k-word decoder, then scans the costs of seeded 2 s
 utterances four times at B=1 (full records) and at B=8 (minimal
-records), and prints one JSON line per tree: the decoder's build seconds
-and the scan's ms per frame of each repetition.  Give the trees in turns
-(A B B A) to see the host's drift.
+records), and prints one JSON line per tree: the decoder's build seconds,
+the scan's ms per frame of each repetition, device launches and device
+ms per frame over 32 profiled frames, and the fan kernel's device and
+through-Python ms at the 20k and 126k shapes (the tree's `check_fan`).
+Give the trees in turns (A B B A) to see the host's drift.
 """
 
 from __future__ import annotations
@@ -176,22 +182,29 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 def fan_inputs(rng, B, NRC, W, LP, ties):
-    """Random fan-step inputs in the style of tests/test_pallas_fan.py."""
-    S = rng.uniform(-50, 0, (B, 3, NRC, W)).astype(np.float32)
+    """Random fan-step inputs in the style of tests/test_pallas_fan.py for
+    W multi-phone words: the carry, lp and tp padded to the fan carry's
+    width (`fan.padded_width`), with pads (lp's out of range) that no
+    result may read."""
+    from pocketsphinx_tpu_torch.ops.fan import padded_width
+    Wp = padded_width(W)
+    S = rng.uniform(-50, 0, (B, 3, NRC, Wp)).astype(np.float32)
     pred = rng.uniform(-50, 0, (B, W)).astype(np.float32)
-    tp = rng.uniform(-12, 0, (12, W)).astype(np.float32)
+    tp = rng.uniform(-12, 0, (12, Wp)).astype(np.float32)
     if ties:
         S, pred, tp = np.round(S), np.round(pred), np.round(tp)
     S[:, 0, :, : W // 7] = NEG_INF
     pred[:, ::5] = NEG_INF
     tp[3] = NEG_INF
+    lp = rng.integers(0, LP, Wp).astype(np.int32)
+    lp[W:] = LP + 7
     return dict(
-        S=S, TF=rng.integers(0, 400, (B, 3, NRC, W)).astype(np.int32),
-        CX=rng.integers(0, 1 << 20, (B, 3, NRC, W)).astype(np.int32),
+        S=S, TF=rng.integers(0, 400, (B, 3, NRC, Wp)).astype(np.int32),
+        CX=rng.integers(0, 1 << 20, (B, 3, NRC, Wp)).astype(np.int32),
         pred=pred, ptf=rng.integers(0, 400, (B, W)).astype(np.int32),
         pcx=rng.integers(0, 1 << 20, (B, W)).astype(np.int32),
         pre=rng.uniform(0, 60, (B, 3, NRC, LP)).astype(np.float32),
-        lp=rng.integers(0, LP, W).astype(np.int32), tp=tp)
+        lp=lp, tp=tp)
 
 
 def chain_inputs(rng, B, NST, D, W, RF, NFD, has_var, ties):
@@ -1769,8 +1782,10 @@ def _row_feats(fe, pcms, rows, device):
 
 def profile_scan(dec, fe, log, frames=64, batch=8):
     """torch.profiler over `frames` scan steps of a B=`batch` minimal-
-    record decode: device time by kernel and each device's busy share of
-    the wall time (the profiler's own overhead lowers that share)."""
+    record decode: device time by kernel, each device's busy share of
+    the wall time (the profiler's own overhead lowers that share), the
+    device launches per frame (kernels, copies and fills: the count of
+    every device row) and the fan kernel's share of the device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pocketsphinx_tpu_torch.models.acoustic import senone_scores
@@ -1800,6 +1815,8 @@ def profile_scan(dec, fe, log, frames=64, batch=8):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     dev_us = sum(r[2] for r in rows)
+    launches = sum(r[1] for r in rows) / frames
+    fan_us = sum(r[2] for r in rows if "fan_kernel" in r[0])
     busy = {}                          # device time by card (a model group)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1811,35 +1828,66 @@ def profile_scan(dec, fe, log, frames=64, batch=8):
         f"= {dev_us / 1e6 / wall:.3f} of the profiled wall, "
         f"{dev_us / 1e6 / plain_wall:.3f} of the unprofiled one; by card "
         f"{ {c: round(us / 1e6 / wall, 3) for c, us in sorted(busy.items())} }"
-        f" of the profiled wall")
+        f" of the profiled wall; {dev_us / frames / 1e3:.3f} ms of device "
+        f"time and {launches:.1f} device launches per frame, the fan "
+        f"{fan_us / dev_us:.3f} of the device time")
     for key, count, us in rows[:15]:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {us / dev_us:6.3f}  {key[:90]}")
     return dict(frames=frames, batch=batch, wall_s=plain_wall,
                 device_s=dev_us / 1e6, top=rows[:15], profiled_wall_s=wall,
+                launches_per_frame=launches, fan_share=fan_us / dev_us,
                 device_s_by_card={c: us / 1e6 for c, us in busy.items()})
 
 
+def fan_bytes(B, NRC, W, LP):
+    """Bytes a fan step over W words must move, counted without the
+    carry's pads: the S/TF/CX planes read and written, the exit plane,
+    pred/ptf/pcx, the exits, pre, lp, tp and the [B] maximum."""
+    return 4 * (18 * B * NRC * W + B * NRC * W + 6 * B * W
+                + 3 * B * NRC * LP + 13 * W + B)
+
+
 def check_fan(B, NRC, W, LP, log):
+    """The fan kernel against its plain version on `fan_inputs`, ties off
+    and on: every output bit-equal, the exit plane written into columns
+    [0, W) of a [B, NRC, W + 13] buffer (the 20k scan's exit planes have
+    13 more columns) whose other columns keep their values, and the max
+    of the kernel's partial maxima equal to the plain version's; then
+    both timed, and the kernel's device time at each choice of its plane
+    groups (`fan.GROUPS`; the wrapper's choice is `groups`)."""
     import torch
     from pocketsphinx_tpu_torch.ops import fan
     rng = np.random.default_rng(0)
     err = 0.0
     for ties in (False, True):
-        args = fan_inputs(rng, B, NRC, W, LP, ties)
-        dev = to_device(args, "cuda")
-        outs = fan.fan_step(**dev)
+        dev = to_device(fan_inputs(rng, B, NRC, W, LP, ties), "cuda")
+        bufs = [torch.full((B, NRC, W + 13), 7.0, device="cuda")
+                for _ in range(2)]
+        outs = fan.fan_step(**dev, out_f=bufs[0][:, :, :W])
         torch.cuda.synchronize()
-        refs = fan.fan_step_ref(**dev)
-        err = max(err, compare(outs, refs, f"fan ties={ties}"))
-    ms, plain, wms, wplain = timings(lambda: fan.fan_step(**dev),
-                                     lambda: fan.fan_step_ref(**dev))
-    n_ops = 18 * B * NRC * W
-    bms, by = bound_ms(nbytes(args, outs), n_ops)
-    log(f"fan B={B} NRC={NRC} W={W} LP={LP}: bit-equal; device time: "
-        f"kernel {ms:.4f} ms, plain {plain:.4f} ms; through Python: kernel "
-        f"{wms:.4f} ms, plain {wplain:.4f} ms; bound {bms:.4f} ms ({by})")
+        refs = fan.fan_step_ref(**dev, out_f=bufs[1][:, :, :W])
+        err = max(err, compare(outs[:7] + (outs[7].amax(1), bufs[0]),
+                               refs[:7] + (refs[7].amax(1), bufs[1]),
+                               f"fan ties={ties}"))
+    view = bufs[0][:, :, :W]
+    ms, plain, wms, wplain = timings(
+        lambda: fan.fan_step(**dev, out_f=view),
+        lambda: fan.fan_step_ref(**dev, out_f=view))
+    by_groups = {g: time_ms(lambda: fan.fan_step(**dev, out_f=view,
+                                                 groups=g), graph=True)
+                 for g in fan.GROUPS}
+    groups = fan._groups(B, dev["S"].shape[-1], LP, torch.cuda.
+                         get_device_properties(0).multi_processor_count)
+    bms, by = bound_ms(fan_bytes(B, NRC, W, LP), 18 * B * NRC * W)
+    log(f"fan B={B} NRC={NRC} W={W} LP={LP}: bit-equal (exit plane into a "
+        f"strided view, partial maxima); device time: kernel {ms:.4f} ms "
+        f"({groups} plane groups; by groups "
+        f"{ {g: round(t, 4) for g, t in by_groups.items()} }), plain "
+        f"{plain:.4f} ms; through Python: kernel {wms:.4f} ms, plain "
+        f"{wplain:.4f} ms; bound {bms:.4f} ms ({by}), {bms / ms:.3f} of it")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain)
+                bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain,
+                groups=groups, ms_by_groups=by_groups)
 
 
 def check_chain(B, buckets, log):
@@ -1930,6 +1978,8 @@ def check_ties(log):
 AB_RUN = r"""
 import json, tempfile, time
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 import chip_smoke
 from pocketsphinx_tpu_torch.models.acoustic import senone_scores
 from pocketsphinx_tpu_torch.ops import _build
@@ -1954,13 +2004,32 @@ for B in (1, 8):
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) / costs.shape[1] * 1e3)
     out[f"B{B}_ms_per_frame"] = ms
+    # device launches (every device row) and device ms per frame
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dec.scan(costs[:, :32], valid[:, :32], minimal=B > 1)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    out[f"B{B}_launches_per_frame"] = sum(e.count for e in rows) / 32
+    out[f"B{B}_device_ms_per_frame"] = sum(
+        e.self_device_time_total for e in rows) / 32 / 1e3
+# the fan kernel at the 20k and 126k shapes (device ms, through Python)
+for key, W in (("fan_20k", dec.n_multi), ("fan_126k", 125973)):
+    r = chip_smoke.check_fan(8, dec.n_rcp, W, dec.senid_fin_d.shape[-1],
+                             lambda *a: None)
+    out[key] = [r["ms"], r["wrapper_ms"]]
 print(json.dumps(out))
 """
 
 
 def ab(trees, log):
     """`--ab`: the 20k decoder's build and scan of each checkout in turn
-    (`AB_RUN` in the tree's directory, with its own `chip_smoke`)."""
+    (`AB_RUN` in the tree's directory, with its own `chip_smoke`): ms per
+    frame at B=1 and 8, device launches and device ms per frame over 32
+    profiled frames, and the fan kernel's device and through-Python ms
+    at the 20k and the 126k shapes (its own `check_fan`)."""
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2

@@ -15,10 +15,14 @@ The network (see the JAX module's docstring for the design):
     flat carry (the buckets' [B, NST, D, Wb] blocks end to end);
   * the word-final right-context fan [NST, n_rc, n_multi] -- stepped by
     the fan kernel (`ops/fan.py`, CUDA on the card) for 3-state models,
-    and for other topologies by the JAX scan's XLA finals block as torch
-    ops (the `lp` gather of the per-final-diphone costs, `hmm_step_sm`,
-    the strict '>' chain-last entry, first-max exits; the JAX package
-    runs its Pallas fan only at 3 states too);
+    on a carry padded to `fan.padded_width(n_multi)` columns (as the JAX
+    scan pads its fan carry to the Pallas tile), which writes its exit
+    plane into the step's [B, n_rc, W] exit planes and reduces the
+    renormalization's max over its planes; for other topologies by the
+    JAX scan's XLA finals block as torch ops on an unpadded carry (the
+    `lp` gather of the per-final-diphone costs, `hmm_step_sm`, the strict
+    '>' chain-last entry, first-max exits; the JAX package runs its
+    Pallas fan only at 3 states too);
   * single-phone words as explicit left-context columns, CI/filler words
     as chains without variants (in the same chain launch);
   * top-K word exits per frame, exact trigram successor rows (LM mode
@@ -61,7 +65,7 @@ from ..models.dict2pid import Dict2Pid
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..lm.ngram import NgramModel
 from ..ops.chain import ChainGroup, chain_group_step
-from ..ops.fan import fan_step
+from ..ops.fan import fan_step, padded_width
 from ..ops.hmm import hmm_step_sm
 
 NEG_INF = -1e30
@@ -239,6 +243,12 @@ class NgramFusedDecoder:
                    for k, ch in enumerate(self.chains)]
         buckets += [dict(tp=out.pop(f"ci_tp{k}"), fm=out[f"ci_fm{k}"])
                     for k in range(len(self.ci_chains))]
+        if "tp_fin12" in out:
+            # the fan kernel's per-word tables, padded like its carry
+            pad = padded_width(self.n_multi) - self.n_multi
+            out["lp_idx"] = torch.nn.functional.pad(out["lp_idx"], (0, pad))
+            out["tp_fin12"] = torch.nn.functional.pad(
+                out["tp_fin12"], (0, pad), value=NEG_INF)
         grp = out["chain"] = ChainGroup(self.NST, buckets)
         sizes = [int(np.prod(s)) for s in self.seg_shapes.values()]
         seg = dict(zip(self.seg_shapes,
@@ -958,7 +968,9 @@ class NgramFusedDecoder:
 
     def init_carry(self, B: int) -> dict:
         """The scan carry for B utterances at frame 0: every token dead
-        except <s> entered at its first node (JAX `init_carry`)."""
+        except <s> entered at its first node (JAX `init_carry`).  The
+        fan carry of a 3-state model is padded to the fan kernel's width
+        (`fan.padded_width`)."""
         dev, NST, n_rc = self.device, self.NST, self.n_rcp
 
         def planes(*shape):
@@ -972,7 +984,8 @@ class NgramFusedDecoder:
 
         c = {"chain": self.tables["chain"].init_carry(B)}
         c["ch"], c["ci"] = self._chain_views(c["chain"], B)
-        c["fin"] = planes(n_rc, self.n_multi) if self.n_multi else None
+        Wf = padded_width(self.n_multi) if NST == 3 else self.n_multi
+        c["fin"] = planes(n_rc, Wf) if self.n_multi else None
         c["sp"] = planes(n_rc, self.SP) if self.SP else None
         if self.start_idx is not None:
             s_lm = self.lm.wid("<s>")
@@ -1168,20 +1181,24 @@ class NgramFusedDecoder:
             pip)
         newc = {"chain": dict(S=nS, TF=nTF, CTX=nCX, VAR=nVAR)}
         newc["ch"], newc["ci"] = self._chain_views(newc["chain"], B)
+        # the right-context exit planes of every word [B, n_rc, W]: the
+        # fan's, the single-phone words' and the CI chains' columns
+        sv = torch.empty((B, n_rc, W), device=dev)
         # ---------- finals fan ----------
+        fin_mx = None           # the fan's partial maxima of its new S
         if n_multi and NST == 3:
             e = carry["fin"]
             pred = cl_s + pip                                  # [B, Wm]
-            nSf, nTFf, nCXf, sv_m, esc_m, etf_m, ecx_m = fan_step(
+            nSf, nTFf, nCXf, _, esc_m, etf_m, ecx_m, fin_mx = fan_step(
                 e["S"], e["TF"], e["CTX"], pred, cl_tf, cl_cx, g_fin,
-                tb["lp_idx"], tb["tp_fin12"])
+                tb["lp_idx"], tb["tp_fin12"], out_f=sv[:, :, :n_multi])
             fin_new = dict(S=nSf, TF=nTFf, CTX=nCXf)
         elif n_multi:
             fin_new, sv_m, esc_m, etf_m, ecx_m = self._finals_step(
                 carry["fin"], g_fin, cl_s + pip, cl_tf, cl_cx)
+            sv[:, :, :n_multi] = sv_m
         else:
             fin_new = None
-            sv_m = torch.zeros((B, n_rc, 0), device=dev)
             esc_m = torch.zeros((B, 0), device=dev)
             etf_m = ecx_m = torch.zeros((B, 0), dtype=torch.int32, device=dev)
         # ---------- single-phone columns ----------
@@ -1202,10 +1219,10 @@ class NgramFusedDecoder:
             ecx_s = torch.gather(colcx.view(B, nS_, Cm), 2, am2[..., None])[..., 0]
             etg_s = (n_multi + torch.arange(nS_, device=dev)[None, :] * Cm
                      + am2).to(torch.int32)
-            sv_s = out_s.view(B, n_rc, nS_, Cm).amax(dim=3)
+            torch.amax(out_s.view(B, n_rc, nS_, Cm), dim=3,
+                       out=sv[:, :, n_multi:n_multi + nS_])
         else:
             sp_new = None
-            sv_s = torch.zeros((B, n_rc, 0), device=dev)
             esc_s = torch.zeros((B, 0), device=dev)
             etf_s = ecx_s = etg_s = torch.zeros((B, 0), dtype=torch.int32,
                                                 device=dev)
@@ -1218,8 +1235,7 @@ class NgramFusedDecoder:
         etgt_w = (torch.cat([etgt0[:, :n_multi], etg_s,
                              etgt0[:, n_multi + self.n_single:]], 1)
                   if SP else etgt0)
-        sv = torch.cat([sv_m, sv_s, esc_c[:, None, :].expand(
-            B, n_rc, esc_c.shape[1])], 2)                        # [B,n_rc,W]
+        sv[:, :, n_multi + self.n_single:] = esc_c[:, None, :]
         # top-K exits: stable descending sort = jax.lax.top_k tie order;
         # ranks K..K+GM refine the exactness guard (PS_GUARD_TOPM)
         kv2, ki2 = torch.sort(escore, dim=1, descending=True, stable=True)
@@ -1310,8 +1326,11 @@ class NgramFusedDecoder:
         # ---------- renormalize ----------
         groups = newc["ch"] + newc["ci"] + [x for x in (fin_new, sp_new)
                                             if x is not None]
-        m = torch.stack([x["S"].amax(dim=(1, 2, 3)) for x in groups],
-                        1).amax(dim=1)
+        # the fan kernel reduced its planes' maxima (fin_mx [B, P])
+        cols = [x["S"].amax(dim=(1, 2, 3))[:, None] for x in groups
+                if fin_mx is None or x is not fin_new]
+        m = torch.cat(cols + ([fin_mx] if fin_mx is not None else []),
+                      1).amax(dim=1)
         m = torch.clamp(m, min=NEG_INF)
         for x in groups:
             x["S"].sub_(m[:, None, None, None])

@@ -24,14 +24,31 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.mark.parametrize("shape", [(3, 11, 257, 37), (2, 41, 7, 5),
+                                   (8, 41, 20035, 601), (8, 41, 125973, 601)],
+                         ids=["ragged", "under_one_block", "20k", "126k"])
 @pytest.mark.parametrize("ties", [False, True])
-def test_fan_kernel_bit_equal(cuda, ties):
+def test_fan_kernel_bit_equal(cuda, shape, ties):
+    """Every output of the kernel, at every choice of its plane groups,
+    equals the plain version's: the padded carry (pads NEG_INF/0), the
+    exit plane written into columns [2, 2 + W) of a wider buffer whose
+    other columns keep their values, the exits, and the max of the
+    partial maxima."""
+    B, NRC, W, LP = shape
     a = chip_smoke.to_device(chip_smoke.fan_inputs(
-        np.random.default_rng(1), 3, 11, 257, 37, ties), cuda)
-    n = fan.launches
-    outs = fan.fan_step(**a)
-    assert fan.launches == n + 1
-    chip_smoke.compare(outs, fan.fan_step_ref(**a), "fan")
+        np.random.default_rng(1), B, NRC, W, LP, ties), cuda)
+    bufs = [torch.full((B, NRC, W + 5), 7.0, device=cuda) for _ in range(2)]
+    refs = fan.fan_step_ref(**a, out_f=bufs[1][:, :, 2:W + 2])
+    for groups in (None,) + fan.GROUPS:
+        bufs[0].fill_(7.0)
+        n = fan.launches
+        outs = fan.fan_step(**a, out_f=bufs[0][:, :, 2:W + 2], groups=groups)
+        assert fan.launches == n + 1
+        torch.cuda.synchronize()
+        assert bool((outs[0][..., W:] == chip_smoke.NEG_INF).all())
+        chip_smoke.compare(outs[:7] + (outs[7].amax(1), bufs[0]),
+                           refs[:7] + (refs[7].amax(1), bufs[1]),
+                           f"fan groups={groups}")
 
 
 @pytest.mark.parametrize("NST,has_var", [(3, True), (3, False), (5, True)])
