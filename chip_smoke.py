@@ -19,7 +19,11 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
 3. the grouped chain kernel (one launch per frame over every chain
    bucket) the same way at the 20k-word decoder's bucket list (the
    variant buckets and the CI bucket), against its plain version, ties
-   on and off;
+   on and off; then the word-transition kernel (`check_transitions`, one
+   launch per frame over every entry column) on a real frame's top-K
+   exits of that decoder (LM mode B) and on the same exits with ties
+   (`tie_exits`), at each choice of its columns per thread, all seven
+   outputs bit-equal to its plain version, timed as in phase 2;
 4. torch's argmax / max(dim) / stable sort tie order on CUDA (first
    maximum, lower index first), which the scan's exactness relies on;
 5. the main path at full width: a seeded synthetic acoustic model at
@@ -32,8 +36,9 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    plain kernels, from the same cost matrix;
 6. with --profile only: torch.profiler over 64 scan steps of the B=8
    decode, device time by kernel, the device's busy share, device
-   launches and device ms per frame and the fan's share of the device
-   time (and the same at the 126k width in phase 9(a));
+   launches and device ms per frame and the fan's and the word-transition
+   kernel's shares of the device time (and the same at the 126k width in
+   phase 9(a));
 7. the `Decoder` facade at the same width: a synthetic en-us-shaped
    model directory (`synth.SynthModel.write_model_dir`) with
    bench-20k.dic and bench-20k.lm.bin, on CUDA: the seconds to build
@@ -68,9 +73,9 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    vocabulary with bench-20k.dic's pronunciations and a synthetic
    en-us-shaped model over it (`reference_scale`): LM mode C (asserted),
    the LM read and decoder build seconds, W, E, the chain buckets, the
-   fat rows and SB, and both kernels held bit-equal to their plain
-   versions at this decoder's shapes (ties on and off) and timed as in
-   phases 2-3; (b) `BatchDecodePipeline.decode_corpus` on one card of 16
+   fat rows and SB, and the three kernels held bit-equal to their plain
+   versions at this decoder's shapes (ties on and off; the transition
+   kernel in LM mode C) and timed as in phases 2-3; (b) `BatchDecodePipeline.decode_corpus` on one card of 16
    seeded utterances of 2-5 s (two B=8 batches), three times: audio-s/s (the
    median), stage seconds, peak memory, the guard count, fan and chain
    launches equal to the frames stepped; then one B=8 batch of short
@@ -86,7 +91,9 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    peak memories; (e) `batch_cli`: `cli_batch.main` over a synthetic model
    directory with bench-1.7k.dic and bench-1.7k.lm.bin and eight seeded
    WAV files (`-adcin yes`), at `-batchsize 8` and 1, identical `-hyp`
-   and `-hypseg` files;
+   and `-hypseg` files; (e') `rows_transitions`: the word-transition
+   kernel in LM mode rows, on a decoder of bench-1.7k.dic and
+   bench-1.7k.lm.bin, as in phase 3;
 10. the command-line program, the compat API and the flat search:
    (a) `cli_20k`: `cli.main` in-process on phase 7's model directory
    with bench-20k.dic and bench-20k.lm.bin, `single` on a seeded 2 s WAV
@@ -132,11 +139,14 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    per data row.  (c) and (d) print that they were skipped on fewer
    cards.
 
-Prints the kernels' JSON line (the two kernels at the 20k shapes with
-the main path's launches, phase 11(a)'s (`tp_launches`), phase 7's
-(`facade_launches`) and phase 10(a)'s (`cli_launches`), then at the
-126k shapes, `*_126k`, with phase 9(b)'s and phase 11(b)-(d)'s), then as
-its last line
+Every phase that decodes with the n-gram search holds each kernel's
+launches to the frames it stepped (the word-transition kernel once per
+frame on each part of a "model" group).  Prints the kernels' JSON line
+(the three kernels at the 20k shapes with the main path's launches,
+phase 11(a)'s (`tp_launches`), phase 7's (`facade_launches`) and phase
+10(a)'s (`cli_launches`), the transition kernel's LM-mode-rows check as
+`rows_*`; then at the 126k shapes, `*_126k`, with phase 9(b)'s and phase
+11(b)-(d)'s), then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises; without CUDA it exits non-zero before any
 result.
@@ -154,7 +164,9 @@ utterances four times at B=1 (full records) and at B=8 (minimal
 records), and prints one JSON line per tree: the decoder's build seconds,
 the scan's ms per frame of each repetition, device launches and device
 ms per frame over 32 profiled frames, and the fan kernel's device and
-through-Python ms at the 20k and 126k shapes (the tree's `check_fan`).
+through-Python ms at the 20k and 126k shapes (the tree's `check_fan`)
+and the word-transition kernel's at the 20k shape, in a tree that has
+it (`check_transitions`).
 Give the trees in turns (A B B A) to see the host's drift.
 """
 
@@ -257,6 +269,67 @@ def chain_group_args(per, device):
                  if p["prevd"] is not None])
     return grp, dict(S=flat("S"), TF=flat("TF"), CTX=flat("CTX"),
                      VAR=flat("VAR"), g=g, pip=per[0]["pip"])
+
+
+#: the port's kernels, by their module in `pocketsphinx_tpu_torch.ops`
+KERNELS = ("fan", "chain", "transitions")
+
+
+def _kernel_modules():
+    from pocketsphinx_tpu_torch.ops import chain, fan, transitions
+    return dict(fan=fan, chain=chain, transitions=transitions)
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    for m in _kernel_modules().values():
+        m.reset_launches()
+
+
+def counts():
+    """Every kernel's launches since `reset_counts`, by name."""
+    return {k: m.launches for k, m in _kernel_modules().items()}
+
+
+def frame_exits(dec, costs):
+    """The word-transition block's arguments (block tables, LM layout,
+    kv, ki, ctx_k, fb_k, svk, wpen) at the last frame of a short
+    minimal-record scan of `costs` [B, T, n_sen] (at most two chunks):
+    one tuple for each part of `dec`'s "model" group (one unsplit)."""
+    import torch
+    from pocketsphinx_tpu_torch.search import ngram_fused
+    seen, inner = [], ngram_fused.transitions
+
+    def spy(*a, **k):
+        seen.append(a)
+        return inner(*a, **k)
+    ngram_fused.transitions = spy
+    try:
+        T = min(costs.shape[1], 2 * dec.CHUNK)
+        dec.scan(costs[:, :T], torch.ones(costs.shape[0], T, dtype=torch.bool,
+                                          device=dec.device), minimal=True)
+    finally:
+        ngram_fused.transitions = inner
+    parts = dec.tables["columns"]
+    return seen[-(1 if parts is None else len(parts)):]
+
+
+def tie_exits(args, rng, n_pairs=24, n_dead=5):
+    """`frame_exits` arguments with ties: `n_pairs` random exits k2 take
+    the context, final phone, score and exit planes of an earlier exit
+    k1 (so every column's cand ties between them, and only the winner's
+    word id tells them apart), and `n_dead` exits are dead (kv NEG_INF)."""
+    tb, lm, kv, ki, ctx_k, fb_k, svk, wpen = args
+    kv, ctx_k, fb_k, svk = (x.clone() for x in (kv, ctx_k, fb_k, svk))
+    K = kv.shape[1]
+    if K > 1:
+        for _ in range(n_pairs):
+            k1, k2 = sorted(rng.choice(K, 2, replace=False).tolist())
+            for x in (kv, ctx_k, fb_k):
+                x[:, k2] = x[:, k1]
+            svk[:, :, k2] = svk[:, :, k1]
+    kv[:, rng.choice(K, min(n_dead, K), replace=False).tolist()] = NEG_INF
+    return tb, lm, kv, ki, ctx_k, fb_k, svk, wpen
 
 
 def to_device(args, device):
@@ -460,12 +533,10 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
     and counts the kernels' launches over exactly this run."""
     import torch
     from pocketsphinx_tpu_torch.models.acoustic import senone_scores
-    from pocketsphinx_tpu_torch.ops import chain, fan
 
     cuda = torch.device(device).type == "cuda"
     ch = dec.CHUNK
-    fan.reset_launches()
-    chain.reset_launches()
+    reset_counts()
     frames = 0
     res = {"utts": []}
     first = None
@@ -507,9 +578,9 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
         if runs[0].setdefault("hyps", hyps) != hyps:
             raise AssertionError("repeated batch decode changed its result")
     hyps = runs[0].pop("hyps")
-    res["launches"] = {"fan": fan.launches, "chain": chain.launches}
+    res["launches"] = counts()
     if cuda:
-        want = {"fan": frames, "chain": frames}
+        want = dict.fromkeys(KERNELS, frames)
         if res["launches"] != want:
             raise AssertionError(f"launch counts {res['launches']} != "
                                  f"expected {want}")
@@ -544,7 +615,6 @@ def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
     import copy
     import torch
     from pocketsphinx_tpu_torch import Decoder
-    from pocketsphinx_tpu_torch.ops import chain, fan
     from pocketsphinx_tpu_torch.testing import synth
 
     dic = dic or os.path.join(BENCH, "bench-20k.dic")
@@ -570,8 +640,7 @@ def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
         search.lm._level_map(level)
     res = {"utts": [], "lm_maps_s": time.perf_counter() - t0}
     log(f"facade: LM host maps built in {res['lm_maps_s']:.4f} s")
-    fan.reset_launches()
-    chain.reset_launches()
+    reset_counts()
     frames = 0
     for i, sec in enumerate(seconds):                      # (a)
         h = dec.decode_raw(synth.make_pcm(100 + i, sec))
@@ -617,9 +686,9 @@ def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
     dec._scores = scores
     blocks = dec.stream_block_seconds
     frames += 32 * len(blocks)
-    res["launches"] = {"fan": fan.launches, "chain": chain.launches}
+    res["launches"] = counts()
     if torch.device(device).type == "cuda":                 # (c)
-        want = {"fan": frames, "chain": frames}
+        want = dict.fromkeys(KERNELS, frames)
         if res["launches"] != want:
             raise AssertionError(f"facade launch counts {res['launches']} "
                                  f"!= frames stepped {want}")
@@ -776,7 +845,6 @@ def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
     ms per frame on one host at one time.  Returns what it measured."""
     import torch
     from pocketsphinx_tpu_torch import Decoder
-    from pocketsphinx_tpu_torch.ops import chain, fan
     from pocketsphinx_tpu_torch.testing import synth
 
     dic = dic or os.path.join(BENCH, "bench-20k.dic")
@@ -846,16 +914,16 @@ def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
                          for B in (1, 8)}
     for level in range(1, s5.lm.order):      # the best-path LM maps
         s5.lm._level_map(level)
-    fan.reset_launches()
-    chain.reset_launches()
+    reset_counts()
     pcm5 = synth.make_pcm(400, SECONDS5)
     h = dec5.decode_raw(pcm5)
     T = dec5.n_frames
     frames = -(-T // s5.CHUNK) * s5.CHUNK
-    launches = {"fan": fan.launches, "chain": chain.launches}
-    if cuda and launches != {"fan": 0, "chain": frames}:
+    launches = counts()
+    if cuda and launches != {"fan": 0, "chain": frames,
+                             "transitions": frames}:
         raise AssertionError(f"5-state launches {launches} != fan 0, chain "
-                             f"{frames} (frames stepped)")
+                             f"and transitions {frames} (frames stepped)")
     st = {k: t.t_elapsed for k, t in dec5.stage_timers.items()}
     res["nst5"] = dict(frames=T, hyp=h.hypstr, launches=launches,
                        search_s=st["search"],
@@ -953,7 +1021,6 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
     (phase 11's reference).  Returns what it measured."""
     import torch
     from pocketsphinx_tpu_torch.models.acoustic import senone_scores
-    from pocketsphinx_tpu_torch.ops import chain, fan
     from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
     from pocketsphinx_tpu_torch.parallel.pipeline import TwoStagePipeline
     from pocketsphinx_tpu_torch.testing import synth
@@ -978,6 +1045,7 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
         res["fan"] = check_fan(batch, dec.n_rcp, dec.n_multi,
                                dec.senid_fin_d.shape[-1], log)
         res["chain"] = check_chain(batch, buckets_of(dec), log)
+        res["transitions"] = check_transitions(dec, fe, log, batch=batch)
         if profile:
             res["profile"] = profile_scan(dec, fe, log, batch=batch)
 
@@ -990,8 +1058,7 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
     frames = sum(-(-fe.n_frames(max(lens[i:i + batch])) // ch) * ch
                  for i in range(0, len(lens), batch))
     pipe = BatchDecodePipeline(dec, fe, mesh=make_mesh(1, device=dec.device))
-    fan.reset_launches()
-    chain.reset_launches()
+    reset_counts()
     _reset_peak(device)
     runs, first = [], None
     for _ in range(repeats):
@@ -1007,9 +1074,8 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
             first = out
         elif out != first:
             raise AssertionError("repeated decode_corpus changed its result")
-    launches = {"fan": fan.launches, "chain": chain.launches}
-    if cuda and launches != {"fan": frames * repeats,
-                             "chain": frames * repeats}:
+    launches = counts()
+    if cuda and launches != dict.fromkeys(KERNELS, frames * repeats):
         raise AssertionError(f"decode_corpus launches {launches} != frames "
                              f"stepped {frames * repeats}")
     med = sorted(runs, key=lambda r: r["audio_s_per_s"])[len(runs) // 2]
@@ -1158,6 +1224,27 @@ def batch_cli(work, device, log=print, dic=None, lmfile=None, n_utts=8,
     return res
 
 
+def rows_transitions(work, log=print, device="cuda"):
+    """Phase 9(e'): the word-transition kernel in LM mode rows, on a
+    decoder of bench-1.7k.dic and bench-1.7k.lm.bin over a seeded
+    synthetic en-us-shaped model (files under `work`/rows_1k7):
+    `check_transitions` at its shapes."""
+    t0 = time.perf_counter()
+    d = os.path.join(work, "rows_1k7")
+    os.makedirs(d, exist_ok=True)
+    dec, fe = build_decoder(os.path.join(BENCH, "bench-1.7k.dic"),
+                            os.path.join(BENCH, "bench-1.7k.lm.bin"), d,
+                            device)
+    if dec.lm_mode != "rows":
+        raise AssertionError(f"1.7k LM mode {dec.lm_mode} != rows")
+    build_s = time.perf_counter() - t0
+    res = check_transitions(dec, fe, log)
+    res["build_s"] = build_s
+    log(f"phase 9(e') transitions at 1.7k, LM mode rows: "
+        + json.dumps(res, default=float))
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 10: the CLI, the compat API, the flat search, top-K exactness
 # ---------------------------------------------------------------------------
@@ -1172,10 +1259,8 @@ def run_cli(argv, device):
     import gc
     import io
     from pocketsphinx_tpu_torch import cli
-    from pocketsphinx_tpu_torch.ops import chain, fan
 
-    fan.reset_launches()
-    chain.reset_launches()
+    reset_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -1184,8 +1269,7 @@ def run_cli(argv, device):
     gc.collect()                    # the CLI's decoder and its tables
     if rc != 0:
         raise AssertionError(f"cli {argv[-2:]} exited {rc}")
-    return (out.getvalue().splitlines(), secs,
-            {"fan": fan.launches, "chain": chain.launches})
+    return out.getvalue().splitlines(), secs, counts()
 
 
 def cli_20k(work, device, log=print, hmm=None, dic=None, lmfile=None,
@@ -1229,7 +1313,7 @@ def cli_20k(work, device, log=print, hmm=None, dic=None, lmfile=None,
     frames = -(-dec.n_frames // ch) * ch
     if single != want:
         raise AssertionError(f"cli single {single} != decode_raw {want}")
-    if cuda and single_l != {"fan": frames, "chain": frames}:
+    if cuda and single_l != dict.fromkeys(KERNELS, frames):
         raise AssertionError(f"cli single launches {single_l} != frames "
                              f"stepped {frames}")
     segs = list(Endpointer(sample_rate=dec.fe.samprate).segment(pcm2))
@@ -1253,7 +1337,7 @@ def cli_20k(work, device, log=print, hmm=None, dic=None, lmfile=None,
                 raw_docs.append(cli.segment_doc(dec, start, end))
     if live != want:
         raise AssertionError(f"cli live {live} != the decoder's {want}")
-    if cuda and live_l != {"fan": frames_l, "chain": frames_l}:
+    if cuda and live_l != dict.fromkeys(KERNELS, frames_l):
         raise AssertionError(f"cli live launches {live_l} != frames "
                              f"stepped {frames_l}")
     res = dict(single=dict(seconds=single_secs, launches=single_l,
@@ -1524,23 +1608,10 @@ def block_times(sp, costs, reps=10):
     of `sp`'s "model" group (CUDA events on that part's card), and of the
     frame's copies to and from the parts off the lead (events on the
     lead's stream, which waits for them); the exits of the frame come
-    from a short scan of `costs`."""
+    from a short scan of `costs` (`frame_exits`)."""
     import torch
     from pocketsphinx_tpu_torch import on_device
-    seen = []
-    inner = sp._transitions
-
-    def spy(*a):
-        seen.append(a)
-        return inner(*a)
-    sp._transitions = spy
-    try:
-        T = min(costs.shape[1], 2 * sp.CHUNK)
-        sp.scan(costs[:, :T], torch.ones(costs.shape[0], T, dtype=torch.bool,
-                                         device=sp.device), minimal=True)
-    finally:
-        del sp._transitions
-    args, wpen = seen[-1][:5], seen[-1][5]
+    from pocketsphinx_tpu_torch.ops.transitions import transitions
     lead = sp.device
 
     def ms(dev, fn):
@@ -1557,13 +1628,13 @@ def block_times(sp, costs, reps=10):
 
     shard_ms = []
     copy_ms = 0.0
-    for dev, tb in sp.tables["columns"]:
-        xs = [x.to(dev) for x in args]
-        shard_ms.append(ms(dev, lambda: sp._columns(tb, *xs, wpen)))
+    for (dev, _), args in zip(sp.tables["columns"], frame_exits(sp, costs)):
+        shard_ms.append(ms(dev, lambda: transitions(*args)))
         if dev != lead:
-            outs = sp._columns(tb, *xs, wpen)
+            exits = [x.to(lead) for x in args[2:7]]
+            outs = transitions(*args)
             torch.cuda.synchronize(dev)
-            copy_ms += ms(lead, lambda: ([x.to(dev) for x in args],
+            copy_ms += ms(lead, lambda: ([x.to(dev) for x in exits],
                                          [o.to(lead) for o in outs]))
     return shard_ms, copy_ms
 
@@ -1582,7 +1653,6 @@ def tensor_parallel(dec, fe, mesh, pcms, ref, ref_guard, log=print, batch=8,
     memory per card and the block's device times per part."""
     import torch
     from pocketsphinx_tpu_torch.models.acoustic import senone_scores
-    from pocketsphinx_tpu_torch.ops import chain, fan
     from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline
 
     cuda = mesh.devices[0, 0].type == "cuda"
@@ -1599,18 +1669,20 @@ def tensor_parallel(dec, fe, mesh, pcms, ref, ref_guard, log=print, batch=8,
                  for b in parts for rows in b)
     for c in cards:
         torch.cuda.reset_peak_memory_stats(c)
-    fan.reset_launches()
-    chain.reset_launches()
+    reset_counts()
     st = {}
     t0 = time.perf_counter()
     out = _results(pipe.decode_corpus(pcms, batch_size=batch, timings=st))
     for c in cards:
         torch.cuda.synchronize(c)
     dt = time.perf_counter() - t0
-    res["launches"] = {"fan": fan.launches, "chain": chain.launches}
-    if cuda and res["launches"] != {"fan": frames, "chain": frames}:
+    res["launches"] = counts()
+    # the block runs once per frame on each part of a data row's group
+    want = dict(fan=frames, chain=frames,
+                transitions=frames * mesh.shape["model"])
+    if cuda and res["launches"] != want:
         raise AssertionError(f"phase 11{what}: launches {res['launches']} "
-                             f"!= frames stepped {frames}")
+                             f"!= {want} (frames stepped {frames})")
     # scan seconds are summed over the data rows, which run at once
     res.update(audio_s_per_s=sum(lens) / fe.samprate / dt, seconds=dt,
                scan_ms_per_frame=st["scan"] / frames * 1e3,
@@ -1785,7 +1857,8 @@ def profile_scan(dec, fe, log, frames=64, batch=8):
     record decode: device time by kernel, each device's busy share of
     the wall time (the profiler's own overhead lowers that share), the
     device launches per frame (kernels, copies and fills: the count of
-    every device row) and the fan kernel's share of the device time."""
+    every device row) and the fan's and the word-transition kernel's
+    shares of the device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pocketsphinx_tpu_torch.models.acoustic import senone_scores
@@ -1817,6 +1890,7 @@ def profile_scan(dec, fe, log, frames=64, batch=8):
     dev_us = sum(r[2] for r in rows)
     launches = sum(r[1] for r in rows) / frames
     fan_us = sum(r[2] for r in rows if "fan_kernel" in r[0])
+    tr_us = sum(r[2] for r in rows if "transitions_kernel" in r[0])
     busy = {}                          # device time by card (a model group)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -1830,12 +1904,14 @@ def profile_scan(dec, fe, log, frames=64, batch=8):
         f"{ {c: round(us / 1e6 / wall, 3) for c, us in sorted(busy.items())} }"
         f" of the profiled wall; {dev_us / frames / 1e3:.3f} ms of device "
         f"time and {launches:.1f} device launches per frame, the fan "
-        f"{fan_us / dev_us:.3f} of the device time")
+        f"{fan_us / dev_us:.3f} and the word-transition kernel "
+        f"{tr_us / dev_us:.3f} of the device time")
     for key, count, us in rows[:15]:
         log(f"  {us / 1e3:9.3f} ms {count:6d}x {us / dev_us:6.3f}  {key[:90]}")
     return dict(frames=frames, batch=batch, wall_s=plain_wall,
                 device_s=dev_us / 1e6, top=rows[:15], profiled_wall_s=wall,
                 launches_per_frame=launches, fan_share=fan_us / dev_us,
+                transitions_share=tr_us / dev_us,
                 device_s_by_card={c: us / 1e6 for c, us in busy.items()})
 
 
@@ -1924,6 +2000,104 @@ def check_chain(B, buckets, log):
                 bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain)
 
 
+def transitions_bytes(args, am):
+    """Bytes the word-transition block must move for `frame_exits`
+    arguments `args`, given its winners `am` [B, E]: the exits and their
+    exit planes, the [E] column tables (the accept table as its packed
+    bits), the LM data these exits' contexts select (each distinct dense
+    row once; each distinct history's CSR entries and metadata row; each
+    distinct trigram context's corrections), the winners' successor-
+    context elements, and the seven [B, E] outputs, each once."""
+    import torch
+    tb, lm, kv, ki, ctx_k, fb_k, svk, wpen = args
+    B, K = kv.shape
+    nE = tb["isfill_E"].shape[0]
+    size = lambda x: x.numel() * x.element_size()  # noqa: E731
+    n = sum(size(x) for x in (kv, ki, ctx_k, fb_k, svk))
+    n += nE * (8 + 1 + 4 + 1 + 4 + 8)           # f0p fill pen real lmwid acc
+    n += B * nE * (4 + 8 + 8 + 4 + 4 + 4 + 8)   # the outputs
+    ctx = ctx_k.long()
+    if lm.mode == "rows":
+        rows = torch.unique(ctx)
+        n += len(rows) * (nE + 2) * 4                 # rows, rows_h
+        rw1 = tb["rows_h"][ctx, 0].long()
+    else:
+        is_tri = ctx > lm.V
+        bidx = torch.clamp(ctx - 1 - lm.V, 0, max(lm.n_bg - 1, 0))
+        meta = tb["bgmeta"][bidx]
+        rw1 = torch.where(is_tri, meta[..., 0].long(),
+                          torch.where(ctx > 0, ctx - 1, lm.V))
+        h1 = torch.unique(torch.clamp(rw1, max=lm.V))
+        tri = torch.unique(bidx[is_tri])
+        n += len(torch.unique(bidx)) * 32             # bgmeta rows
+        n += int(tb["bgmeta"][tri, 4].clamp(max=lm.s_tri).sum()) * 8
+        if lm.mode == "sparse":
+            n += len(h1) * nE * 4                     # bg rows
+        else:
+            um = tb["umeta"][h1]
+            fat = um[:, 3] >= 0                       # -1 unless fat
+            n += len(h1) * 16 + nE * 8                # umeta, uni, ctx_base
+            n += int(um[~fat, 1].clamp(max=lm.sb).sum()) * 16
+            n += int(fat.sum()) * nE * 8              # fat rows and contexts
+    if lm.mode != "csr":
+        win = torch.gather(rw1, 1, am).clamp(min=0)   # [B, E] ctx_next rows
+        col = torch.arange(nE, device=am.device)
+        n += len(torch.unique(win * nE + col)) * 4
+    return n
+
+
+def check_transitions(dec, fe, log, batch=8, seed=4):
+    """The word-transition kernel against its plain version at `dec`'s
+    shapes, on a real frame's exits (`frame_exits` of a short scan of
+    phase 5's utterances) and on the same exits with ties
+    (`tie_exits`), at each choice of its columns per thread: all seven
+    outputs bit-equal; then both timed on the real exits (CUDA-graph
+    replay for device time, and through Python), the kernel at each
+    choice of its columns per thread, with its bytes bound."""
+    import torch
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+    from pocketsphinx_tpu_torch.ops import transitions as tr
+    pcm, ns = pcm_batch(list(range(10, 10 + batch)),
+                        list(np.linspace(2.0, 5.0, batch)))
+    feats, _ = features(fe, pcm, ns, "cuda")
+    costs = senone_scores(dec.scoring(), feats[:, :2 * dec.CHUNK],
+                          time_chunk=16)
+    real = frame_exits(dec, costs)[0]
+    cases = dict(real=real, tied=tie_exits(real, np.random.default_rng(seed)))
+    refs = {what: tr.transitions_ref(*args) for what, args in cases.items()}
+    err = 0.0
+    for what, args in cases.items():
+        for c in tr.COLS_PER_THREAD:
+            n = tr.launches
+            outs = tr.transitions(*args, cols_per_thread=c)
+            torch.cuda.synchronize()
+            if tr.launches != n + 1:
+                raise AssertionError("transitions did not count its launch")
+            err = max(err, compare(outs, refs[what], f"transitions "
+                                   f"{dec.lm_mode} {what} cols={c}"))
+    ms, plain, wms, wplain = timings(lambda: tr.transitions(*real),
+                                     lambda: tr.transitions_ref(*real))
+    by_cols = {c: time_ms(lambda: tr.transitions(*real, cols_per_thread=c),
+                          graph=True) for c in tr.COLS_PER_THREAD}
+    B, K = real[2].shape
+    nE = real[0]["isfill_E"].shape[0]
+    cols = tr._cols_per_thread(B, nE, torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    bms, by = bound_ms(transitions_bytes(real, refs["real"][1]),
+                       7 * B * K * nE)
+    log(f"transitions mode {dec.lm_mode} B={B} K={K} E={nE} NRC="
+        f"{real[6].shape[1]}: bit-equal, real and tied exits, every column "
+        f"count; device time: kernel {ms:.4f} ms ({cols} columns per "
+        f"thread; by columns "
+        f"{ {c: round(t, 4) for c, t in by_cols.items()} }), plain "
+        f"{plain:.4f} ms; through Python: kernel {wms:.4f} ms, plain "
+        f"{wplain:.4f} ms; bound {bms:.4f} ms ({by}), {bms / ms:.3f} of it")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain,
+                cols_per_thread=cols, ms_by_cols=by_cols, mode=dec.lm_mode,
+                B=B, K=K, E=nE)
+
+
 def exit_block_ms(arcs, rows_per_arc, log):
     """Device ms of the grammar search's [A, A] exit block (the gather of
     each arc's exit class, `+ M`, first max over the source axis) on
@@ -1983,7 +2157,7 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke
 from pocketsphinx_tpu_torch.models.acoustic import senone_scores
 from pocketsphinx_tpu_torch.ops import _build
-_build.build(["fan", "chain"])
+_build.build(list(getattr(chip_smoke, "KERNELS", ("fan", "chain"))))
 with tempfile.TemporaryDirectory() as w:
     t0 = time.perf_counter()
     dec, fe = chip_smoke.build_decoder("bench_data/bench-20k.dic",
@@ -2020,6 +2194,11 @@ for key, W in (("fan_20k", dec.n_multi), ("fan_126k", 125973)):
     r = chip_smoke.check_fan(8, dec.n_rcp, W, dec.senid_fin_d.shape[-1],
                              lambda *a: None)
     out[key] = [r["ms"], r["wrapper_ms"]]
+# the word-transition kernel at the 20k shape (device ms, through
+# Python), in the trees that have it
+if hasattr(chip_smoke, "check_transitions"):
+    r = chip_smoke.check_transitions(dec, fe, lambda *a: None)
+    out["transitions_20k"] = [r["ms"], r["wrapper_ms"]]
 print(json.dumps(out))
 """
 
@@ -2028,8 +2207,10 @@ def ab(trees, log):
     """`--ab`: the 20k decoder's build and scan of each checkout in turn
     (`AB_RUN` in the tree's directory, with its own `chip_smoke`): ms per
     frame at B=1 and 8, device launches and device ms per frame over 32
-    profiled frames, and the fan kernel's device and through-Python ms
-    at the 20k and the 126k shapes (its own `check_fan`)."""
+    profiled frames, the fan kernel's device and through-Python ms at the
+    20k and the 126k shapes (its own `check_fan`) and, in a tree that has
+    it, the word-transition kernel's at the 20k shape
+    (`check_transitions`)."""
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
@@ -2066,7 +2247,7 @@ def main(argv):
     if argv[:1] == ["--ab"]:
         return ab(argv[1:], log)
     t0 = time.perf_counter()
-    secs = _build.build(["fan", "chain"], verbose=True)
+    secs = _build.build(KERNELS, verbose=True)
     log(f"built kernels in {time.perf_counter() - t0:.1f} s: {secs}")
     if argv[:1] == ["--tp"]:
         with tempfile.TemporaryDirectory() as work:
@@ -2091,6 +2272,7 @@ def main(argv):
     fan_res = check_fan(B, dec.n_rcp, dec.n_multi,
                         dec.senid_fin_d.shape[-1], log)
     chain_res = check_chain(B, buckets_of(dec), log)
+    tr_res = check_transitions(dec, fe, log, batch=B)
     check_ties(log)
     t0 = time.perf_counter()
     res = main_path(dec, fe, "cuda", log=log)
@@ -2159,6 +2341,7 @@ def main(argv):
         t9 += time.perf_counter() - t1
         t0 = time.perf_counter()
         batch_cli(work, "cuda", log=log)
+        rows_res = rows_transitions(work, log=log)
         log(f"phase 9(e) ({time.perf_counter() - t0:.1f} s) on {smi}; "
             f"phase 9 {time.perf_counter() - t9 + top_s:.1f} s with (d)")
         t0 = time.perf_counter()
@@ -2194,12 +2377,18 @@ def main(argv):
         c5 = mres["chain5"][B]
         nst5.update({pre + k: c5[k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "wrapper_ms", "bound_ms")})
+    # the transition kernel in LM mode rows (1.7k; rows_*)
+    rows = {"rows_" + k: rows_res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                               "wrapper_ms", "bound_ms", "E")}
     kernels = []
     for name, r, src, rep in (
             ("fan", fan_res, "pocketsphinx_tpu_torch/csrc/fan.cu",
              "pocketsphinx_tpu/ops/pallas_fan.py:43"),
             ("chain", chain_res, "pocketsphinx_tpu_torch/csrc/chain.cu",
-             "pocketsphinx_tpu/ops/pallas_chain.py:35")):
+             "pocketsphinx_tpu/ops/pallas_chain.py:35"),
+            ("transitions", tr_res,
+             "pocketsphinx_tpu_torch/csrc/transitions.cu",
+             "pocketsphinx_tpu/search/ngram_fused.py:1297")):
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep,
                             launches=res["launches"][name],
@@ -2208,14 +2397,15 @@ def main(argv):
                             cli_launches=cres["single"]["launches"][name]
                             + cres["live"]["launches"][name],
                             library_ms=None, **r,
-                            **(nst5 if name == "chain" else {})))
-    for k in kernels[:2]:              # the same kernels at the 126k shapes
+                            **(nst5 if name == "chain" else {}),
+                            **(rows if name == "transitions" else {})))
+    for k in kernels[:3]:              # the same kernels at the 126k shapes
         kernels.append(dict(
             k, name=k["name"] + "_126k", launches=co["launches"][k["name"]],
             tp_launches=sum(tp[x]["launches"][k["name"]] for x in "bcd"
                             if isinstance(tp[x], dict)),
             facade_launches=0, cli_launches=0, **ref[k["name"]]))
-        for key in [x for x in k if x.startswith("nst5")]:
+        for key in [x for x in k if x.startswith(("nst5", "rows_"))]:
             del kernels[-1][key]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

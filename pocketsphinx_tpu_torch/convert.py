@@ -135,7 +135,7 @@ _INDEX_KEYS = ("fb_ci", "f0p_E", "guard_w", "guard_wf", "guard_fillw",
 COLUMN_AXES = {"rows": 1, "bg": 1, "ctx_next": 1, "fat_rows": 1,
                "fat_ctx": 1, "accept_T": 1, "uni_row": 0, "ctx_base": 0,
                "isfill_E": 0, "fillpen_E": 0, "isreal_E": 0, "lmwid_E": 0,
-               "f0p_E": 0}
+               "f0p_E": 0, "accept_bits": 0}
 #: the block's tables of global column ids (scatter targets), rebased to
 #: each device's range, an id outside it sent to the range's spare column
 COLUMN_IDS = ("bg_cols", "tg2c", "tg_cols")
@@ -146,6 +146,19 @@ COLUMN_WHOLE = ("rows_h", "bgmeta", "umeta", "bg_vals", "bg_ctx", "tg2v",
 #: lead's guard reads, `isfill_E`, `fillpen_E` and `f0p_E`, stay whole)
 _BLOCK_ONLY = (set(COLUMN_AXES) | set(COLUMN_IDS) | set(COLUMN_WHOLE)
                | {"accept_E"}) - {"isfill_E", "fillpen_E", "f0p_E"}
+
+
+def accept_bits(accept_E) -> np.ndarray | None:
+    """The accept table [E, n_ciph] of 0/1 values packed one int64 per
+    entry column, bit c for CI phone c (the transition kernel's form);
+    None when it has other values or more than 64 phones."""
+    acc = np.asarray(accept_E)
+    if acc.shape[1] > 64 or not np.isin(acc, (0, 1)).all():
+        return None
+    bits = np.zeros(acc.shape[0], np.uint64)
+    for c in range(acc.shape[1]):
+        bits |= (acc[:, c] != 0).astype(np.uint64) << np.uint64(c)
+    return bits.view(np.int64)
 
 
 def _host_forms(tables: dict) -> dict:
@@ -166,6 +179,9 @@ def _host_forms(tables: dict) -> dict:
         tabs["rows_h"] = tabs["rows"][:, -2:]
         tabs["rows"] = tabs["rows"][:, :-2]
     tabs["accept_T"] = tabs["accept_E"].T
+    bits = accept_bits(tabs["accept_E"])
+    if bits is not None:
+        tabs["accept_bits"] = bits
     for k, v in tabs.items():
         if k.startswith(("ch_tp", "ci_tp")):
             v = _planes(v.astype(np.float32))
@@ -213,7 +229,8 @@ def scan_tables(tables: dict, device) -> dict:
     topologies keep `tp_fin`), `f0_onehot` -> `f0p_E`; index columns
     become int64; mode rows' [R, E + 2] `rows` becomes `rows` [R, E]
     and its (h1, h2) columns `rows_h` [R, 2]; `accept_T` is `accept_E`
-    transposed).
+    transposed, and `accept_bits` [E] its rows packed one bit per CI
+    phone for the transition kernel, where `accept_bits` can).
     The decoder's `device_tables` lays the chain tables and `senid_all`
     out for its scan."""
     return _upload(_host_forms(tables), device)

@@ -67,6 +67,7 @@ from ..lm.ngram import NgramModel
 from ..ops.chain import ChainGroup, chain_group_step
 from ..ops.fan import fan_step, padded_width
 from ..ops.hmm import hmm_step_sm
+from ..ops.transitions import LMLayout, transitions
 
 NEG_INF = -1e30
 SHIFT = 1 << 10
@@ -1031,38 +1032,6 @@ class NgramFusedDecoder:
                              for k, v in new[name].items()}
         return new
 
-    def _csr_rows(self, tb, h1c):
-        """Mode C's bigram rows and successor-context rows [B, K, E] of
-        the histories h1c [B, K] (V: the empty history) over the entry
-        columns of the block tables `tb`, in the JAX step's order of
-        float operations: the unigram row + the history's backoff, the
-        CSR overlay scattered onto a spare column, then the fat rows in
-        place of both rows."""
-        nE = tb["isfill_E"].shape[0]
-        B, K = h1c.shape
-        um = tb["umeta"][h1c]                                     # [B, K, 4]
-        base = tb["uni_row"] + um[..., 2].contiguous().view(
-            torch.float32)[..., None]
-        ctxrow = tb["ctx_base"].expand(B, K, nE)
-        if self.SB:
-            pos = torch.arange(self.SB, device=h1c.device)
-            at = um[..., 0:1].long() + pos                        # [B, K, SB]
-            ok = pos < um[..., 1:2]
-            idx = torch.where(ok, tb["bg_cols"][at], nE)
-            rows = []
-            for row, vals in ((base, tb["bg_vals"]), (ctxrow, tb["bg_ctx"])):
-                row = torch.cat([row, row.new_zeros((B, K, 1))], 2)
-                row.scatter_(2, idx, torch.where(ok, vals[at], 0.0))
-                rows.append(row[..., :nE])
-            base, ctxrow = rows
-        if self.N_FAT:
-            fat = um[..., 3]
-            isfat = (fat >= 0)[..., None]
-            fidx = torch.clamp(fat, 0, self.N_FAT - 1).long()
-            base = torch.where(isfat, tb["fat_rows"][fidx], base)
-            ctxrow = torch.where(isfat, tb["fat_ctx"][fidx], ctxrow)
-        return base, ctxrow
-
     def _transitions(self, kv, ki, ctx_k, fb_k, svk, wpen):
         """The word-transition block over every entry column: (entry, am,
         prw_e, ctx_new, erw1, erw2, fb_e) [B, E] on the lead from this
@@ -1086,77 +1055,23 @@ class NgramFusedDecoder:
         return tuple(torch.cat([o[i].to(lead, non_blocking=True)
                                 for o in outs], 1) for i in range(7))
 
+    @property
+    def lm_layout(self) -> LMLayout:
+        """The static shape of the block's LM tables."""
+        return LMLayout(self.lm_mode, self.V, self.N_BG, self.S_TRI, self.SB,
+                        self.N_FAT)
+
     def _columns(self, tb, kv, ki, ctx_k, fb_k, svk, wpen):
         """The word-transition block over the entry columns of the block
         tables `tb` (the decoder's own, or one device's part of a "model"
-        group, `convert.split_scan_tables`): each column's LM score from
-        each top-K exit's context (the exact trigram row: modes rows, B
-        and C), `cand` = exit score + LM score (+ the accept mask), and
-        the first winner over K with its payloads.  Returns (entry, am,
-        prw_e, ctx_new, erw1, erw2, fb_e) [B, columns]."""
-        nE = tb["isfill_E"].shape[0]
-        B, K = ki.shape
-        V = self.V
-        dev = ki.device
-        exg = svk.transpose(1, 2)[:, :, tb["f0p_E"]]              # [B, K, E]
-        if self.lm_mode == "rows":
-            lmrow = tb["rows"][ctx_k.long()]                      # [B, K, E]
-            rh = tb["rows_h"][ctx_k.long()]                       # [B, K, 2]
-            rw1_k = rh[..., 0].to(torch.int32)
-            rw2_k = rh[..., 1].to(torch.int32)
-        else:
-            # modes B and C: the bigram row of the context's newest word
-            # (+ trigram backoff), then the sparse per-context trigram
-            # overrides
-            is_tri = ctx_k > V
-            bidx = torch.clamp(ctx_k - 1 - V, 0, max(self.N_BG - 1, 0)).long()
-            meta = tb["bgmeta"][bidx]                             # [B, K, 8]
-            rw1_k = torch.where(is_tri, meta[..., 0],
-                                torch.where(ctx_k > 0, ctx_k - 1, V)
-                                .to(torch.int32))
-            rw2_k = torch.where(is_tri, meta[..., 1], V).to(torch.int32)
-            bo2w_v = meta[..., 2].contiguous().view(torch.float32)
-            h1c = torch.clamp(rw1_k, max=V).long()
-            if self.lm_mode == "csr":
-                base, ctxrow = self._csr_rows(tb, h1c)
-            else:
-                base = tb["bg"][h1c]                              # [B, K, E]
-            lmrow = base + torch.where(is_tri, bo2w_v, 0.0)[..., None]
-            if self.S_TRI:
-                S_TRI = self.S_TRI
-                if "tg2c" in tb:
-                    wc, wv = tb["tg2c"][bidx], tb["tg2v"][bidx]   # [B, K, S]
-                else:
-                    pos0 = (meta[..., 3:4].long()
-                            + torch.arange(S_TRI, device=dev))
-                    wc, wv = tb["tg_cols"][pos0], tb["tg_vals"][pos0]
-                pos = torch.arange(S_TRI, device=dev)
-                ok = (pos < meta[..., 4:5]) & is_tri[..., None]
-                idx = torch.where(ok, wc, nE).long()
-                lmp = torch.cat([lmrow, lmrow.new_zeros((B, K, 1))], 2)
-                lmp.scatter_(2, idx, torch.where(ok, wv, 0.0))
-                lmrow = lmp[..., :nE]
-        if self.lm_mode != "csr":
-            ctxrow = tb["ctx_next"][torch.clamp(rw1_k, min=0).long()]
-        accm = tb["accept_T"][fb_k]                               # [B, K, E]
-        cand = (exg + torch.where(tb["isfill_E"], tb["fillpen_E"],
-                                  lmrow + wpen)
-                + (accm - 1.0) * 1e30
-                + torch.where(kv > NEG_INF / 2, 0.0, NEG_INF)[..., None])
-        # first-winner entry per column: one argmax over K, payload gathers
-        entry, am = torch.max(cand, dim=1)                        # [B, E]
-        prw_e = torch.gather(ki, 1, am)
-        srcctx = torch.gather(ctx_k, 1, am)
-        srcrw1 = torch.gather(rw1_k, 1, am)
-        srcrw2 = torch.gather(rw2_k, 1, am)
-        fb_e = torch.gather(fb_k, 1, am)
-        ctxsel = torch.gather(ctxrow, 1, am[:, None, :])[:, 0]
-        ctx_new = torch.where(tb["isfill_E"], srcctx,
-                              ctxsel.to(torch.int32))
-        erw1 = torch.where(tb["isreal_E"], tb["lmwid_E"], srcrw1)
-        # fillers inherit the source's full history; real words shift it
-        erw2 = torch.where(tb["isreal_E"], srcrw1, srcrw2)
-        return entry, am, prw_e, ctx_new, erw1, erw2, fb_e
+        group, `convert.split_scan_tables`): `ops.transitions`, the CUDA
+        kernel on the card.  Each column's LM score from each top-K
+        exit's context (the exact trigram row: modes rows, B and C),
+        `cand` = exit score + LM score (+ the accept mask), and the first
+        winner over K with its payloads.  Returns (entry, am, prw_e,
+        ctx_new, erw1, erw2, fb_e) [B, columns]."""
+        return transitions(tb, self.lm_layout, kv, ki, ctx_k, fb_k, svk,
+                           wpen)
 
     def _step(self, carry, g, t, valid, minimal, mask=False):
         """One frame for B utterances.  g: this frame's senone costs by

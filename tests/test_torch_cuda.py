@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
-from pocketsphinx_tpu_torch.ops import chain, fan
+from pocketsphinx_tpu_torch.ops import chain, fan, transitions
 from pocketsphinx_tpu_torch.testing import synth
 
 pytestmark = pytest.mark.cuda
@@ -83,6 +83,67 @@ def test_chain_group_kernel_bit_equal(cuda, NST, with_ci, B):
     torch.cuda.synchronize()
     chip_smoke.compare(outs, chain.chain_group_ref(grp, **args),
                        "chain group")
+
+
+#: the word-transition kernel's cases: (LM mode, dictionary words, topk,
+#: FAT_CAP or None, trigram rows in the 2-D tg2c table); 40 words give
+#: E = 108 columns (one ragged tile), 300 give more than one tile at one
+#: column per thread, and topk 10**6 gives K = W, over 128 exits staged
+#: at once at 300 words
+BLOCK_CASES = {"rows": ("rows", 40, 8, None, True),
+               "rows_kw": ("rows", 300, 10 ** 6, None, True),
+               "sparse": ("sparse", 300, 8, None, True),
+               "sparse_flat_kw": ("sparse", 300, 10 ** 6, None, False),
+               "csr": ("csr", 300, 40, None, True),
+               "csr_fat_flat_kw": ("csr", 40, 10 ** 6, 2, False)}
+
+
+def _block_decoder(tmp_path, monkeypatch, device, mode, n_words, topk,
+                   fat_cap, tg2d):
+    from pocketsphinx_tpu_torch.search.ngram_fused import NgramFusedDecoder
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=n_words, n_single=3, seed=6)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=8)
+    spec = synth.make_model([dic], seed=9, n_sen=126 + 300, n_density=8)
+    monkeypatch.setenv("PS_LM_MODE", mode)
+    if mode == "csr":
+        monkeypatch.setenv("PS_LM_TABLE_BYTES", "1000")
+    if fat_cap is not None:
+        monkeypatch.setattr(NgramFusedDecoder, "FAT_CAP", fat_cap)
+    if not tg2d:
+        monkeypatch.setenv("PS_TG2D_BYTES", "0")
+    dec = synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=topk,
+                              device=device)
+    assert dec.lm_mode == mode
+    return dec
+
+
+@pytest.mark.parametrize("case", list(BLOCK_CASES))
+@pytest.mark.parametrize("ties", [False, True])
+def test_transitions_kernel_bit_equal(cuda, tmp_path, monkeypatch, case,
+                                      ties):
+    """All seven outputs of the kernel, at each choice of its columns per
+    thread, equal `transitions_ref` on a real frame's exits (with tied
+    exits: `chip_smoke.tie_exits`); over three parts of a "model" group
+    on the card, the parts' kernels join to the unsplit one."""
+    dec = _block_decoder(tmp_path, monkeypatch, cuda, *BLOCK_CASES[case])
+    c = np.random.default_rng(5).uniform(0, 400, (3, 24, dec.am.n_sen))
+    c[:, -1] = 1e29                       # the last frame's scores tie
+    args = chip_smoke.frame_exits(dec, torch.as_tensor(
+        c.astype(np.float32), device=cuda))[0]
+    if ties:
+        args = chip_smoke.tie_exits(args, np.random.default_rng(1))
+    ref = transitions.transitions_ref(*args)
+    for cols in transitions.COLS_PER_THREAD:
+        n = transitions.launches
+        outs = transitions.transitions(*args, cols_per_thread=cols)
+        assert transitions.launches == n + 1
+        torch.cuda.synchronize()
+        chip_smoke.compare(outs, ref, f"transitions {case} cols={cols}")
+    parts = dec.shard(["cuda:0"] * 3).tables["columns"]
+    got = [transitions.transitions(tb, *args[1:]) for _, tb in parts]
+    for i, r in enumerate(ref):
+        assert torch.equal(torch.cat([g[i] for g in got], 1), r), i
 
 
 def test_decode_cuda_equals_cpu(cuda, tmp_path):
@@ -260,9 +321,10 @@ def _tp_equal(dec, group):
     valid = torch.as_tensor(np.arange(50)[None, :] < nf[:, None],
                             device=dec.device)
     for minimal in (False, True):
-        n = (fan.launches, chain.launches)
+        n = (fan.launches, chain.launches, transitions.launches)
         got = sp.scan(costs, valid, minimal)
-        assert (fan.launches - n[0], chain.launches - n[1]) == (64, 64)
+        assert (fan.launches - n[0], chain.launches - n[1],
+                transitions.launches - n[2]) == (64, 64, 128)
         for a, b in zip(got, dec.scan(costs, valid, minimal)):
             assert a.device == dec.device and torch.equal(a, b)
     want = chip_smoke._results(dec.decode_batch(None, nf, False, costs))
