@@ -21,9 +21,15 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    variant buckets and the CI bucket), against its plain version, ties
    on and off; then the word-transition kernel (`check_transitions`, one
    launch per frame over every entry column) on a real frame's top-K
-   exits of that decoder (LM mode B) and on the same exits with ties
-   (`tie_exits`), at each choice of its columns per thread, all seven
-   outputs bit-equal to its plain version, timed as in phase 2;
+   exits of that decoder (LM mode B), on the same exits with ties
+   (`tie_exits`) and with one live exit (`solo_exits`), at its default
+   launch shape and at each launch option (columns per thread x splits
+   of the exits), all seven outputs bit-equal to its plain version,
+   timed as in phase 2 (each option too), with each option's shared
+   memory; nvcc's registers and spills of each kernel instance; (b)
+   `check_phones`: a small model with 70 CI phones (two accept words per
+   column) in LM modes B and C, the kernel held the same way on a K = W
+   frame, and a decode on the card equal to the CPU's;
 4. torch's argmax / max(dim) / stable sort tie order on CUDA (first
    maximum, lower index first), which the scan's exactness relies on;
 5. the main path at full width: a seeded synthetic acoustic model at
@@ -145,8 +151,9 @@ frame on each part of a "model" group).  Prints the kernels' JSON line
 (the three kernels at the 20k shapes with the main path's launches,
 phase 11(a)'s (`tp_launches`), phase 7's (`facade_launches`) and phase
 10(a)'s (`cli_launches`), the transition kernel's LM-mode-rows check as
-`rows_*`; then at the 126k shapes, `*_126k`, with phase 9(b)'s and phase
-11(b)-(d)'s), then as its last line
+`rows_*` and its 70-phone check as `phones_*`; then at the 126k shapes,
+`*_126k`, with phase 9(b)'s and phase 11(b)-(d)'s), the card's name and
+power limit, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises; without CUDA it exits non-zero before any
 result.
@@ -165,8 +172,9 @@ records), and prints one JSON line per tree: the decoder's build seconds,
 the scan's ms per frame of each repetition, device launches and device
 ms per frame over 32 profiled frames, and the fan kernel's device and
 through-Python ms at the 20k and 126k shapes (the tree's `check_fan`)
-and the word-transition kernel's at the 20k shape, in a tree that has
-it (`check_transitions`).
+and the word-transition kernel's at the 20k (mode B), 1.7k (mode rows)
+and 126k (mode C) shapes, in a tree that has it (`check_transitions`,
+with its times by launch option where the tree has them).
 Give the trees in turns (A B B A) to see the host's drift.
 """
 
@@ -332,6 +340,25 @@ def tie_exits(args, rng, n_pairs=24, n_dead=5):
     return tb, lm, kv, ki, ctx_k, fb_k, svk, wpen
 
 
+def solo_exits(args):
+    """`frame_exits` arguments in which one exit is live and the others
+    dead (kv NEG_INF), so that its candidate wins at every column where
+    the accept table takes it: every column's LM score under that exit
+    reaches the outputs.  The exit is the one with the most trigram
+    corrections (modes B and C), else the first."""
+    import torch
+    tb, lm, kv, ki, ctx_k, fb_k, svk, wpen = args
+    k = 0
+    if lm.mode != "rows" and lm.s_tri:
+        ctx = ctx_k[0].long()
+        bidx = (ctx - 1 - lm.V).clamp(0, max(lm.n_bg - 1, 0))
+        n_tri = (tb["bgmeta"][bidx, 4] * (ctx > lm.V)).to(torch.int64)
+        k = int(torch.argmax(n_tri))
+    kv = torch.full_like(kv, NEG_INF)
+    kv[:, k] = args[2][:, k]
+    return tb, lm, kv, ki, ctx_k, fb_k, svk, wpen
+
+
 def to_device(args, device):
     import torch
     return {k: (torch.as_tensor(v, device=device) if isinstance(v, np.ndarray)
@@ -346,11 +373,12 @@ def nbytes(args, outs):
 
 
 def compare(outs, refs, what):
-    """Bit-equality of kernel and plain outputs; returns max |diff|."""
+    """Bit-equality of kernel and plain outputs (on the outputs' device);
+    returns max |diff|."""
     import torch
     err = 0.0
     for i, (o, r) in enumerate(zip(outs, refs)):
-        o, r = o.cpu(), r.cpu()
+        r = r.to(o.device)
         if o.shape != r.shape or o.dtype != r.dtype:
             raise AssertionError(f"{what}: output {i} {o.shape}/{o.dtype} "
                                  f"!= {r.shape}/{r.dtype}")
@@ -2046,14 +2074,42 @@ def transitions_bytes(args, am):
     return n
 
 
+def transition_options():
+    """The word-transition kernel's launch options, (columns per thread,
+    splits of the exits), each held and timed by `check_transitions`."""
+    from pocketsphinx_tpu_torch.ops import transitions as tr
+    return [(c, k) for c in tr.COLS_PER_THREAD for k in tr.K_SPLITS]
+
+
+def hold_transitions(cases, what):
+    """Every case's (`frame_exits` arguments) kernel outputs at the
+    default launch shape and at every launch option equal its plain
+    version's, each launch counted; returns max |diff|."""
+    from pocketsphinx_tpu_torch.ops import transitions as tr
+    err = 0.0
+    for name, args in cases.items():
+        ref = tr.transitions_ref(*args)
+        for c, k in [(None, None)] + transition_options():
+            n = tr.launches
+            outs = tr.transitions(*args, cols_per_thread=c, k_split=k)
+            _sync(args[2].device)
+            if tr.launches != n + 1:
+                raise AssertionError("transitions did not count its launch")
+            err = max(err, compare(outs, ref, f"transitions {what} {name} "
+                                   f"cols={c} k_split={k}"))
+    return err
+
+
 def check_transitions(dec, fe, log, batch=8, seed=4):
     """The word-transition kernel against its plain version at `dec`'s
     shapes, on a real frame's exits (`frame_exits` of a short scan of
-    phase 5's utterances) and on the same exits with ties
-    (`tie_exits`), at each choice of its columns per thread: all seven
-    outputs bit-equal; then both timed on the real exits (CUDA-graph
-    replay for device time, and through Python), the kernel at each
-    choice of its columns per thread, with its bytes bound."""
+    phase 5's utterances), on the same exits with ties (`tie_exits`) and
+    with one live exit (`solo_exits`), at the default launch shape and at
+    every launch option (columns per thread x splits of the exits): all
+    seven outputs bit-equal; then both timed on the real exits
+    (CUDA-graph replay for device time, and through Python), the kernel
+    at each launch option, with its bytes bound and each option's shared
+    memory per block."""
     import torch
     from pocketsphinx_tpu_torch.models.acoustic import senone_scores
     from pocketsphinx_tpu_torch.ops import transitions as tr
@@ -2063,39 +2119,140 @@ def check_transitions(dec, fe, log, batch=8, seed=4):
     costs = senone_scores(dec.scoring(), feats[:, :2 * dec.CHUNK],
                           time_chunk=16)
     real = frame_exits(dec, costs)[0]
-    cases = dict(real=real, tied=tie_exits(real, np.random.default_rng(seed)))
-    refs = {what: tr.transitions_ref(*args) for what, args in cases.items()}
-    err = 0.0
-    for what, args in cases.items():
-        for c in tr.COLS_PER_THREAD:
-            n = tr.launches
-            outs = tr.transitions(*args, cols_per_thread=c)
-            torch.cuda.synchronize()
-            if tr.launches != n + 1:
-                raise AssertionError("transitions did not count its launch")
-            err = max(err, compare(outs, refs[what], f"transitions "
-                                   f"{dec.lm_mode} {what} cols={c}"))
+    err = hold_transitions(dict(
+        real=real, tied=tie_exits(real, np.random.default_rng(seed)),
+        solo=solo_exits(real)), dec.lm_mode)
     ms, plain, wms, wplain = timings(lambda: tr.transitions(*real),
                                      lambda: tr.transitions_ref(*real))
-    by_cols = {c: time_ms(lambda: tr.transitions(*real, cols_per_thread=c),
-                          graph=True) for c in tr.COLS_PER_THREAD}
-    B, K = real[2].shape
-    nE = real[0]["isfill_E"].shape[0]
-    cols = tr._cols_per_thread(B, nE, torch.cuda.get_device_properties(0)
+    by_opt = {f"{c}x{k}": time_ms(lambda: tr.transitions(
+        *real, cols_per_thread=c, k_split=k), graph=True)
+        for c, k in transition_options()}
+    tb, lm, kv = real[:3]
+    B, K = kv.shape
+    nE = tb["isfill_E"].shape[0]
+    NRC = real[6].shape[1]
+    nw = tb["accept_bits"].shape[0]
+    cols, ks = tr.launch_shape(B, nE, K, torch.cuda.get_device_properties(0)
                                .multi_processor_count)
-    bms, by = bound_ms(transitions_bytes(real, refs["real"][1]),
+    kc = min(-(-K // 32) * 32, tr._KC)
+    smem = {f"{c}x{k}": tr._smem_bytes(lm.mode, kc, NRC, c, k, nw)
+            for c, k in transition_options()}
+    bms, by = bound_ms(transitions_bytes(real, tr.transitions_ref(*real)[1]),
                        7 * B * K * nE)
-    log(f"transitions mode {dec.lm_mode} B={B} K={K} E={nE} NRC="
-        f"{real[6].shape[1]}: bit-equal, real and tied exits, every column "
-        f"count; device time: kernel {ms:.4f} ms ({cols} columns per "
-        f"thread; by columns "
-        f"{ {c: round(t, 4) for c, t in by_cols.items()} }), plain "
+    log(f"transitions mode {dec.lm_mode} B={B} K={K} E={nE} NRC={NRC} "
+        f"NW={nw}: bit-equal, real, tied and one-live exits, every launch "
+        f"option; device time: kernel {ms:.4f} ms (default {cols} columns "
+        f"per thread x {ks} splits; by option (columns x splits) "
+        f"{ {o: round(t, 4) for o, t in by_opt.items()} }), plain "
         f"{plain:.4f} ms; through Python: kernel {wms:.4f} ms, plain "
-        f"{wplain:.4f} ms; bound {bms:.4f} ms ({by}), {bms / ms:.3f} of it")
+        f"{wplain:.4f} ms; bound {bms:.4f} ms ({by}), {bms / ms:.3f} of it; "
+        f"shared memory per block by option {smem}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain,
-                cols_per_thread=cols, ms_by_cols=by_cols, mode=dec.lm_mode,
-                B=B, K=K, E=nE)
+                cols_per_thread=cols, k_split=ks, ms_by_option=by_opt,
+                smem_by_option=smem, mode=dec.lm_mode, B=B, K=K, E=nE)
+
+
+def phones_decoder(work, device, mode, n_extra=28, n_words=300, topk=8):
+    """A decoder of a synthetic model with 42 + `n_extra` CI phones
+    (`synth.make_model(n_extra_phones=...)`, whose words end in phones
+    past 64) over `n_words` bench-1.7k words rewritten with the extra
+    phones and a seeded ARPA LM with up to 40 trigrams per context, in LM
+    mode `mode` (mode C forced by a small table budget), on `device`."""
+    from pocketsphinx_tpu_torch.testing import synth
+    d = os.path.join(work, f"phones_{mode}")
+    os.makedirs(d, exist_ok=True)
+    dic = os.path.join(d, "small.dic")
+    words = synth.small_dictionary(dic, n_words=n_words, n_single=3, seed=6,
+                                   n_extra_phones=n_extra)
+    lmf = synth.write_arpa(words, os.path.join(d, "small.arpa"), seed=8,
+                           max_tri=40)
+    spec = synth.make_model([dic], seed=9, n_sen=3 * (42 + n_extra) + 300,
+                            n_density=8, n_extra_phones=n_extra)
+    with _env("PS_LM_MODE", mode), _env("PS_LM_TABLE_BYTES", "1000"):
+        dec = synth.build_decoder(spec, d, dic, lmf, topk=topk,
+                                  device=device)
+    if dec.lm_mode != mode:
+        raise AssertionError(f"phones decoder LM mode {dec.lm_mode}")
+    return dec
+
+
+def check_phones(work, log, n_extra=28, frames=50, device="cuda"):
+    """Phase 3(b): a model with 42 + `n_extra` CI phones (two accept words
+    per column) at a small size on the card, in LM modes B and C: the
+    word-transition kernel held bit-equal to its plain version at every
+    launch option on a K = W frame's real, tied and one-live exits, and a
+    `frames`-frame decode whose records, hypothesis and score equal the
+    same decoder moved to the CPU, from one cost matrix."""
+    import torch
+    from pocketsphinx_tpu_torch.ops import transitions as tr
+    res = dict(max_abs_err=0.0, launches=0)
+    for mode in ("sparse", "csr"):
+        dec = phones_decoder(work, device, mode, n_extra, topk=10 ** 6)
+        c = np.random.default_rng(5).uniform(0, 400, (3, 24, dec.am.n_sen))
+        c[:, -1] = 1e29
+        real = frame_exits(dec, torch.as_tensor(c.astype(np.float32),
+                                                device=device))[0]
+        if not bool((real[5] >= 64).any()):
+            raise AssertionError("no exit ends in a phone past 64")
+        res["max_abs_err"] = max(res["max_abs_err"], hold_transitions(dict(
+            real=real, tied=tie_exits(real, np.random.default_rng(2)),
+            solo=solo_exits(real)), f"{mode} {42 + n_extra} phones"))
+        dec = phones_decoder(work, device, mode, n_extra)
+        costs = np.random.default_rng(6).uniform(
+            0, 400, (frames, dec.am.n_sen)).astype(np.float32)
+        n = tr.launches
+        hyp, _ = dec.decode(None, costs=costs)
+        res["launches"] += tr.launches - n
+        if dec.device.type == "cuda" and tr.launches - n != \
+                -(-frames // dec.CHUNK) * dec.CHUNK:
+            raise AssertionError(f"transitions launched {tr.launches - n} "
+                                 f"times for {frames} frames")
+        cpu = dec.to("cpu")
+        hyp_c, _ = cpu.decode(None, costs=costs)
+        for i, (a, b) in enumerate(zip(dec.raw_records, cpu.raw_records)):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{42 + n_extra} phones, mode {mode}: "
+                                     f"record {i} differs from the CPU's")
+        if (hyp, dec.hyp_score) != (hyp_c, cpu.hyp_score):
+            raise AssertionError(f"{42 + n_extra} phones, mode {mode}: "
+                                 f"hypothesis differs from the CPU's")
+        res[mode] = dict(E=dec.nE, NW=int(dec.tables["accept_bits"].shape[0]),
+                         hyp=hyp, score=dec.hyp_score)
+    log(f"phase 3(b) {42 + n_extra} CI phones: kernel bit-equal at every "
+        f"launch option (modes B and C, K = W), decode on the card equal "
+        f"to the CPU: " + json.dumps(res, default=float))
+    return res
+
+
+def ptxas_summary(log_text, kernel="transitions_kernel"):
+    """Registers, spill stores and loads of each instance of `kernel` in
+    nvcc's `-Xptxas -v` output: {mangled name: (registers, spill store
+    bytes, spill load bytes)}."""
+    import re
+    out, name, spill = {}, None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and kernel in name:
+            t = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", name)
+            key = (f"mode{t.group(1)}_cols{t.group(2)}_"
+                   f"{'nw1' if t.group(3) == '1' else 'nw_any'}" if t
+                   else name)
+            out[key] = (int(m.group(1)),) + spill
+    return out
 
 
 def exit_block_ms(arcs, rows_per_arc, log):
@@ -2194,11 +2351,26 @@ for key, W in (("fan_20k", dec.n_multi), ("fan_126k", 125973)):
     r = chip_smoke.check_fan(8, dec.n_rcp, W, dec.senid_fin_d.shape[-1],
                              lambda *a: None)
     out[key] = [r["ms"], r["wrapper_ms"]]
-# the word-transition kernel at the 20k shape (device ms, through
-# Python), in the trees that have it
+# the word-transition kernel at the 20k, 1.7k and 126k shapes (device ms,
+# through Python; by launch option where the tree has them), in the
+# trees that have it
 if hasattr(chip_smoke, "check_transitions"):
-    r = chip_smoke.check_transitions(dec, fe, lambda *a: None)
-    out["transitions_20k"] = [r["ms"], r["wrapper_ms"]]
+    def tr_times(key, d, f):
+        r = chip_smoke.check_transitions(d, f, lambda *a: None)
+        out[key] = [r["ms"], r["wrapper_ms"]]
+        if "ms_by_option" in r:
+            out[key + "_by_option"] = r["ms_by_option"]
+    tr_times("transitions_20k", dec, fe)
+    del dec
+    with tempfile.TemporaryDirectory() as w:
+        d, f = chip_smoke.build_decoder("bench_data/bench-1.7k.dic",
+                                        "bench_data/bench-1.7k.lm.bin", w,
+                                        "cuda")
+    tr_times("transitions_1k7", d, f)
+    del d
+    with tempfile.TemporaryDirectory() as w:
+        d = chip_smoke.reference_decoder(w, "cuda")[0]
+    tr_times("transitions_126k", d, chip_smoke.en_us_frontend())
 print(json.dumps(out))
 """
 
@@ -2209,7 +2381,7 @@ def ab(trees, log):
     frame at B=1 and 8, device launches and device ms per frame over 32
     profiled frames, the fan kernel's device and through-Python ms at the
     20k and the 126k shapes (its own `check_fan`) and, in a tree that has
-    it, the word-transition kernel's at the 20k shape
+    it, the word-transition kernel's at the 20k, 1.7k and 126k shapes
     (`check_transitions`)."""
     if not trees:
         print(__doc__, file=sys.stderr)
@@ -2249,6 +2421,10 @@ def main(argv):
     t0 = time.perf_counter()
     secs = _build.build(KERNELS, verbose=True)
     log(f"built kernels in {time.perf_counter() - t0:.1f} s: {secs}")
+    ptx = ptxas_summary(_build.logs.get("transitions", ""))
+    log("transitions kernel (registers, spill store bytes, spill load "
+        "bytes) by (LM mode, columns per thread, accept words): "
+        + json.dumps(ptx))
     if argv[:1] == ["--tp"]:
         with tempfile.TemporaryDirectory() as work:
             res = tp_cards(work, log=log, profile="--profile" in argv)
@@ -2273,6 +2449,8 @@ def main(argv):
                         dec.senid_fin_d.shape[-1], log)
     chain_res = check_chain(B, buckets_of(dec), log)
     tr_res = check_transitions(dec, fe, log, batch=B)
+    with tempfile.TemporaryDirectory() as work:
+        ph_res = check_phones(work, log)
     check_ties(log)
     t0 = time.perf_counter()
     res = main_path(dec, fe, "cuda", log=log)
@@ -2377,9 +2555,12 @@ def main(argv):
         c5 = mres["chain5"][B]
         nst5.update({pre + k: c5[k] for k in ("max_abs_err", "ms", "plain_ms",
                                               "wrapper_ms", "bound_ms")})
-    # the transition kernel in LM mode rows (1.7k; rows_*)
+    # the transition kernel in LM mode rows (1.7k; rows_*) and at 70 CI
+    # phones (phones_*)
     rows = {"rows_" + k: rows_res[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                "wrapper_ms", "bound_ms", "E")}
+    rows.update(phones_max_abs_err=ph_res["max_abs_err"],
+                phones_launches=ph_res["launches"])
     kernels = []
     for name, r, src, rep in (
             ("fan", fan_res, "pocketsphinx_tpu_torch/csrc/fan.cu",
@@ -2405,7 +2586,8 @@ def main(argv):
             tp_launches=sum(tp[x]["launches"][k["name"]] for x in "bcd"
                             if isinstance(tp[x], dict)),
             facade_launches=0, cli_launches=0, **ref[k["name"]]))
-        for key in [x for x in k if x.startswith(("nst5", "rows_"))]:
+        for key in [x for x in k
+                    if x.startswith(("nst5", "rows_", "phones_"))]:
             del kernels[-1][key]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

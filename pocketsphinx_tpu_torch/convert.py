@@ -135,7 +135,7 @@ _INDEX_KEYS = ("fb_ci", "f0p_E", "guard_w", "guard_wf", "guard_fillw",
 COLUMN_AXES = {"rows": 1, "bg": 1, "ctx_next": 1, "fat_rows": 1,
                "fat_ctx": 1, "accept_T": 1, "uni_row": 0, "ctx_base": 0,
                "isfill_E": 0, "fillpen_E": 0, "isreal_E": 0, "lmwid_E": 0,
-               "f0p_E": 0, "accept_bits": 0}
+               "f0p_E": 0, "accept_bits": 1}
 #: the block's tables of global column ids (scatter targets), rebased to
 #: each device's range, an id outside it sent to the range's spare column
 COLUMN_IDS = ("bg_cols", "tg2c", "tg_cols")
@@ -144,21 +144,85 @@ COLUMN_WHOLE = ("rows_h", "bgmeta", "umeta", "bg_vals", "bg_ctx", "tg2v",
                 "tg_vals")
 #: tables the lead of a split group does not hold (the [E] tables the
 #: lead's guard reads, `isfill_E`, `fillpen_E` and `f0p_E`, stay whole)
+#: the transition kernel's own copies of the overlay lists, each row
+#: sorted by column (`kernel_overlays`); built for each part after its
+#: ids are rebased
+KERNEL_OVERLAYS = ("tr_bg_cols", "tr_bg_vals", "tr_bg_ctx", "tr_tg_cols",
+                   "tr_tg_vals")
 _BLOCK_ONLY = (set(COLUMN_AXES) | set(COLUMN_IDS) | set(COLUMN_WHOLE)
-               | {"accept_E"}) - {"isfill_E", "fillpen_E", "f0p_E"}
+               | set(KERNEL_OVERLAYS) | {"accept_E"}) - {
+                   "isfill_E", "fillpen_E", "f0p_E"}
 
 
 def accept_bits(accept_E) -> np.ndarray | None:
-    """The accept table [E, n_ciph] of 0/1 values packed one int64 per
-    entry column, bit c for CI phone c (the transition kernel's form);
-    None when it has other values or more than 64 phones."""
+    """The accept table [E, n_ciph] of 0/1 values packed into
+    NW = ceil(n_ciph / 64) int64 words per entry column, [NW, E]: bit
+    c % 64 of word c // 64 for CI phone c (the transition kernel's form;
+    a row of words is one coalesced read over consecutive columns).
+    None when the table has other values."""
     acc = np.asarray(accept_E)
-    if acc.shape[1] > 64 or not np.isin(acc, (0, 1)).all():
+    if not np.isin(acc, (0, 1)).all():
         return None
-    bits = np.zeros(acc.shape[0], np.uint64)
-    for c in range(acc.shape[1]):
-        bits |= (acc[:, c] != 0).astype(np.uint64) << np.uint64(c)
+    E, n = acc.shape
+    bits = np.zeros((max(-(-n // 64), 1), E), np.uint64)
+    for c in range(n):
+        bits[c // 64] |= (acc[:, c] != 0).astype(np.uint64) << np.uint64(
+            c % 64)
     return bits.view(np.int64)
+
+
+def _sort_rows(cols, vals, off, cnt):
+    """Copies of `cols` (as int32) and of each array in `vals` in which
+    the entries [off[r], off[r] + cnt[r]) of every row r are sorted by
+    column; entries outside every row keep their place.  Rows must not
+    overlap."""
+    cnt = np.maximum(np.asarray(cnt, np.int64), 0)
+    off = np.asarray(off, np.int64)
+    n = int(cnt.sum())
+    pos = np.repeat(off, cnt) + (np.arange(n)
+                                 - np.repeat(np.cumsum(cnt) - cnt, cnt))
+    if n and (pos.min() < 0 or pos.max() >= len(cols)
+              or len(np.unique(pos)) != n):
+        raise ValueError("overlay rows overlap or leave their table")
+    row = np.repeat(np.arange(len(cnt)), cnt)
+    order = pos[np.lexsort((cols[pos], row))]
+    out = [np.array(cols, np.int32)] + [np.array(v) for v in vals]
+    for o, v in zip(out, [cols] + list(vals)):
+        o[pos] = v[order]
+    return out
+
+
+def kernel_overlays(tabs: dict) -> dict:
+    """The transition kernel's copies of the block's sparse overlays
+    (NumPy in, NumPy out), each row sorted by column, so that a block of
+    the kernel finds the entries of its column tile by binary search:
+    mode C's CSR bigram rows (`tr_bg_cols` int32, `tr_bg_vals`,
+    `tr_bg_ctx`: history h's row holds umeta[h, 1] entries from
+    umeta[h, 0]) and the trigram corrections (`tr_tg_cols` int32,
+    `tr_tg_vals`, in the layout of `tg2c`/`tg2v` or of the flat
+    `tg_cols`/`tg_vals`: bigram context i's row holds bgmeta[i, 4]
+    entries).  A row's columns are unique, so a sorted row applies the
+    same overlay as the original; an id outside a part's range (its spare
+    column) sorts last."""
+    out = {}
+    if "umeta" in tabs and "bg_cols" in tabs:
+        um = np.asarray(tabs["umeta"], np.int64)
+        (out["tr_bg_cols"], out["tr_bg_vals"],
+         out["tr_bg_ctx"]) = _sort_rows(
+            np.asarray(tabs["bg_cols"]), [tabs["bg_vals"], tabs["bg_ctx"]],
+            um[:, 0], um[:, 1])
+    if "bgmeta" in tabs and ("tg2c" in tabs or "tg_cols" in tabs):
+        meta = np.asarray(tabs["bgmeta"], np.int64)
+        two_d = "tg2c" in tabs
+        cols = np.asarray(tabs["tg2c" if two_d else "tg_cols"])
+        vals = np.asarray(tabs["tg2v" if two_d else "tg_vals"])
+        S = cols.shape[-1] if two_d else 0
+        off = np.arange(len(meta)) * S if two_d else meta[:, 3]
+        cnt = np.minimum(meta[:, 4], S) if two_d else meta[:, 4]
+        c, v = _sort_rows(cols.reshape(-1), [vals.reshape(-1)], off, cnt)
+        out["tr_tg_cols"], out["tr_tg_vals"] = (c.reshape(cols.shape),
+                                                v.reshape(vals.shape))
+    return out
 
 
 def _host_forms(tables: dict) -> dict:
@@ -182,6 +246,7 @@ def _host_forms(tables: dict) -> dict:
     bits = accept_bits(tabs["accept_E"])
     if bits is not None:
         tabs["accept_bits"] = bits
+    tabs.update(kernel_overlays(tabs))
     for k, v in tabs.items():
         if k.startswith(("ch_tp", "ci_tp")):
             v = _planes(v.astype(np.float32))
@@ -229,8 +294,9 @@ def scan_tables(tables: dict, device) -> dict:
     topologies keep `tp_fin`), `f0_onehot` -> `f0p_E`; index columns
     become int64; mode rows' [R, E + 2] `rows` becomes `rows` [R, E]
     and its (h1, h2) columns `rows_h` [R, 2]; `accept_T` is `accept_E`
-    transposed, and `accept_bits` [E] its rows packed one bit per CI
-    phone for the transition kernel, where `accept_bits` can).
+    transposed, and `accept_bits` [NW, E] its rows packed one bit per CI
+    phone for the transition kernel, where `accept_bits` can; the kernel's
+    sorted copies of the overlay lists, `kernel_overlays`).
     The decoder's `device_tables` lays the chain tables and `senid_all`
     out for its scan."""
     return _upload(_host_forms(tables), device)
@@ -244,7 +310,9 @@ def split_scan_tables(tables: dict, device, shards) -> tuple:
     block tables)]).  A device's block tables are the columns [e0, e1)
     of each `COLUMN_AXES` table, the `COLUMN_IDS` tables rebased to e0
     (ids outside the range -> e1 - e0, the block's spare scatter
-    column) and the `COLUMN_WHOLE` tables whole (one copy per device)."""
+    column), the kernel's sorted overlays of the rebased ids
+    (`kernel_overlays`) and the `COLUMN_WHOLE` tables whole (one copy
+    per device)."""
     host = _host_forms(tables)
     lead = _upload({k: v for k, v in host.items() if k not in _BLOCK_ONLY},
                    device)
@@ -260,6 +328,8 @@ def split_scan_tables(tables: dict, device, shards) -> tuple:
                 c = host[k]
                 part[k] = np.where((c >= e0) & (c < e1), c - e0,
                                    e1 - e0).astype(c.dtype)
+        part.update(kernel_overlays(dict(
+            part, **{k: host[k] for k in COLUMN_WHOLE if k in host})))
         block = _upload(part, dev)
         block.update(_upload({k: host[k] for k in COLUMN_WHOLE if k in host},
                              dev, whole))

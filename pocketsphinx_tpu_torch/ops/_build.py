@@ -31,6 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+#: nvcc's output of each kernel's last build in this process (with
+#: `verbose`, `-Xptxas -v`'s registers, shared memory and spills)
+logs: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -76,6 +79,7 @@ def build(names, verbose: bool = False) -> dict[str, float]:
     for name, (p, tmp, out) in procs.items():
         log, _ = p.communicate()
         secs[name] = time.perf_counter() - t0
+        logs[name] = log
         if p.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue

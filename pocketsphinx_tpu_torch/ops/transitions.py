@@ -28,7 +28,11 @@ own or one part's of a "model" group (`convert.split_scan_tables`: its
 column range, with scatter ids outside it sent to the spare column nE,
 which is dropped).  Within one history's CSR row, and within one
 context's trigram row, columns are unique: the overlays are then the
-same whatever order they are applied in.
+same whatever order they are applied in.  The kernel reads its own forms
+of two tables: `accept_bits` [NW, E] (the accept table packed one bit
+per CI phone, any number of phones) and the overlay lists with each row
+sorted by column (`tr_bg_*`, `tr_tg_*`; `convert.kernel_overlays`),
+which a block searches for its column tile.
 """
 
 from __future__ import annotations
@@ -44,11 +48,19 @@ from .hmm import NEG_INF
 #: launches of the CUDA kernel since the last reset (plain int)
 launches = 0
 
-#: the kernel's choices of entry columns per thread (`cols_per_thread`)
+#: the kernel's choices of entry columns per thread (`cols_per_thread`,
+#: consecutive columns)
 COLS_PER_THREAD = (1, 2, 4)
+#: the kernel's choices of splits of a block's threads over the exits
+#: (`k_split`; the splits' winners merge at the end)
+K_SPLITS = (1, 2, 4, 8)
+#: (columns per thread, splits) in the order the default tries them: the
+#: widest column tile first
+_SHAPES = ((4, 1), (4, 2), (4, 4), (4, 8), (2, 8), (1, 8))
 #: threads per block of the kernel (TPB in csrc/transitions.cu)
 _TPB = 256
-#: exits staged in shared memory at once (the kernel loops over chunks)
+#: the most exits staged in shared memory at once (the kernel loops over
+#: chunks of a multiple of 32 exits)
 _KC = 128
 #: the most dynamic shared memory a block may take on an H100
 _SMEM_BYTES = 232448
@@ -57,6 +69,8 @@ _MODES = {"rows": 0, "sparse": 1, "csr": 2}
 _E_TABLES = {"f0p_E", "isfill_E", "fillpen_E", "isreal_E", "lmwid_E",
              "accept_bits", "rows", "bg", "ctx_next", "fat_rows", "fat_ctx",
              "uni_row", "ctx_base"}
+#: the dense table the kernel reads rows of, by LM mode
+_DENSE = {"rows": "rows", "sparse": "bg", "csr": "fat_rows"}
 
 
 def reset_launches():
@@ -214,21 +228,18 @@ def _kernel_tables(tb, lm, device):
             want.update(bg=torch.float32, ctx_next=torch.float32)
         else:
             want.update(uni_row=torch.float32, ctx_base=torch.float32,
-                        umeta=torch.int32, bg_cols=torch.int64,
-                        bg_vals=torch.float32, bg_ctx=torch.float32,
+                        umeta=torch.int32, tr_bg_cols=torch.int32,
+                        tr_bg_vals=torch.float32, tr_bg_ctx=torch.float32,
                         fat_rows=torch.float32, fat_ctx=torch.float32)
         if lm.s_tri:
-            if "tg2c" in tb:
-                want.update(tg2c=torch.int32, tg2v=torch.float32)
-            else:
-                want.update(tg_cols=torch.int32, tg_vals=torch.float32)
+            want.update(tr_tg_cols=torch.int32, tr_tg_vals=torch.float32)
     out = {}
     for name, dt in want.items():
         x = tb.get(name)
         if x is None:
             raise ValueError(f"transitions: table {name} missing (mode "
                              f"{lm.mode}; `accept_bits` needs a 0/1 "
-                             f"accept table of at most 64 phones)")
+                             f"accept table)")
         if x.dtype != dt:
             raise TypeError(f"transitions: {name} dtype {x.dtype} != {dt}")
         if x.device != device:
@@ -239,6 +250,9 @@ def _kernel_tables(tb, lm, device):
         if name in _E_TABLES and x.shape[-1] != nE:
             raise ValueError(f"transitions: {name} has {x.shape[-1]} "
                              f"columns, not {nE}")
+        if name == "tr_tg_cols" and x.dim() == 2 and x.shape[1] != lm.s_tri:
+            raise ValueError(f"transitions: tr_tg_cols rows of "
+                             f"{x.shape[1]}, not S_TRI = {lm.s_tri}")
         out[name] = x
     return out
 
@@ -256,28 +270,37 @@ class _Args(ctypes.Structure):
                                       "fb_ld")] + [
         (n, ctypes.c_int32) for n in ("B", "K", "NRC", "nE", "V", "n_bg",
                                       "s_tri", "sb", "n_fat", "tg2d",
-                                      "kc")] + [("wpen", ctypes.c_float)]
+                                      "kc", "nw", "ks", "vec")] + [
+        ("wpen", ctypes.c_float)]
 
 
-def _cols_per_thread(B, nE, n_sm):
-    """The most columns per thread whose grid still has four blocks for
-    each of `n_sm` multiprocessors, else one (the per-block work over
-    the exits is shared by more columns, but the grid must fill the
-    card)."""
-    for c in reversed(COLS_PER_THREAD):
-        if B * -(-nE // (_TPB * c)) >= 4 * n_sm:
-            return c
-    return 1
+def launch_shape(B, nE, K, n_sm):
+    """The kernel's default (columns per thread, exit splits): the widest
+    column tile (`_SHAPES` in order) whose grid has a block for each of
+    `n_sm` multiprocessors, splitting the exits only while each split
+    keeps 8 or more of the K exits; else the last one tried (the most
+    blocks).  A wider tile shares each exit's staging and overlay search
+    among more columns (on an H100 the widest was fastest at 20k and
+    126k columns, B=8, K=96), but the grid must fill the card (1.7k)."""
+    best = _SHAPES[0]
+    for cpt, ks in _SHAPES:
+        if ks > 1 and K < 8 * ks:
+            break
+        best = (cpt, ks)
+        if B * -(-nE // (_TPB // ks * cpt)) >= n_sm:
+            break
+    return best
 
 
 def transitions(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen,
-                cols_per_thread=None):
+                cols_per_thread=None, k_split=None):
     """The block on the tensors' device: the CUDA kernel for CUDA
     tensors, `transitions_ref` for CPU tensors.  Same arguments and
     results as `transitions_ref`; `cols_per_thread` (one of
-    `COLS_PER_THREAD`; default: chosen from the shapes) sets the
-    kernel's entry columns per thread.  The [B, K] exits may be row
-    views (stride 1 along K)."""
+    `COLS_PER_THREAD`) and `k_split` (one of `K_SPLITS`) set the
+    kernel's entry columns per thread and splits of the exits (default:
+    `launch_shape` of the shapes, each given value in place of its own).
+    The [B, K] exits may be row views (stride 1 along K)."""
     global launches
     _check_exits(kv, ki, ctx_k, fb_k, svk)
     dev = kv.device
@@ -291,6 +314,9 @@ def transitions(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen,
             COLS_PER_THREAD:
         raise ValueError(f"transitions: cols_per_thread {cols_per_thread} "
                          f"not in {COLS_PER_THREAD}")
+    if k_split is not None and k_split not in K_SPLITS:
+        raise ValueError(f"transitions: k_split {k_split} not in "
+                         f"{K_SPLITS}")
     for name, x in (("kv", kv), ("ki", ki), ("ctx_k", ctx_k),
                     ("fb_k", fb_k)):
         if kv.shape[1] > 1 and x.stride(1) != 1:
@@ -302,23 +328,26 @@ def transitions(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen,
     B, K = kv.shape
     NRC = svk.shape[1]
     nE = t["isfill_E"].shape[0]
-    if cols_per_thread is None:
-        cols_per_thread = _cols_per_thread(B, nE, torch.cuda.
-                                           get_device_properties(dev).
-                                           multi_processor_count)
-    kc = min(K, _KC)
-    if _smem_bytes(lm.mode, kc, NRC, _TPB * cols_per_thread) > _SMEM_BYTES:
-        raise ValueError(f"transitions: NRC = {NRC} exit planes do not fit "
-                         f"in shared memory")
+    nw = t["accept_bits"].shape[0]
+    cpt, ks = launch_shape(B, nE, K, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    cpt = cols_per_thread or cpt
+    ks = k_split or ks
+    kc = min(-(-K // 32) * 32, _KC)
+    if _smem_bytes(lm.mode, kc, NRC, cpt, ks, nw) > _SMEM_BYTES:
+        raise ValueError(f"transitions: NRC = {NRC} exit planes (and {nw} "
+                         f"accept words per column) do not fit in shared "
+                         f"memory")
     outs = _outputs(B, nE, dev)
     if not (B and nE):
         return outs
-    a = _launch_args(t, lm, kv, ki, ctx_k, fb_k, svk, wpen, outs, kc)
+    a = _launch_args(t, lm, kv, ki, ctx_k, fb_k, svk, wpen, outs, kc, ks,
+                     _vec(t, lm, cpt))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.transitions_launch(ctypes.byref(a), _MODES[lm.mode],
-                                     cols_per_thread, stream)
+                                     cpt, stream)
     if err:
         raise RuntimeError("transitions_launch: "
                            + lib.transitions_error_string(err).decode())
@@ -333,11 +362,20 @@ def _outputs(B, nE, dev):
         torch.int32, torch.int64))
 
 
-def _launch_args(t, lm, kv, ki, ctx_k, fb_k, svk, wpen, outs, kc):
+def _vec(t, lm, cpt):
+    """Whether the kernel may read `cpt` columns of a dense LM row in one
+    aligned load: every row starts on a multiple of `cpt` columns."""
+    x = t[_DENSE[lm.mode]]
+    return x.shape[-1] % cpt == 0 and x.data_ptr() % (4 * cpt) == 0
+
+
+def _launch_args(t, lm, kv, ki, ctx_k, fb_k, svk, wpen, outs, kc, ks=1,
+                 vec=False):
     """The kernel's `Args` over the checked tables `t`, the exits and
-    the outputs `outs`, with `kc` exits staged at a time."""
+    the outputs `outs`, with `kc` exits staged at a time, `ks` splits of
+    the exits and (`vec`) vector loads of the dense rows."""
     ptr = lambda n: t[n].data_ptr() if n in t else None  # noqa: E731
-    tg2d = "tg2c" in t
+    tg2d = "tr_tg_cols" in t and t["tr_tg_cols"].dim() == 2
     B, K = kv.shape
     return _Args(
         kv=kv.data_ptr(), ki=ki.data_ptr(), ctx=ctx_k.data_ptr(),
@@ -347,11 +385,10 @@ def _launch_args(t, lm, kv, ki, ctx_k, fb_k, svk, wpen, outs, kc):
         acc=ptr("accept_bits"), rows=ptr("rows"), rows_h=ptr("rows_h"),
         bg=ptr("bg"), ctx_next=ptr("ctx_next"), bgmeta=ptr("bgmeta"),
         uni_row=ptr("uni_row"), ctx_base=ptr("ctx_base"),
-        umeta=ptr("umeta"), bg_cols=ptr("bg_cols"), bg_vals=ptr("bg_vals"),
-        bg_ctx=ptr("bg_ctx"), fat_rows=ptr("fat_rows"),
-        fat_ctx=ptr("fat_ctx"),
-        tg_cols=ptr("tg2c" if tg2d else "tg_cols"),
-        tg_vals=ptr("tg2v" if tg2d else "tg_vals"),
+        umeta=ptr("umeta"), bg_cols=ptr("tr_bg_cols"),
+        bg_vals=ptr("tr_bg_vals"), bg_ctx=ptr("tr_bg_ctx"),
+        fat_rows=ptr("fat_rows"), fat_ctx=ptr("fat_ctx"),
+        tg_cols=ptr("tr_tg_cols"), tg_vals=ptr("tr_tg_vals"),
         entry=outs[0].data_ptr(), am=outs[1].data_ptr(),
         prw=outs[2].data_ptr(), ctx_new=outs[3].data_ptr(),
         erw1=outs[4].data_ptr(), erw2=outs[5].data_ptr(),
@@ -359,17 +396,26 @@ def _launch_args(t, lm, kv, ki, ctx_k, fb_k, svk, wpen, outs, kc):
         kv_ld=kv.stride(0), ki_ld=ki.stride(0), ctx_ld=ctx_k.stride(0),
         fb_ld=fb_k.stride(0), B=B, K=K, NRC=svk.shape[1],
         nE=outs[0].shape[1], V=lm.V, n_bg=lm.n_bg, s_tri=lm.s_tri,
-        sb=lm.sb, n_fat=lm.n_fat, tg2d=int(tg2d), kc=kc, wpen=wpen)
+        sb=lm.sb, n_fat=lm.n_fat, tg2d=int(tg2d), kc=kc,
+        nw=t["accept_bits"].shape[0], ks=ks, vec=int(vec), wpen=wpen)
 
 
-def _smem_bytes(mode, kc, nrc, tile):
-    """Dynamic shared memory of one block (`smem_layout` in the source):
-    three int64 and six 4-byte words per staged exit, its exit planes,
-    and the double-buffered overlays of a column tile (mode B: the
-    trigram values and their stamps; mode C: also the bigram values,
-    contexts and stamps)."""
-    over = {"rows": 0, "sparse": 2, "csr": 5}[mode]
-    return 24 * kc + 4 * kc * (nrc + 6) + 4 * over * 2 * tile
+def _smem_bytes(mode, kc, nrc, cpt, ks, nw):
+    """Dynamic shared memory of one block (`layout` in the source), each
+    region rounded up to 16 bytes: 16 words per staged exit; its exit
+    planes [nrc][kc + 4]; the overlaid-pair masks ([kc / 32][tile] words,
+    mode B one set, mode C two), which the splits' winners ([ks][tile]
+    (float, int)) reuse at the end; mode B and C's overlay winner key
+    (8 bytes a column) and mode C's its context (4) and fat-exit bits
+    (16 bytes); the accept words
+    (2 * nw 32-bit words a column) unless one word per column is held
+    in registers."""
+    up = lambda x: -(-x // 16) * 16  # noqa: E731
+    tile = _TPB // ks * cpt
+    masks = 4 * {"rows": 0, "sparse": 1, "csr": 2}[mode] * kc // 32 * tile
+    n = up(64 * kc) + up(4 * nrc * (kc + 4)) + up(max(masks, 8 * ks * tile))
+    n += {"rows": 0, "sparse": 8 * tile, "csr": 12 * tile + 16}[mode]
+    return n + (8 * nw * tile if nw > 1 else 0)
 
 
 def _lib():

@@ -45,6 +45,10 @@ PHONES = ("AA AE AH AO AW AY B CH D DH EH ER EY F G HH IH IY JH K L M N NG "
           "OW OY P R S SH T TH UH UW V W Y Z ZH").split()
 FILLERS = ("+NSN+", "+SPN+")
 SIL = "SIL"
+#: the names of the extra CI phones that `make_model(n_extra_phones=n)`
+#: appends after the 42 (ids 42 .. 41 + n), and that
+#: `small_dictionary(n_extra_phones=n)` writes into pronunciations
+EXTRA_PHONE = "X{:02d}"
 NOISEDICT = ("<s> SIL\n</s> SIL\n<sil> SIL\n[NOISE] +NSN+\n"
              "[SPEECH] +SPN+\n")
 #: en-us shapes (SURVEY.md: 5126 senones, 126 CI; PTM 42 x 3 x 128 x 13)
@@ -167,21 +171,30 @@ def _write_s3(path: str, ints, data):
         f.write(np.array([chk], "<u4").tobytes())
 
 
+def extra_phones(n: int) -> list[str]:
+    """The names of `n` extra CI phones (`EXTRA_PHONE`)."""
+    return [EXTRA_PHONE.format(i) for i in range(n)]
+
+
 def make_model(dict_paths, seed: int = 0, n_sen: int = EN_US["n_sen"],
                n_density: int = EN_US["n_density"],
                n_feat: int = EN_US["n_feat"], dim: int = EN_US["dim"],
-               n_state: int = 3):
+               n_state: int = 3, n_extra_phones: int = 0):
     """A seeded PTM model whose mdef covers the triphones of every
     pronunciation in `dict_paths`, with `n_state` emitting states per
     phone: left to right with self-loops, and skips (j -> j+2) from
-    state 0 at 3 states, from every state that has one at 5."""
+    state 0 at 3 states, from every state that has one at 5.  With
+    `n_extra_phones`, the phone set has that many more CI phones after
+    the 42 (`extra_phones`; one codebook each), and `n_sen` counts their
+    CI senones too."""
     rng = np.random.default_rng(seed)
-    ci = PHONES + [SIL, *FILLERS]
+    ci = PHONES + [SIL, *FILLERS] + extra_phones(n_extra_phones)
+    speech = set(PHONES) | set(extra_phones(n_extra_phones))
     n_ci = len(ci)
     N = n_state
     n_ci_sen = N * n_ci
     prons = [p for path in dict_paths for p in read_prons(path)
-             if all(x in PHONES for x in p) and p]
+             if all(x in speech for x in p) and p]
     rows = _triphones(prons)
     # CD senone pools per (base, state), sized by how many triphones use
     # the base, each at most that count so every pool entry gets used
@@ -344,13 +357,24 @@ def write_arpa(words, path: str, seed: int = 0, p_bigram: float = 0.3,
 
 
 def small_dictionary(path: str, n_words: int = 40, n_single: int = 3,
-                     seed: int = 0) -> list[str]:
+                     seed: int = 0, n_extra_phones: int = 0) -> list[str]:
     """Write a dictionary of `n_words` seeded picks of bench-1.7k.dic plus
-    its first `n_single` single-phone words; returns the words."""
+    its first `n_single` single-phone words; returns the words.  With
+    `n_extra_phones` (for `make_model(n_extra_phones=...)`), extra phone i
+    takes the place of a seeded phone of the i-th multi-phone pick (cycling
+    over them): the last phone for even i, another for odd i, so that the
+    extra phones end words and start and continue them."""
     lines = (BENCH_DATA / "bench-1.7k.dic").read_text().splitlines()
     rng = np.random.default_rng(seed)
     pick = [lines[i] for i in sorted(rng.choice(len(lines), n_words,
                                                 replace=False))]
+    multi = [i for i, ln in enumerate(pick) if len(ln.split()) > 2]
+    for i, x in enumerate(extra_phones(n_extra_phones)):
+        parts = pick[multi[i % len(multi)]].split()
+        j = len(parts) - 1 if i % 2 == 0 else int(rng.integers(1, len(parts)
+                                                                - 1))
+        parts[j] = x
+        pick[multi[i % len(multi)]] = " ".join(parts)
     pick += [ln for ln in lines if len(ln.split()) == 2][:n_single]
     with open(path, "w") as f:
         f.write("\n".join(pick) + "\n")

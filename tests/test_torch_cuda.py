@@ -86,25 +86,35 @@ def test_chain_group_kernel_bit_equal(cuda, NST, with_ci, B):
 
 
 #: the word-transition kernel's cases: (LM mode, dictionary words, topk,
-#: FAT_CAP or None, trigram rows in the 2-D tg2c table); 40 words give
-#: E = 108 columns (one ragged tile), 300 give more than one tile at one
-#: column per thread, and topk 10**6 gives K = W, over 128 exits staged
-#: at once at 300 words
-BLOCK_CASES = {"rows": ("rows", 40, 8, None, True),
-               "rows_kw": ("rows", 300, 10 ** 6, None, True),
-               "sparse": ("sparse", 300, 8, None, True),
-               "sparse_flat_kw": ("sparse", 300, 10 ** 6, None, False),
-               "csr": ("csr", 300, 40, None, True),
-               "csr_fat_flat_kw": ("csr", 40, 10 ** 6, 2, False)}
+#: FAT_CAP or None, trigram rows in the 2-D tg2c table, trigrams per
+#: context at most, extra CI phones); 40 words give E = 108 columns (one
+#: ragged tile), 300 give more than one tile at the narrow launch shapes,
+#: and topk 10**6 gives K = W, over 128 exits staged at once at 300
+#: words; 40 trigrams per context give many (k, e) pairs with both a CSR
+#: bigram and a trigram correction; 28 extra phones give a 70-phone model
+#: (two accept words per column)
+BLOCK_CASES = {"rows": ("rows", 40, 8, None, True, 4, 0),
+               "rows_kw": ("rows", 300, 10 ** 6, None, True, 4, 0),
+               "sparse": ("sparse", 300, 8, None, True, 4, 0),
+               "sparse_flat_kw": ("sparse", 300, 10 ** 6, None, False, 4, 0),
+               "csr": ("csr", 300, 40, None, True, 4, 0),
+               "csr_fat_flat_kw": ("csr", 40, 10 ** 6, 2, False, 4, 0),
+               "csr_tri": ("csr", 300, 40, None, True, 40, 0),
+               "sparse_tri_kw": ("sparse", 300, 10 ** 6, None, False, 40, 0),
+               "phones_rows_kw": ("rows", 40, 10 ** 6, None, True, 4, 28),
+               "phones_csr_kw": ("csr", 300, 10 ** 6, None, True, 40, 28)}
 
 
 def _block_decoder(tmp_path, monkeypatch, device, mode, n_words, topk,
-                   fat_cap, tg2d):
+                   fat_cap, tg2d, max_tri=4, n_extra=0):
     from pocketsphinx_tpu_torch.search.ngram_fused import NgramFusedDecoder
     dic = str(tmp_path / "small.dic")
-    words = synth.small_dictionary(dic, n_words=n_words, n_single=3, seed=6)
-    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=8)
-    spec = synth.make_model([dic], seed=9, n_sen=126 + 300, n_density=8)
+    words = synth.small_dictionary(dic, n_words=n_words, n_single=3, seed=6,
+                                   n_extra_phones=n_extra)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=8,
+                           max_tri=max_tri)
+    spec = synth.make_model([dic], seed=9, n_sen=3 * (42 + n_extra) + 300,
+                            n_density=8, n_extra_phones=n_extra)
     monkeypatch.setenv("PS_LM_MODE", mode)
     if mode == "csr":
         monkeypatch.setenv("PS_LM_TABLE_BYTES", "1000")
@@ -122,28 +132,57 @@ def _block_decoder(tmp_path, monkeypatch, device, mode, n_words, topk,
 @pytest.mark.parametrize("ties", [False, True])
 def test_transitions_kernel_bit_equal(cuda, tmp_path, monkeypatch, case,
                                       ties):
-    """All seven outputs of the kernel, at each choice of its columns per
-    thread, equal `transitions_ref` on a real frame's exits (with tied
-    exits: `chip_smoke.tie_exits`); over three parts of a "model" group
-    on the card, the parts' kernels join to the unsplit one."""
+    """All seven outputs of the kernel, at each launch option (columns per
+    thread x splits of the exits) and at the default, equal
+    `transitions_ref` on a real frame's exits and on the same exits with
+    one live exit (`chip_smoke.solo_exits`), or with tied exits
+    (`chip_smoke.tie_exits`); over three parts of a "model" group on the
+    card, the parts' kernels join to the unsplit one."""
     dec = _block_decoder(tmp_path, monkeypatch, cuda, *BLOCK_CASES[case])
     c = np.random.default_rng(5).uniform(0, 400, (3, 24, dec.am.n_sen))
     c[:, -1] = 1e29                       # the last frame's scores tie
-    args = chip_smoke.frame_exits(dec, torch.as_tensor(
+    real = chip_smoke.frame_exits(dec, torch.as_tensor(
         c.astype(np.float32), device=cuda))[0]
-    if ties:
-        args = chip_smoke.tie_exits(args, np.random.default_rng(1))
+    cases = ([chip_smoke.tie_exits(real, np.random.default_rng(1))] if ties
+             else [real, chip_smoke.solo_exits(real)])
+    options = [(None, None)] + [(cp, ks) for cp in transitions.COLS_PER_THREAD
+                                for ks in transitions.K_SPLITS]
+    for args in cases:
+        ref = transitions.transitions_ref(*args)
+        for cols, ks in options:
+            n = transitions.launches
+            outs = transitions.transitions(*args, cols_per_thread=cols,
+                                           k_split=ks)
+            assert transitions.launches == n + 1
+            torch.cuda.synchronize()
+            chip_smoke.compare(outs, ref, f"transitions {case} cols={cols} "
+                                          f"ks={ks}")
+    args = cases[0]
     ref = transitions.transitions_ref(*args)
-    for cols in transitions.COLS_PER_THREAD:
-        n = transitions.launches
-        outs = transitions.transitions(*args, cols_per_thread=cols)
-        assert transitions.launches == n + 1
-        torch.cuda.synchronize()
-        chip_smoke.compare(outs, ref, f"transitions {case} cols={cols}")
     parts = dec.shard(["cuda:0"] * 3).tables["columns"]
     got = [transitions.transitions(tb, *args[1:]) for _, tb in parts]
     for i, r in enumerate(ref):
         assert torch.equal(torch.cat([g[i] for g in got], 1), r), i
+
+
+def test_decode_phones_cuda_equals_cpu(cuda, tmp_path, monkeypatch):
+    """A 70-phone model (two accept words per column) decodes on CUDA:
+    records, hypothesis and score equal the same decoder on the CPU, in
+    LM modes B and C."""
+    for mode in ("sparse", "csr"):
+        dec = _block_decoder(tmp_path, monkeypatch, cuda, mode, 40, 8, None,
+                             True, 40, 28)
+        assert dec.tables["accept_bits"].shape[0] == 2
+        costs = np.random.default_rng(5).uniform(0, 400, (50, dec.am.n_sen))
+        costs = costs.astype(np.float32)
+        n = transitions.launches
+        hyp, segs = dec.decode(None, costs=costs)
+        assert transitions.launches > n
+        cpu = dec.to("cpu")
+        hyp_c, segs_c = cpu.decode(None, costs=costs)
+        for a, b in zip(dec.raw_records, cpu.raw_records):
+            np.testing.assert_array_equal(a, b)
+        assert (hyp, dec.hyp_score) == (hyp_c, cpu.hyp_score)
 
 
 def test_decode_cuda_equals_cpu(cuda, tmp_path):

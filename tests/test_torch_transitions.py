@@ -16,8 +16,10 @@ matrices with tied frames:
   * within each history's CSR bigram row and each context's trigram row
     the entry columns are unique (the overlays' order does not matter),
     on bench-1.7k's LM and on a seeded ARPA LM;
-  * the packed accept table and the op's checks; a CPU call never loads
-    the CUDA library."""
+  * the packed accept table (one or more 64-bit words per column), the
+    kernel's sorted overlay copies (whole and per part), its default
+    launch shape, and the op's checks; a CPU call never loads the CUDA
+    library."""
 
 import os
 
@@ -234,13 +236,126 @@ def test_accept_bits():
     rng = np.random.default_rng(0)
     acc = (rng.random((50, 42)) < 0.5).astype(np.float32)
     bits = accept_bits(acc).view(np.uint64)
+    assert bits.shape == (1, 50)
     for c in (0, 13, 41):
-        np.testing.assert_array_equal((bits >> np.uint64(c)) & np.uint64(1),
-                                      acc[:, c])
+        np.testing.assert_array_equal((bits[0] >> np.uint64(c))
+                                      & np.uint64(1), acc[:, c])
     full = np.ones((3, 64), np.float32)
-    assert accept_bits(full).view(np.uint64)[0] == np.uint64(2 ** 64 - 1)
+    assert accept_bits(full).view(np.uint64)[0, 0] == np.uint64(2 ** 64 - 1)
     assert accept_bits(np.full((3, 4), 0.5, np.float32)) is None
-    assert accept_bits(np.ones((3, 65), np.float32)) is None
+
+
+@pytest.mark.parametrize("n_ci", [64, 65, 130])
+def test_accept_bits_words(n_ci):
+    """Past 64 phones the table packs into ceil(n / 64) words per column,
+    [NW, E]: phone c is bit c % 64 of word c // 64; the last word's
+    unused bits are 0."""
+    rng = np.random.default_rng(n_ci)
+    acc = (rng.random((37, n_ci)) < 0.5).astype(np.float32)
+    acc[0] = 1.0
+    bits = accept_bits(acc).view(np.uint64)
+    nw = -(-n_ci // 64)
+    assert bits.shape == (nw, 37) and bits.dtype == np.uint64
+    for c in range(n_ci):
+        np.testing.assert_array_equal(
+            (bits[c // 64] >> np.uint64(c % 64)) & np.uint64(1), acc[:, c])
+    tail = n_ci - 64 * (nw - 1)
+    want = np.uint64(2 ** tail - 1) if tail < 64 else np.uint64(2 ** 64 - 1)
+    assert bits[-1, 0] == want
+
+
+def _rows_of(cols, off, cnt, *vals):
+    """{row: sorted [(col, *vals)]} of rows [off, off + cnt)."""
+    return {r: sorted(zip(*(np.asarray(x).reshape(-1)[o:o + n].tolist()
+                            for x in (cols,) + vals)))
+            for r, (o, n) in enumerate(zip(off, cnt))}
+
+
+def _sorted_row(c, nE):
+    """Ascending columns, each once, then the spare column's ids."""
+    inside = c[c < nE]
+    return (np.diff(inside) > 0).all() and (c[len(inside):] == nE).all()
+
+
+def _check_overlays(tb, what):
+    """The kernel's copies of a block table set: each row holds the
+    original row's (column, value, context) entries, in ascending column
+    order (a part's spare column last); entries outside every row keep
+    their place."""
+    nE = tb["isfill_E"].shape[0]
+    if "umeta" in tb and "bg_cols" in tb:
+        um = tb["umeta"].numpy().astype(np.int64)
+        off, cnt = um[:, 0], um[:, 1]
+        got = _rows_of(tb["tr_bg_cols"], off, cnt, tb["tr_bg_vals"],
+                       tb["tr_bg_ctx"])
+        assert got == _rows_of(tb["bg_cols"], off, cnt, tb["bg_vals"],
+                               tb["bg_ctx"]), what
+        c = tb["tr_bg_cols"].numpy()
+        assert tb["tr_bg_cols"].dtype == torch.int32
+        for o, n in zip(off, cnt):
+            assert _sorted_row(c[o:o + n], nE), what
+        used = np.zeros(len(c), bool)
+        for o, n in zip(off, cnt):
+            used[o:o + n] = True
+        np.testing.assert_array_equal(c[~used],
+                                      tb["bg_cols"].numpy()[~used])
+    if "bgmeta" not in tb:
+        return
+    meta = tb["bgmeta"].numpy().astype(np.int64)
+    two_d = "tg2c" in tb
+    if not two_d and "tg_cols" not in tb:
+        return
+    cols = tb["tg2c" if two_d else "tg_cols"]
+    vals = tb["tg2v" if two_d else "tg_vals"]
+    S = cols.shape[-1] if two_d else 0
+    off = np.arange(len(meta)) * S if two_d else meta[:, 3]
+    cnt = meta[:, 4]
+    assert tb["tr_tg_cols"].shape == cols.shape
+    assert _rows_of(tb["tr_tg_cols"], off, cnt, tb["tr_tg_vals"]) == \
+        _rows_of(cols, off, cnt, vals), what
+    c = tb["tr_tg_cols"].numpy().reshape(-1)
+    for o, n in zip(off, cnt):
+        assert _sorted_row(c[o:o + n], nE), what
+
+
+def test_kernel_overlays_sorted(decoders):
+    """The kernel's sorted overlay copies (`convert.kernel_overlays`) of
+    the whole tables and of each part of a 3-way split, whose rebased ids
+    send columns outside the part to its spare column (sorted last)."""
+    _, pt = decoders
+    tb = pt.tables
+    if pt.lm_mode == "rows":
+        assert not any(k.startswith("tr_") for k in tb)
+    _check_overlays(tb, "whole")
+    for i, (_, part) in enumerate(pt.shard(["cpu"] * 3).tables["columns"]):
+        nE = part["isfill_E"].shape[0]
+        _check_overlays(part, f"part {i}")
+        assert part["accept_bits"].shape == (1, nE)
+        for k in ("tr_bg_cols", "tr_tg_cols"):
+            if k in part and part[k].numel():
+                assert int(part[k].max()) <= nE      # the spare column
+    assert "tr_bg_cols" not in pt.shard(["cpu"] * 3).tables
+
+
+@pytest.mark.parametrize("B,nE,K,want", [
+    (8, 1868, 96, (2, 8)),          # 1.7k, mode rows
+    (8, 20360, 96, (4, 1)),         # 20k, mode B
+    (8, 128258, 96, (4, 1)),        # 126k, mode C
+    (1, 20360, 20048, (4, 8)),      # K = W, B=1
+    (1, 1868, 8, (4, 1)),           # too few exits to split
+    (8, 1868, 16, (4, 2))])
+def test_launch_shape(B, nE, K, want):
+    """The kernel's default (columns per thread, exit splits) at the main
+    path's shapes on an H100 (132 SMs), and every launch option's shared
+    memory within a block's at en-us's 41 right contexts, one and two
+    accept words."""
+    assert tr.launch_shape(B, nE, K, 132) == want
+    for mode in tr._MODES:
+        for cpt in tr.COLS_PER_THREAD:
+            for ks in tr.K_SPLITS:
+                for nw in (1, 2):
+                    assert tr._smem_bytes(mode, 128, 41, cpt, ks, nw) <= \
+                        tr._SMEM_BYTES
 
 
 def test_cpu_call_loads_no_library(decoders, monkeypatch):
