@@ -36,15 +36,21 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    en-us's shapes over bench_data/bench-20k.dic and bench-20k.lm.bin
    (LM mode B), seeded PCM -> MFCC -> features -> senone scores -> fused
    n-gram scan -> backtrace: 3 utterances through `decode`, one B=8
-   batch through `decode_batch(keep_records=False)`; the kernels' launch
-   counts over that run; the first utterance's records, hypothesis and
-   segments held bit-equal against the same port run on the CPU with the
-   plain kernels, from the same cost matrix;
+   batch through `decode_batch(keep_records=False)`, the scan through
+   its CUDA graph (the default); the kernels' launch counts over that
+   run; the first utterance's records, hypothesis and segments held
+   bit-equal against the same port run on the CPU with the plain
+   kernels, from the same cost matrix; then the batch's costs (unequal
+   lengths) through the graph and stepped eagerly (`graph_vs_eager`),
+   minimal and full records: records, carries, hypotheses, segments,
+   scores and guard counts equal;
 6. with --profile only: torch.profiler over 64 scan steps of the B=8
    decode, device time by kernel, the device's busy share, device
    launches and device ms per frame and the fan's and the word-transition
-   kernel's shares of the device time (and the same at the 126k width in
-   phase 9(a));
+   kernel's shares of the device time; then `scan_modes`, the scan
+   through the graph and stepped eagerly: wall and device ms per frame,
+   busy share, device and host launches per frame, peak memory (and the
+   same at the 126k width in phase 9(a));
 7. the `Decoder` facade at the same width: a synthetic en-us-shaped
    model directory (`synth.SynthModel.write_model_dir`) with
    bench-20k.dic and bench-20k.lm.bin, on CUDA: the seconds to build
@@ -57,7 +63,11 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    after each, the seconds of each 32-frame block, and the streamed
    records held bit-equal to one whole-utterance scan of the same costs
    on the card; (c) the kernels' launches over (a) and (b) equal the
-   frames the scans stepped;
+   frames the scans stepped; (d) `stream_graph_check`: the stream
+   stepped eagerly by a twin (`Decoder._to(..., graph=False)`) fed the
+   same costs gives the same records and hypotheses, and a carry
+   resumed at frame 37 gives the same records and carry through the
+   graph, eagerly and on the CPU;
 8. the other search modes through the `Decoder` at the same width, on
    phase 7's model directory with bench-20k.dic (`modes`): (a) a seeded
    command grammar, `public <cmd> = <verb> <object> [<mod>];` with rules
@@ -85,11 +95,12 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    seeded utterances of 2-5 s (two B=8 batches), three times: audio-s/s (the
    median), stage seconds, peak memory, the guard count, fan and chain
    launches equal to the frames stepped; then one B=8 batch of short
-   utterances, the first 0.5 s long, through `decode_batch`'s minimal
+   utterances, the first 1 s long, through `decode_batch`'s minimal
    records, each row's hypothesis, segments and score equal to its own
-   B=1 full-record decode of the same costs, and the 0.5 s row decoded by
-   the decoder moved to the CPU, records, hypothesis, segments and score
-   equal to the card's; (c) `TwoStagePipeline`
+   B=1 full-record decode of the same costs, that batch through the
+   graph and stepped eagerly (`graph_vs_eager`), and the 1 s row decoded
+   by the decoder moved to the CPU, records, hypothesis, segments and
+   score equal to the card's; (c) `TwoStagePipeline`
    over the same utterances, equal to (b); (d) `guard_topm` (run right
    after phase 5, before its decoder is freed): PS_GUARD_TOPM=64 on
    phase 5's 20k decoder, one B=8 batch, every record
@@ -166,15 +177,16 @@ with `--profile` it also profiles (c)'s split scan and the unsplit one
 `--ab TREE [TREE ...]` compares checkouts instead (e.g. the parent
 commit unpacked with `git archive`): for each TREE in the order given,
 in a process of its own and with that tree's code, it builds the kernels
-and phase 5's 20k-word decoder, then scans the costs of seeded 2 s
-utterances four times at B=1 (full records) and at B=8 (minimal
-records), and prints one JSON line per tree: the decoder's build seconds,
-the scan's ms per frame of each repetition, device launches and device
-ms per frame over 32 profiled frames, and the fan kernel's device and
-through-Python ms at the 20k and 126k shapes (the tree's `check_fan`)
-and the word-transition kernel's at the 20k (mode B), 1.7k (mode rows)
-and 126k (mode C) shapes, in a tree that has it (`check_transitions`,
-with its times by launch option where the tree has them).
+and phase 5's 20k-word decoder, runs this script's `scan_modes` on it
+(a B=8 batch of seeded 2-5 s utterances, minimal records, and a B=1
+utterance with full records, the shape of `decode` and the stream, each
+through the graph and stepped eagerly where the tree has the graph),
+times the fan
+kernel at the 20k and 126k shapes (the tree's `check_fan`) and the
+word-transition kernel at the 20k (mode B) and 1.7k (mode rows) shapes,
+builds phase 9's 126k decoder and runs both `scan_modes` and the
+word-transition kernel's timing on it (`check_transitions`), and prints
+one JSON line per tree and one line per width and path.
 Give the trees in turns (A B B A) to see the host's drift.
 """
 
@@ -315,7 +327,8 @@ def frame_exits(dec, costs):
     try:
         T = min(costs.shape[1], 2 * dec.CHUNK)
         dec.scan(costs[:, :T], torch.ones(costs.shape[0], T, dtype=torch.bool,
-                                          device=dec.device), minimal=True)
+                                          device=dec.device), minimal=True,
+                 graph=False)
     finally:
         ngram_fused.transitions = inner
     parts = dec.tables["columns"]
@@ -399,6 +412,7 @@ def time_ms(fn, reps=20, trials=21, graph=False):
     CUDA graph and the events time its replay: the device time of the
     calls' kernels, without the host's cost of issuing them."""
     import torch
+    from pocketsphinx_tpu_torch import graph_capture
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):                       # warm-up
@@ -408,7 +422,7 @@ def time_ms(fn, reps=20, trials=21, graph=False):
     run = lambda: [fn() for _ in range(reps)]           # noqa: E731
     if graph:
         g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+        with graph_capture(g):
             run()
         run = g.replay
     times = []
@@ -537,6 +551,130 @@ def check_cpu_equal(dec, costs, raw, hyp, segs, score, device):
     return {"frames": int(costs.shape[0]), "hyp": hyp, "records_equal": True}
 
 
+def graph_vs_eager(dec, costs, nf, what, log=print):
+    """The scan of `costs` [B, T, n_sen] (rows of `nf` frames) through the
+    chunk's CUDA graph (the default) and stepped eagerly (`graph=False`),
+    with minimal and with full records: records and the carry after the
+    last frame bit-equal, and `decode_batch`'s hypotheses, segments,
+    scores and guard counts equal.  Returns what it held equal."""
+    import torch
+    valid = (torch.arange(costs.shape[1], device=costs.device)[None, :]
+             < torch.as_tensor(nf, device=costs.device)[:, None])
+    res = dict(B=int(costs.shape[0]), frames=[int(x) for x in nf])
+    for minimal in (True, False):
+        kind = "minimal" if minimal else "full"
+        (rg, cg), (re, ce) = (dec._scan(costs, valid, minimal, graph=g)
+                              for g in (True, False))
+        for i, (a, b) in enumerate(zip(rg, re, strict=True)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {kind} record {i}: graph "
+                                     f"!= eager")
+        for (n, a), (_, b) in zip(dec._carry_fields(cg),
+                                  dec._carry_fields(ce), strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: {kind} carry {n}: graph != "
+                                     f"eager")
+        del rg, re, cg, ce
+        outs = []
+        for g in (True, False):
+            out = _results(dec.decode_batch(None, nf, keep_records=not minimal,
+                                            costs=costs, graph=g))
+            outs.append((out, list(dec.hyp_scores),
+                         list(dec.guard_violations_batch)))
+        if outs[0] != outs[1]:
+            raise AssertionError(f"{what}: {kind} decode_batch: graph != "
+                                 f"eager")
+        res[kind] = dict(records_equal=True, carry_equal=True,
+                         hyps=[h for h, _ in outs[0][0]][:3])
+    log(f"{what}: graph == eager: " + json.dumps(res))
+    return res
+
+
+def _host_launches(prof):
+    """Launches the host issued in a profile: the CUDA API calls
+    (`cuda*`, `cu*`) that put work on a stream (kernels, graphs, copies,
+    fills), by name."""
+    from torch.autograd import DeviceType
+    names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+             "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+             "cuMemcpyAsync", "cuMemsetD")
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CPU and e.key.startswith(names)}
+
+
+def scan_modes(dec, fe, log=print, batch=8, reps=4, frames=64,
+               minimal=True):
+    """The scan of a B=`batch` batch of seeded 2-5 s utterances (`minimal`
+    or full records) through the chunk's CUDA graph and stepped eagerly, each in
+    turn, eager first (a tree without the graph: its one scan): the wall
+    ms per frame of `reps` scans, peak memory over them (allocated and
+    reserved, from a reset before the first scan, so a graph's capture is
+    in it when the decoder had none at this shape), and over one profiled
+    scan of `frames` frames the device ms per frame, the device's busy
+    share of its wall, the device launches per frame (kernels, copies
+    and fills; a replay's kernels count one each) and the launches the
+    host issued per frame.  Works with any tree's decoder (`--ab`)."""
+    import inspect
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pocketsphinx_tpu_torch.models.acoustic import senone_scores
+
+    pcm, ns = pcm_batch(list(range(10, 10 + batch)),
+                        list(np.linspace(2.0, 5.0, batch)))
+    feats, _ = features(fe, pcm, ns, dec.device)
+    costs = senone_scores(dec.scoring(), feats, time_chunk=16)
+    valid = torch.ones(costs.shape[:2], dtype=torch.bool, device=dec.device)
+    T = costs.shape[1]
+    modes = ({"eager": dict(graph=False), "graph": dict(graph=True)}
+             if "graph" in inspect.signature(dec.scan).parameters
+             else {"default": {}})
+    out = {}
+    for mode, kw in modes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.scan(costs, valid, minimal=minimal, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) / T * 1e3)
+        r = dict(wall_ms_per_frame=ms,
+                 peak_alloc_bytes=torch.cuda.max_memory_allocated(),
+                 peak_reserved_bytes=torch.cuda.max_memory_reserved())
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            dec.scan(costs[:, :frames], valid[:, :frames], minimal=minimal,
+                     **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        dev_us = sum(e.self_device_time_total for e in rows)
+        host = _host_launches(prof)
+        r.update(device_ms_per_frame=dev_us / frames / 1e3,
+                 busy=dev_us / 1e6 / wall,
+                 profiled_wall_ms_per_frame=wall / frames * 1e3,
+                 device_launches_per_frame=sum(e.count for e in rows)
+                 / frames,
+                 host_launches_per_frame=sum(host.values()) / frames,
+                 host_launches=host)
+        out[mode] = r
+        log(f"scan {mode}, B={batch}, "
+            f"{'minimal' if minimal else 'full'} records, {T} frames: wall "
+            f"{[round(x, 3) for x in ms]} ms per frame; over {frames} "
+            f"profiled frames {r['device_ms_per_frame']:.3f} ms of device "
+            f"time per frame, busy {r['busy']:.3f}, "
+            f"{r['device_launches_per_frame']:.2f} device and "
+            f"{r['host_launches_per_frame']:.2f} host launches per frame; "
+            f"peak {r['peak_alloc_bytes'] / 2**30:.2f} GiB allocated, "
+            f"{r['peak_reserved_bytes'] / 2**30:.2f} GiB reserved")
+    return out
+
+
 def pcm_batch(seeds, seconds):
     from pocketsphinx_tpu_torch.testing import synth
     pcms = [synth.make_pcm(s, sec) for s, sec in zip(seeds, seconds)]
@@ -613,6 +751,9 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
             raise AssertionError(f"launch counts {res['launches']} != "
                                  f"expected {want}")
         res["peak_mem_bytes"] = _peak(device)
+    # the batch (unequal lengths) through the graph and stepped eagerly
+    costs = senone_scores(dec.scoring(), feats, time_chunk=16)
+    res["graph_check"] = graph_vs_eager(dec, costs, nf, "phase 5 (20k)", log)
     rates = sorted(r["audio_s_per_s"] for r in runs)
     res["batch"] = {"B": batch, "audio_s": audio_s, "frames": int(nf.max()),
                     "runs": runs, "audio_s_per_s": rates[len(rates) // 2],
@@ -764,8 +905,68 @@ def facade(work, device, log=print, seconds=(2.0, 3.0), stream_seconds=3.0,
     res["cpu_check"] = dict(frames=int(costs.shape[0]), seconds=cpu_s,
                             equal=True)
     res["stream_check"] = dict(frames=T, equal=True, whole_scan_s=whole_s)
+    res["graph_check"] = stream_graph_check(dec, pcm, stream_costs, partials,
+                                            cpu, log)
     if hold is not None:
         hold.update(decoder=dec, cmn0=cmn0)
+    return res
+
+
+def stream_graph_check(dec, pcm, stream_costs, partials, cpu, log=print,
+                       t0=37, n=80):
+    """Phase 7(d): `dec`'s stream of `pcm` (0.1 s chunks, its blocks'
+    costs `stream_costs`, its partial hypotheses `partials`) stepped
+    eagerly by a twin (`Decoder._to(..., graph=False)`) fed the same
+    costs: the same records, partial and final hypotheses; then the
+    first `n` frames of those costs through `with_carry` in two blocks,
+    the second resumed at frame `t0` (not a multiple of CHUNK) from the
+    first one's carry, through the graph, stepped eagerly and on the
+    CPU twin `cpu`: the same records and carry."""
+    import torch
+    t_start = time.perf_counter()
+    search = dec._searches["_default"]
+    eager = dec._to(dec.device, graph=False)
+    blocks = iter(stream_costs)
+    eager._scores = lambda feats, **kw: next(blocks)
+    eager.start_utt()
+    step = dec.fe.samprate // 10
+    got = []
+    for c0 in range(0, len(pcm), step):
+        eager.process_raw(pcm[c0:c0 + step])
+        h = eager.partial_hyp()
+        got.append(h.hypstr if h else None)
+    eager.end_utt()
+    if len(eager.stream_block_seconds) != len(stream_costs):
+        raise AssertionError("the eager stream stepped another number of "
+                             "blocks")
+    for k in range(10):
+        a, b = (np.concatenate([r[k] for r in d._stream_recs])
+                for d in (dec, eager))
+        if not np.array_equal(a, b):
+            raise AssertionError(f"stream record {k}: graph != eager")
+    if got != partials or eager.hyp().hypstr != dec.hyp().hypstr:
+        raise AssertionError("stream hypotheses: graph != eager")
+    del eager
+    costs = torch.cat(stream_costs)[None, :n]
+    runs = []
+    for s, g in ((search, True), (search, False),
+                 (cpu._searches["_default"], None)):
+        c = costs.to(s.device)
+        v = torch.ones((1, n), dtype=torch.bool, device=s.device)
+        r1, k1 = s.with_carry(c[:, :t0], v[:, :t0], graph=g)
+        r2, k2 = s.with_carry(c[:, t0:], v[:, t0:], k1, t0, graph=g)
+        runs.append([x.cpu() for x in r1 + r2]
+                    + [x.cpu() for _, x in s._carry_fields(k2)])
+    for what, other in (("eager", runs[1]), ("the CPU", runs[2])):
+        for i, (a, b) in enumerate(zip(runs[0], other, strict=True)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"with_carry resumed at {t0}: graph != "
+                                     f"{what} (output {i})")
+    res = dict(blocks=len(stream_costs), hyp=dec.hyp().hypstr,
+               resumed_at=t0, frames=n, equal=True,
+               seconds=time.perf_counter() - t_start)
+    log("phase 7(d) stream: graph == eager, and resumed at frame "
+        f"{t0}: graph == eager == cpu: " + json.dumps(res))
     return res
 
 
@@ -1076,6 +1277,7 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
         res["transitions"] = check_transitions(dec, fe, log, batch=batch)
         if profile:
             res["profile"] = profile_scan(dec, fe, log, batch=batch)
+            res["modes"] = scan_modes(dec, fe, log, batch=batch)
 
     # (b) the corpus pipeline
     pcms = (reference_utterances(batch) if seconds is None else
@@ -1138,6 +1340,8 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
                               seconds=time.perf_counter() - t0)
     log("reference scale, minimal records at B=8 equal each row's B=1 "
         "decode: " + json.dumps(res["batch_check"]))
+    res["graph_check"] = graph_vs_eager(dec, costs, nf, "phase 9 (126k)",
+                                        log)
     t0 = time.perf_counter()
     res["cpu_check"] = check_cpu_equal(dec, costs[0, :int(nf[0])],
                                        dec.raw_records, hyp, segs,
@@ -1697,6 +1901,10 @@ def tensor_parallel(dec, fe, mesh, pcms, ref, ref_guard, log=print, batch=8,
                  for b in parts for rows in b)
     for c in cards:
         torch.cuda.reset_peak_memory_stats(c)
+    # what the peak starts from: the decoders alive on each card, and of
+    # that the unsplit decoder's graph buffers
+    res.update(live_bytes={c: torch.cuda.memory_allocated(c) for c in cards},
+               graph_bytes=graph_bytes(dec))
     reset_counts()
     st = {}
     t0 = time.perf_counter()
@@ -1758,6 +1966,22 @@ def tensor_parallel(dec, fe, mesh, pcms, ref, ref_guard, log=print, batch=8,
     res["hyps"] = [h for h, _ in out][:4]
     log(f"phase 11{what}: " + json.dumps(res, default=float))
     return res
+
+
+def graph_bytes(dec):
+    """Bytes of the buffers `dec` keeps for its scan's CUDA graphs: the
+    static inputs and carry, and each graph's records (not the free
+    blocks of their private pool)."""
+    cache = dec.__dict__.get("_graphs")
+    if not cache:
+        return 0
+    io = cache["inputs"]
+    ts = [io.costs, io.valid, io.t_base]
+    ts += [x for _, x in dec._carry_fields(io.carry)]
+    for run in cache["runs"].values():
+        ts += list(run.recs or ())
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in ts}.values())
 
 
 def tp_20k(dec, fe, log=print, batch=8):
@@ -1856,12 +2080,14 @@ def tp_126k(held, fe, log=print, batch=8, profile=False):
     for key in ("b", "c", "d"):
         r = res[key]
         if isinstance(r, dict):
-            gib = {c: round(m / 2**30, 3)
-                   for c, m in r["peak_mem_bytes"].items()}
+            gib, live = ({c: round(m / 2**30, 3) for c, m in r[k].items()}
+                         for k in ("peak_mem_bytes", "live_bytes"))
             log(f"phase 11({key}): {r['audio_s_per_s']:.2f} audio-s/s, scan "
                 f"{r['scan_ms_per_frame']:.3f} ms per frame (tp=1: "
                 f"{held['scan_ms_per_frame']:.3f}), peak per card {gib} "
-                f"GiB, block ms per part {r.get('block_ms')}, copy ms per "
+                f"GiB (live before the run {live} GiB, of which the unsplit "
+                f"decoder's graph buffers "
+                f"{r['graph_bytes'] / 2**30:.3f} GiB), block ms per part {r.get('block_ms')}, copy ms per "
                 f"frame {r.get('copy_ms')}")
     return res
 
@@ -2307,13 +2533,16 @@ def check_ties(log):
 
 
 AB_RUN = r"""
-import json, tempfile, time
+import importlib.util, json, sys, tempfile, time
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 import chip_smoke
-from pocketsphinx_tpu_torch.models.acoustic import senone_scores
 from pocketsphinx_tpu_torch.ops import _build
+# the measurements of the chip_smoke.py that runs the comparison, on this
+# tree's code
+spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[1])
+ab = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(ab)
+quiet = lambda *a: None
 _build.build(list(getattr(chip_smoke, "KERNELS", ("fan", "chain"))))
 with tempfile.TemporaryDirectory() as w:
     t0 = time.perf_counter()
@@ -2321,79 +2550,70 @@ with tempfile.TemporaryDirectory() as w:
                                        "bench_data/bench-20k.lm.bin", w,
                                        "cuda")
     out = {"build_s": time.perf_counter() - t0}
-for B in (1, 8):
-    pcm, ns = chip_smoke.pcm_batch(list(range(10, 10 + B)), [2.0] * B)
-    feats, nf = chip_smoke.features(fe, pcm, ns, "cuda")
-    costs = senone_scores(dec.am.scoring_tensors(dec.device), feats,
-                          time_chunk=16)
-    valid = torch.ones(costs.shape[:2], dtype=torch.bool, device="cuda")
-    ms = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dec.scan(costs, valid, minimal=B > 1)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) / costs.shape[1] * 1e3)
-    out[f"B{B}_ms_per_frame"] = ms
-    # device launches (every device row) and device ms per frame
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        dec.scan(costs[:, :32], valid[:, :32], minimal=B > 1)
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    out[f"B{B}_launches_per_frame"] = sum(e.count for e in rows) / 32
-    out[f"B{B}_device_ms_per_frame"] = sum(
-        e.self_device_time_total for e in rows) / 32 / 1e3
+out["scan_20k"] = ab.scan_modes(dec, fe, quiet)
+# B=1 with full records: the shape of `decode` and the stream
+out["scan_20k_b1"] = ab.scan_modes(dec, fe, quiet, batch=1, minimal=False)
 # the fan kernel at the 20k and 126k shapes (device ms, through Python)
 for key, W in (("fan_20k", dec.n_multi), ("fan_126k", 125973)):
     r = chip_smoke.check_fan(8, dec.n_rcp, W, dec.senid_fin_d.shape[-1],
-                             lambda *a: None)
+                             quiet)
     out[key] = [r["ms"], r["wrapper_ms"]]
 # the word-transition kernel at the 20k, 1.7k and 126k shapes (device ms,
-# through Python; by launch option where the tree has them), in the
-# trees that have it
-if hasattr(chip_smoke, "check_transitions"):
-    def tr_times(key, d, f):
-        r = chip_smoke.check_transitions(d, f, lambda *a: None)
-        out[key] = [r["ms"], r["wrapper_ms"]]
-        if "ms_by_option" in r:
-            out[key + "_by_option"] = r["ms_by_option"]
-    tr_times("transitions_20k", dec, fe)
-    del dec
-    with tempfile.TemporaryDirectory() as w:
-        d, f = chip_smoke.build_decoder("bench_data/bench-1.7k.dic",
-                                        "bench_data/bench-1.7k.lm.bin", w,
-                                        "cuda")
-    tr_times("transitions_1k7", d, f)
-    del d
-    with tempfile.TemporaryDirectory() as w:
-        d = chip_smoke.reference_decoder(w, "cuda")[0]
-    tr_times("transitions_126k", d, chip_smoke.en_us_frontend())
+# through Python; by launch option where the tree has them)
+def tr_times(key, d, f):
+    r = chip_smoke.check_transitions(d, f, quiet)
+    out[key] = [r["ms"], r["wrapper_ms"]]
+    if "ms_by_option" in r:
+        out[key + "_by_option"] = r["ms_by_option"]
+tr_times("transitions_20k", dec, fe)
+del dec
+with tempfile.TemporaryDirectory() as w:
+    d, f = chip_smoke.build_decoder("bench_data/bench-1.7k.dic",
+                                    "bench_data/bench-1.7k.lm.bin", w,
+                                    "cuda")
+tr_times("transitions_1k7", d, f)
+del d
+torch.cuda.empty_cache()
+with tempfile.TemporaryDirectory() as w:
+    d = chip_smoke.reference_decoder(w, "cuda")[0]
+out["scan_126k"] = ab.scan_modes(d, chip_smoke.en_us_frontend(), quiet)
+out["scan_126k_b1"] = ab.scan_modes(d, chip_smoke.en_us_frontend(), quiet,
+                                    batch=1, minimal=False)
+tr_times("transitions_126k", d, chip_smoke.en_us_frontend())
 print(json.dumps(out))
 """
 
 
 def ab(trees, log):
-    """`--ab`: the 20k decoder's build and scan of each checkout in turn
-    (`AB_RUN` in the tree's directory, with its own `chip_smoke`): ms per
-    frame at B=1 and 8, device launches and device ms per frame over 32
-    profiled frames, the fan kernel's device and through-Python ms at the
-    20k and the 126k shapes (its own `check_fan`) and, in a tree that has
-    it, the word-transition kernel's at the 20k, 1.7k and 126k shapes
-    (`check_transitions`)."""
+    """`--ab`: each checkout in turn (`AB_RUN` in the tree's directory,
+    with its own code and `chip_smoke`): the 20k decoder's build seconds;
+    `scan_modes` at 20k and at 126k (B=8 minimal records and B=1 full
+    records: wall ms per frame, device ms per frame, busy share, device and host launches per frame, peak
+    memory, through the graph and stepped eagerly, or the tree's one
+    path); the fan kernel's device and through-Python ms at the 20k and
+    126k shapes (its own `check_fan`) and the word-transition kernel's at
+    the 20k, 1.7k and 126k shapes (`check_transitions`)."""
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     for tree in trees:
-        r = subprocess.run([sys.executable, "-c", AB_RUN], cwd=tree,
+        r = subprocess.run([sys.executable, "-c", AB_RUN,
+                            os.path.abspath(__file__)], cwd=tree,
                            capture_output=True, text=True, timeout=900)
         if r.returncode:
             print(r.stderr[-3000:], file=sys.stderr)
             return r.returncode
         res = json.loads(r.stdout.strip().splitlines()[-1])
         log(json.dumps(dict(tree=tree, **res)))
+        for width in ("20k", "20k_b1", "126k", "126k_b1"):
+            for mode, m in res.get(f"scan_{width}", {}).items():
+                log(f"{tree} {width} {mode}: wall "
+                    f"{min(m['wall_ms_per_frame']):.3f}-"
+                    f"{max(m['wall_ms_per_frame']):.3f} ms per frame, "
+                    f"device {m['device_ms_per_frame']:.3f} ms, busy "
+                    f"{m['busy']:.3f}, host launches "
+                    f"{m['host_launches_per_frame']:.2f} per frame, peak "
+                    f"{m['peak_alloc_bytes'] / 2**30:.2f} GiB")
     return 0
 
 
@@ -2463,6 +2683,7 @@ def main(argv):
         f"peak memory {res['peak_mem_bytes'] / 2**30:.2f} GiB on {smi}")
     if "--profile" in argv:
         profile_scan(dec, fe, log)
+        scan_modes(dec, fe, log)
     # phase 9(d) runs here, on phase 5's decoder, which is then freed
     t0 = time.perf_counter()
     top = guard_topm(dec, "cuda", log=log)

@@ -16,6 +16,8 @@ scores at `Precision.HIGHEST`.
 """
 
 import contextlib
+import gc
+import threading
 
 import torch
 
@@ -50,6 +52,32 @@ def on_device(device):
     device = torch.device(device)
     return (torch.cuda.device(device) if device.type == "cuda"
             else contextlib.nullcontext())
+
+
+#: held through every capture of `graph_capture`, one at a time
+_capture_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def graph_capture(graph, pool=None):
+    """`torch.cuda.graph(graph, pool)`, with what a capture forbids
+    checked in the capturing thread only ("thread_local": another
+    replica's thread may sync its own card meanwhile) and Python's
+    garbage collector stopped: collecting an unreachable CUDA graph
+    during a capture destroys it, a call that invalidates the capture
+    (torch does not collect before a capture).  Captures in the process
+    run one at a time, so that the collector is on again only after the
+    last one."""
+    with _capture_lock:
+        collect = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                yield
+        finally:
+            if collect:
+                gc.enable()
 
 
 def __getattr__(name):

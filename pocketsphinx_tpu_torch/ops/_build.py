@@ -16,6 +16,7 @@ multiply into an FMA changes bits.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -34,6 +35,8 @@ _lock = threading.Lock()
 #: nvcc's output of each kernel's last build in this process (with
 #: `verbose`, `-Xptxas -v`'s registers, shared memory and spills)
 logs: dict[str, str] = {}
+#: the open `tally` of each thread
+_tallies = threading.local()
 
 
 def nvcc() -> str:
@@ -100,3 +103,28 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+@contextlib.contextmanager
+def tally():
+    """Count the kernel launches this thread makes inside the block in
+    the dict it yields (kernel name -> launches) instead of the kernels'
+    `launches` counters: what a CUDA-graph capture records (its replays
+    add it to the counters) and its warm-up, apart from the launches any
+    other thread makes meanwhile."""
+    prev = getattr(_tallies, "counts", None)
+    counts = _tallies.counts = {}
+    try:
+        yield counts
+    finally:
+        _tallies.counts = prev
+
+
+def tallied(name: str) -> bool:
+    """One launch of kernel `name` into this thread's open `tally`
+    (True); False when none is open, and the wrapper counts it."""
+    counts = getattr(_tallies, "counts", None)
+    if counts is None:
+        return False
+    counts[name] = counts.get(name, 0) + 1
+    return True

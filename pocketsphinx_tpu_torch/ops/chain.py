@@ -37,7 +37,10 @@ import torch
 from . import _build
 from .hmm import NEG_INF, hmm_step_sm
 
-#: launches of the CUDA kernel since the last reset (plain int)
+#: launches of the CUDA kernel since the last reset (plain int); a
+#: replay of the scan's CUDA graph adds the launches its capture made,
+#: which counted in the capturing thread's `_build.tally` instead
+#: (`search.ngram_fused._ScanGraph`)
 launches = 0
 
 #: columns of a row of the bucket table (`enum` in csrc/chain.cu)
@@ -360,7 +363,8 @@ def chain_group_step(grp, S, TF, CTX, VAR, g, pip):
         if err:
             raise RuntimeError("chain_group_launch: "
                                + lib.chain_error_string(err).decode())
-        launches += 1
+        if not _build.tallied("chain"):
+            launches += 1
     (es0, tf0, cx0), (es1, tf1, cx1) = x0.unbind(0), x1.unbind(0)
     return (nS, nTF, nCX, nVAR, es0.view(torch.float32), tf0, cx0,
             es1.view(torch.float32), tf1, cx1)

@@ -37,7 +37,10 @@ import torch
 from . import _build
 from .hmm import NEG_INF
 
-#: launches of the CUDA kernel since the last reset (plain int)
+#: launches of the CUDA kernel since the last reset (plain int); a
+#: replay of the scan's CUDA graph adds the launches its capture made,
+#: which counted in the capturing thread's `_build.tally` instead
+#: (`search.ngram_fused._ScanGraph`)
 launches = 0
 
 #: the fan carry's width is a multiple of PAD columns (16 bytes)
@@ -230,7 +233,8 @@ def fan_step(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
         if err:
             raise RuntimeError("fan_step_launch: "
                                + lib.fan_error_string(err).decode())
-        launches += 1
+        if not _build.tallied("fan"):
+            launches += 1
     return nS, nTF, nCX, out_f, esc, etf, ecx, mx
 
 

@@ -45,7 +45,10 @@ import torch
 from . import _build
 from .hmm import NEG_INF
 
-#: launches of the CUDA kernel since the last reset (plain int)
+#: launches of the CUDA kernel since the last reset (plain int); a
+#: replay of the scan's CUDA graph adds the launches its capture made,
+#: which counted in the capturing thread's `_build.tally` instead
+#: (`search.ngram_fused._ScanGraph`)
 launches = 0
 
 #: the kernel's choices of entry columns per thread (`cols_per_thread`,
@@ -351,7 +354,8 @@ def transitions(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen,
     if err:
         raise RuntimeError("transitions_launch: "
                            + lib.transitions_error_string(err).decode())
-    launches += 1
+    if not _build.tallied("transitions"):
+        launches += 1
     return outs
 
 

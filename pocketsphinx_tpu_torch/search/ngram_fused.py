@@ -38,6 +38,15 @@ descending sort (ties to the lower index, like top_k); argmax is
 first-max.  Given the same cost matrix the records are bit-equal to the
 JAX package's (tests/test_torch_ngram_fused.py).
 
+The scan runs in chunks of CHUNK frames, each with its senone
+pre-gather (`_steps`).  On a CUDA decoder one chunk is captured once per
+(B, records, mask) as a CUDA graph over static buffers and replayed for
+every chunk (`_ScanGraph`), as the JAX package compiles its scan once
+with `jax.jit`; the frame index is then a device value.  On the CPU the
+same chunk runs on the same buffers without capture.  `graph=False` (a
+constructor or method argument) runs the step eagerly, issued from
+Python frame by frame; a decoder split over a "model" group always does.
+
 Streaming: `with_carry` runs the scan from a carry and a frame offset
 and returns the carry (the JAX `_make_scan(mask_carry=True).with_carry`);
 a frame whose `valid` is false leaves the whole carry as it was.
@@ -59,11 +68,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import on_device, resolve_device
+from .. import graph_capture, on_device, resolve_device
 from ..convert import column_ranges, scan_tables, split_scan_tables
 from ..models.dict2pid import Dict2Pid
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..lm.ngram import NgramModel
+from ..ops import _build, chain as chain_ops, fan as fan_ops
+from ..ops import transitions as transitions_ops
 from ..ops.chain import ChainGroup, chain_group_step
 from ..ops.fan import fan_step, padded_width
 from ..ops.hmm import hmm_step_sm
@@ -86,6 +97,103 @@ def _eascr(escore, tf, entv_at_entry, Mcp, t):
     corr = Mcp[t] - np.where(has, Mcp[tfi], 0.0)
     return (escore - np.where(has, entv_at_entry, 0.0) + corr).astype(
         np.float32)
+
+
+#: the kernels' modules by name, whose `launches` counters a graph
+#: replay adds to
+_KERNEL_OPS = {"chain": chain_ops, "fan": fan_ops,
+               "transitions": transitions_ops}
+
+
+def _records_like(rec, T):
+    """Empty [B, T, ...] record buffers for one frame's records `rec`
+    [B, ...]."""
+    return tuple(torch.empty((r.shape[0], T) + r.shape[1:], dtype=r.dtype,
+                             device=r.device) for r in rec)
+
+
+class _ScanInputs:
+    """The static inputs of a decoder's chunk graphs at one batch size B,
+    shared by its graphs of either record kind and mask (a scan replays
+    one graph at a time, and the decoder keeps the graphs of one B): the
+    chunk's costs [B, CH, n_sen], valid [B, CH], the index of its first
+    frame `t_base` (a 0-d int32 tensor) and the input carry, which a
+    chunk's graph overwrites with the carry after it."""
+
+    def __init__(self, dec, B, n_sen):
+        dev, CH = dec.device, dec.CHUNK
+        self.costs = torch.zeros((B, CH, n_sen), dtype=torch.float32,
+                                 device=dev)
+        self.valid = torch.zeros((B, CH), dtype=torch.bool, device=dev)
+        self.t_base = torch.zeros((), dtype=torch.int32, device=dev)
+        self.carry = dec.init_carry(B)
+
+
+class _ScanGraph:
+    """One CHUNK of the scan step over the static inputs `io` (a
+    `_ScanInputs`) and the chunk's records [B, CH, ...] (`recs`): `run`
+    steps a chunk from `io.carry` and writes the carry after it back
+    into `io.carry`.
+
+    On a CUDA decoder the chunk runs once eagerly on a side stream (each
+    kernel's first launch sets its shared-memory opt-in) and is then
+    captured as a CUDA graph in the memory pool `pool`; `run` replays it.
+    The kernels' launch counters would count at capture, not at replay:
+    the warm-up's and the capture's launches count in the capturing
+    thread's `_build.tally` instead (they step no frame of a scan, and
+    another replica's thread may launch meanwhile), and `run` adds the
+    capture's to the counters on every replay.  On the CPU `run` calls
+    the same chunk on the same buffers.  The decoder that owns it is passed in, not kept: the
+    decoder keeps its graphs, and a graph that kept it would tie both
+    into a cycle that only the garbage collector frees."""
+
+    def __init__(self, dec, io, minimal, mask, pool=None):
+        self.io, self.minimal, self.mask = io, minimal, mask
+        self.recs = None
+        self.graph = None
+        self.launches = None
+        if dec.device.type == "cuda":
+            self._capture(dec, pool)
+
+    def _chunk(self, dec):
+        io = self.io
+        for i, carry, rec in dec._steps(io.carry, io.costs, io.valid,
+                                        io.t_base, self.minimal, self.mask):
+            if self.recs is None:
+                self.recs = _records_like(rec, io.valid.shape[1])
+            for buf, r in zip(self.recs, rec):
+                buf[:, i] = r
+        dec._copy_carry(io.carry, carry)
+
+    def _capture(self, dec, pool):
+        with torch.cuda.device(dec.device):
+            cur = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(cur)
+            with _build.tally(), torch.cuda.stream(side):
+                self._chunk(dec)
+            cur.wait_stream(side)
+            self.recs = tuple(torch.empty_like(r) for r in self.recs)
+            graph = torch.cuda.CUDAGraph()
+            with _build.tally() as made, graph_capture(graph, pool):
+                self._chunk(dec)
+        self.launches = made
+        self.graph = graph
+
+    def run(self, dec, costs, valid, t_base):
+        """One chunk of `dec`'s scan: costs [B, CH, n_sen] and valid
+        [B, CH] into the static inputs, frames numbered from `t_base`.
+        Returns `recs`."""
+        self.io.costs.copy_(costs)
+        self.io.valid.copy_(valid)
+        self.io.t_base.fill_(t_base)
+        if self.graph is None:
+            self._chunk(dec)
+            return self.recs
+        self.graph.replay()
+        for name, n in self.launches.items():
+            _KERNEL_OPS[name].launches += n
+        return self.recs
 
 
 @dataclass
@@ -154,8 +262,12 @@ class NgramFusedDecoder:
     def __init__(self, am: AcousticModel, d2p: Dict2Pid, lm: NgramModel,
                  silprob: float = 0.005, fillprob: float = 1e-8,
                  pip: float = 1.0, nwpen: float = 1.0,
-                 topk: int = 96, depth_buckets: tuple = (), device=None):
+                 topk: int = 96, depth_buckets: tuple = (), device=None,
+                 graph: bool = True):
         self.device = resolve_device(device)
+        #: step the scan through `_ScanGraph` (default) or, with False,
+        #: eagerly frame by frame (`scan(..., graph=)` overrides it)
+        self.graph = graph
         self.am = am
         self.d2p = d2p
         self.dict = d2p.dict
@@ -183,12 +295,15 @@ class NgramFusedDecoder:
         self.tables = self.device_tables(self.host_tables, self.device,
                                          self.model_devices)
 
-    def to(self, device) -> "NgramFusedDecoder":
+    def to(self, device, graph=None) -> "NgramFusedDecoder":
         """A decoder sharing this one's host network, with its tables on
-        `device` (e.g. to check a CUDA run against the CPU)."""
+        `device` (e.g. to check a CUDA run against the CPU); `graph`
+        (default this one's) as the constructor's."""
         other = object.__new__(type(self))
         other.__dict__.update(self.__dict__)
         other.device = torch.device(device)
+        if graph is not None:
+            other.graph = graph
         other.model_devices = None
         other.tables = self.device_tables(self.host_tables, other.device)
         return other
@@ -988,6 +1103,11 @@ class NgramFusedDecoder:
         Wf = padded_width(self.n_multi) if NST == 3 else self.n_multi
         c["fin"] = planes(n_rc, Wf) if self.n_multi else None
         c["sp"] = planes(n_rc, self.SP) if self.SP else None
+        self._enter_start(c)
+        return c
+
+    def _enter_start(self, c):
+        """<s> entered at its first node of carry `c` (in place)."""
         if self.start_idx is not None:
             s_lm = self.lm.wid("<s>")
             for bi, ch in enumerate(self.ci_chains):
@@ -997,7 +1117,37 @@ class NgramFusedDecoder:
                     c["ci"][bi]["S"][:, 0, dep, k] = 0.0
                     if s_lm >= 0:
                         c["ci"][bi]["CTX"][:, 0, dep, k] = 1 + s_lm
-        return c
+
+    @staticmethod
+    def _carry_fields(c):
+        """(name, tensor) of every field of carry `c`: the flat chain
+        fields, then the fan's and the single-phone columns'."""
+        out = list(c["chain"].items())
+        for name in ("fin", "sp"):
+            if c[name] is not None:
+                out += list(c[name].items())
+        return out
+
+    def _reset_carry(self, c):
+        """Carry `c` set to `init_carry`'s values, in place."""
+        for key, x in self._carry_fields(c):
+            x.fill_(NEG_INF if key == "S" else 0)
+        self._enter_start(c)
+
+    def _copy_carry(self, dst, src):
+        """Every field of carry `src` copied into carry `dst`'s."""
+        for (_, a), (_, b) in zip(self._carry_fields(dst),
+                                  self._carry_fields(src)):
+            a.copy_(b)
+
+    def _clone_carry(self, c, B):
+        """A copy of the B-utterance carry `c` in new buffers."""
+        out = {"chain": {k: v.clone() for k, v in c["chain"].items()}}
+        out["ch"], out["ci"] = self._chain_views(out["chain"], B)
+        for name in ("fin", "sp"):
+            out[name] = (None if c[name] is None else
+                         {k: v.clone() for k, v in c[name].items()})
+        return out
 
     def _chain_views(self, flat, B):
         """Per-bucket views of the flat chain carry `flat` (S/TF/CTX/VAR):
@@ -1075,9 +1225,10 @@ class NgramFusedDecoder:
 
     def _step(self, carry, g, t, valid, minimal, mask=False):
         """One frame for B utterances.  g: this frame's senone costs by
-        gather name (see `device_tables`); t: frame index; valid [B] bool;
-        `mask`: frames whose valid is false leave the carry unchanged.
-        Returns (new carry, records)."""
+        gather name (see `device_tables`); t: frame index, an int or a 0-d
+        int32 tensor on the step's device (the graph's, so that a replay
+        reads it); valid [B] bool; `mask`: frames whose valid is false
+        leave the carry unchanged.  Returns (new carry, records)."""
         tb = self.tables
         NST, n_rc, W, nE, K = self.NST, self.n_rcp, self.W, self.nE, self.K
         n_multi, SP = self.n_multi, self.SP
@@ -1316,51 +1467,125 @@ class NgramFusedDecoder:
             winv = (win & fm).any(dim=1)
             e["VAR"][:, 0] = torch.where(winv, var_new, e["VAR"][:, 0])
 
-    def scan(self, costs, valid, minimal=False):
+    def scan(self, costs, valid, minimal=False, graph=None):
         """Run the scan over costs [B, T, n_sen] (tensor on the decoder's
         device) with valid [B, T] bool.  T is padded to a multiple of
         CHUNK; returns the per-frame records stacked to [B, Tp, ...]:
         full (escore, etf, etgt, ecx, entry, eprw, erw1, erw2, m, nviol)
-        or minimal (kv, ki, etf, etgt, rank, m, nviol)."""
-        return self._scan(costs, valid, minimal)[0]
+        or minimal (kv, ki, etf, etgt, rank, m, nviol).  `graph`: replay
+        the chunk's graph (True) or step eagerly (False); None: the
+        decoder's `graph`."""
+        return self._scan(costs, valid, minimal, graph=graph,
+                          keep_carry=False)[0]
 
-    def with_carry(self, costs, valid, carry=None, t0=0):
+    def with_carry(self, costs, valid, carry=None, t0=0, graph=None):
         """The streaming scan (JAX `_make_scan(mask_carry=True)
         .with_carry`, batched): the full-record `scan` from `carry` (None:
         `init_carry`) with frames numbered from `t0`; a frame whose
         `valid` is false (a padded block tail) leaves that utterance's
         carry unchanged.  Returns (records [B, Tp, ...], carry after the
-        last frame)."""
-        return self._scan(costs, valid, False, carry, t0, mask=True)
+        last frame, in buffers of the caller's own)."""
+        return self._scan(costs, valid, False, carry, t0, mask=True,
+                          graph=graph)
 
-    def _scan(self, costs, valid, minimal, carry=None, t0=0, mask=False):
-        B, T, _ = costs.shape
+    def _steps(self, carry, cch, vch, t_base, minimal, mask):
+        """The CHUNK frames of costs cch [B, CH, n_sen] and valid vch
+        [B, CH] from `carry`, `t_base` the first frame's index (an int,
+        or a 0-d int32 tensor on the device): the chunk's senone
+        pre-gather, then `_step` per frame.  Yields (frame in the chunk,
+        carry after it, its records); a caller that rebinds its carry to
+        each one holds no other."""
+        B, CH = vch.shape
+        gather = self.tables["gather"]
+        # chunked pre-gather: this chunk's costs of every node's senones,
+        # one contiguous [CH, B, n] block per gather
+        gs = {name: cch[:, :, ids].transpose(0, 1).contiguous()
+              for name, (ids, _) in gather.items()}
+        for i in range(CH):
+            g = {name: x[i].view((B,) + gather[name][1])
+                 for name, x in gs.items()}
+            carry, rec = self._step(carry, g, t_base + i, vch[:, i],
+                                    minimal, mask)
+            yield i, carry, rec
+
+    def _scan(self, costs, valid, minimal, carry=None, t0=0, mask=False,
+              graph=None, keep_carry=True):
+        """The scan in chunks: through the chunk's graph (`graph`, None:
+        the decoder's; a decoder split over a "model" group steps
+        eagerly) or eagerly.  Returns (records [B, Tp, ...], the carry
+        after the last frame, or None when not `keep_carry` on the graph
+        path)."""
+        B, T, n_sen = costs.shape
         CH = self.CHUNK
         Tp = -(-T // CH) * CH
         costs = torch.nn.functional.pad(costs, (0, 0, 0, Tp - T))
         valid = torch.nn.functional.pad(valid, (0, Tp - T))
+        if graph is None:
+            graph = self.graph and self.tables["columns"] is None
+        elif graph and self.tables["columns"] is not None:
+            raise ValueError("a decoder split over a model group steps its "
+                             "scan eagerly (graph=False)")
+        if graph:
+            return self._scan_graph(costs, valid, minimal, carry, t0, mask,
+                                    keep_carry)
         if carry is None:
             carry = self.init_carry(B)
-        gather = self.tables["gather"]
         recs = None
         for c0 in range(0, Tp, CH):
-            # chunked pre-gather: this chunk's costs of every node's
-            # senones, one contiguous [CH, B, n] block per gather
-            cch = costs[:, c0:c0 + CH]
-            gs = {name: cch[:, :, ids].transpose(0, 1).contiguous()
-                  for name, (ids, _) in gather.items()}
-            for i in range(CH):
-                g = {name: x[i].view((B,) + gather[name][1])
-                     for name, x in gs.items()}
-                carry, rec = self._step(carry, g, t0 + c0 + i,
-                                        valid[:, c0 + i], minimal, mask)
+            for i, carry, rec in self._steps(
+                    carry, costs[:, c0:c0 + CH], valid[:, c0:c0 + CH],
+                    t0 + c0, minimal, mask):
                 if recs is None:
-                    recs = tuple(torch.empty((B, Tp) + r.shape[1:],
-                                             dtype=r.dtype, device=r.device)
-                                 for r in rec)
+                    recs = _records_like(rec, Tp)
                 for buf, r in zip(recs, rec):
                     buf[:, c0 + i] = r
         return recs, carry
+
+    def _scan_graph(self, costs, valid, minimal, carry, t0, mask,
+                    keep_carry):
+        """`_scan` through the `_ScanGraph` of its shapes (costs and valid
+        padded to whole chunks): each chunk's inputs into its static
+        buffers, a replay (on the CPU: a call), its records copied out."""
+        (B, Tp, n_sen), CH = costs.shape, self.CHUNK
+        run = self._graph_for(B, n_sen, minimal, mask)
+        if carry is None:
+            self._reset_carry(run.io.carry)
+        else:
+            self._copy_carry(run.io.carry, carry)
+        recs = None
+        for c0 in range(0, Tp, CH):
+            rc = run.run(self, costs[:, c0:c0 + CH], valid[:, c0:c0 + CH],
+                         t0 + c0)
+            if recs is None:
+                recs = _records_like([r[:, 0] for r in rc], Tp)
+            for buf, r in zip(recs, rc):
+                buf[:, c0:c0 + CH] = r
+        return recs, (self._clone_carry(run.io.carry, B) if keep_carry
+                      else None)
+
+    def _graph_for(self, B, n_sen, minimal, mask):
+        """The `_ScanGraph` of these shapes on this decoder's tables,
+        made on first use.  The decoder keeps the graphs of one (B,
+        n_sen) and its tables: their static inputs (`_ScanInputs`, shared,
+        as their replays never overlap: one stream, one at a time) and
+        one memory pool.  A scan of another shape drops them all first,
+        so a decoder holds at most one static carry."""
+        cache = self.__dict__.get("_graphs")
+        if (cache is None or cache["tables"] is not self.tables
+                or cache["shape"] != (B, n_sen)):
+            self._graphs = cache = None
+            pool = None
+            if self.device.type == "cuda":
+                with torch.cuda.device(self.device):
+                    pool = torch.cuda.graph_pool_handle()
+            cache = self._graphs = dict(
+                tables=self.tables, shape=(B, n_sen), pool=pool,
+                inputs=_ScanInputs(self, B, n_sen), runs={})
+        run = cache["runs"].get((minimal, mask))
+        if run is None:
+            run = cache["runs"][minimal, mask] = _ScanGraph(
+                self, cache["inputs"], minimal, mask, cache["pool"])
+        return run
 
     # -- 1-best backtrace (device) -------------------------------------------
 
@@ -1467,13 +1692,13 @@ class NgramFusedDecoder:
         return self._segs_from_table(table[0].cpu().numpy(), int(n[0]))
 
     def decode_batch(self, feats, n_frames, keep_records=True, costs=None,
-                     timings=None):
+                     timings=None, graph=None):
         """Batched decode of feats [B, T, F, L] with n_frames [B].
         keep_records=False uses the top-K-compressed minimal record
         stream (`batch_records` is then None).  `costs` [B, T, n_sen]
         skips the scoring.  A dict passed as `timings` receives the
         seconds of the scoring, scan and backtrace stages (the device is
-        synchronized at each stage boundary)."""
+        synchronized at each stage boundary).  `graph` as in `scan`."""
         import time
 
         minimal = not keep_records and min(self.topk, self.W) <= 254
@@ -1500,7 +1725,7 @@ class NgramFusedDecoder:
         t1 = sync()
         valid = (torch.arange(T, device=dev)[None, :]
                  < torch.as_tensor(nf, device=dev)[:, None])
-        raw = self.scan(costs, valid, minimal=minimal)
+        raw = self.scan(costs, valid, minimal=minimal, graph=graph)
         t2 = sync()
         if minimal:
             tables, ns, scs = self.backtrace_min(*raw[:5], nf)

@@ -613,3 +613,206 @@ def test_nst5_decode_cuda(cuda, tmp_path):
     for a, b in zip(search.raw_records, cpu._searches["_default"].raw_records):
         np.testing.assert_array_equal(a, b)
     assert _result(dec) == _result(cpu)
+
+
+# -- the scan's CUDA graph (`_ScanGraph`) ------------------------------------
+
+def _graph_decoder(tmp_path, cuda, seed=1):
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=40, seed=seed)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=seed + 2)
+    spec = synth.make_model([dic], seed=seed + 4, n_sen=126 + 300,
+                            n_density=8)
+    return synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=8,
+                               device=cuda)
+
+
+def _graph_costs(dec, lens, seed):
+    rng = np.random.default_rng(seed)
+    costs = rng.uniform(0, 400, (len(lens), max(lens), dec.am.n_sen))
+    costs = costs.astype(np.float32)
+    costs[:, max(lens) // 3] = 1e29                  # a frame of ties
+    return costs, np.asarray(lens)
+
+
+def _carry_equal(dec, a, b):
+    return all(torch.equal(x.cpu(), y.cpu()) for (_, x), (_, y) in zip(
+        dec._carry_fields(a), dec._carry_fields(b), strict=True))
+
+
+def test_decode_batch_graph_equals_eager_and_cpu(cuda, tmp_path):
+    """B=8 with unequal lengths, minimal and full records: the scan
+    through the graph (the default) equals the eager step on the card and
+    the CPU, records and carry; `decode_batch`'s hypotheses, segments,
+    scores and guard counts too."""
+    dec = _graph_decoder(tmp_path, cuda)
+    cpu = dec.to("cpu")
+    costs, nf = _graph_costs(dec, [50, 33, 17, 50, 41, 9, 26, 48], 21)
+    valid = np.arange(costs.shape[1])[None, :] < nf[:, None]
+    c, v = (torch.as_tensor(x, device=cuda) for x in (costs, valid))
+    for minimal in (True, False):
+        rg, cg = dec._scan(c, v, minimal)
+        assert dec._graphs["runs"][minimal, False].graph is not None
+        re, ce = dec._scan(c, v, minimal, graph=False)
+        rc, cc = cpu._scan(torch.as_tensor(costs), torch.as_tensor(valid),
+                           minimal)
+        for a, b, r in zip(rg, re, rc, strict=True):
+            assert torch.equal(a, b) and torch.equal(a.cpu(), r)
+        assert _carry_equal(dec, cg, ce) and _carry_equal(dec, cg, cc)
+        outs = []
+        for d, kw in ((dec, {}), (dec, {"graph": False}), (cpu, {})):
+            out = d.decode_batch(None, nf, keep_records=not minimal,
+                                 costs=torch.as_tensor(costs,
+                                                       device=d.device),
+                                 **kw)
+            outs.append((chip_smoke._results(out), d.hyp_scores,
+                         d.guard_violations_batch))
+        assert outs[0] == outs[1] == outs[2]
+        assert any(h for h, _ in outs[0][0])
+
+
+def test_stream_graph_equals_eager(cuda, tmp_path):
+    """The `Decoder` stream (0.1 s chunks, a padded and masked last block)
+    through the graph equals the same stream stepped eagerly
+    (`Decoder._to(..., graph=False)`); `with_carry` resumed at t0 = 37 from
+    a carry gives the same records and carry either way, and a carry it
+    returned stays as it was through later calls."""
+    dec, _ = _facade(cuda, tmp_path)
+    eager = dec._to(cuda, graph=False)
+    search = dec._searches["_default"]
+    assert search.graph and not eager._searches["_default"].graph
+    pcm = synth.make_pcm(34, 2.3)
+    out = []
+    for d in (dec, eager):
+        d.start_utt()
+        parts = []
+        for c0 in range(0, len(pcm), 1600):
+            d.process_raw(pcm[c0:c0 + 1600])
+            parts.append(d.partial_hyp())
+        d.end_utt()
+        recs = [np.concatenate([r[k] for r in d._stream_recs])
+                for k in range(10)]
+        out.append((recs, [p and p.hypstr for p in parts], _result(d)))
+    for a, b in zip(out[0][0], out[1][0], strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert out[0][1:] == out[1][1:]
+    costs, _ = _graph_costs(search, [80], 22)
+    c = torch.as_tensor(costs, device=cuda)
+    one = torch.ones((1, 80), dtype=torch.bool, device=cuda)
+    runs = []
+    for g in (True, False):
+        r1, k1 = search.with_carry(c[:, :37], one[:, :37], graph=g)
+        kept = [x.clone() for _, x in search._carry_fields(k1)]
+        r2, k2 = search.with_carry(c[:, 37:], one[:, 37:], k1, 37, graph=g)
+        search.with_carry(c[:, 5:40], one[:, 5:40], graph=g)
+        assert all(torch.equal(x, y) for (_, x), y in zip(
+            search._carry_fields(k1), kept, strict=True))
+        runs.append((r1, r2, k2))
+    for a, b in zip(runs[0][0] + runs[0][1], runs[1][0] + runs[1][1],
+                    strict=True):
+        assert torch.equal(a, b)
+    assert _carry_equal(search, runs[0][2], runs[1][2])
+
+
+def test_graph_launch_counts(cuda, tmp_path):
+    """Each kernel's counter adds one launch per frame stepped through
+    graph replays: the first scan (which captures) and the later ones,
+    as through the eager step."""
+    dec = _graph_decoder(tmp_path, cuda, seed=3)
+    costs, nf = _graph_costs(dec, [40, 21, 7], 23)
+    valid = np.arange(costs.shape[1])[None, :] < nf[:, None]
+    c, v = (torch.as_tensor(x, device=cuda) for x in (costs, valid))
+    frames = -(-costs.shape[1] // dec.CHUNK) * dec.CHUNK
+    for graph in (True, True, False):
+        before = [m.launches for m in (fan, chain, transitions)]
+        dec.scan(c, v, True, graph=graph)
+        torch.cuda.synchronize()
+        assert [m.launches - n for m, n in zip(
+            (fan, chain, transitions), before)] == [frames] * 3
+    run = dec._graphs["runs"][True, False]
+    assert run.launches == dict.fromkeys(("chain", "fan", "transitions"),
+                                         dec.CHUNK)
+
+
+def test_graph_two_batch_sizes(cuda, tmp_path):
+    """Two batch sizes on one decoder, interleaved, each get a graph of
+    their own and stay equal to the eager step; the decoder keeps the
+    graphs of the last one only (one static carry)."""
+    dec = _graph_decoder(tmp_path, cuda, seed=5)
+    inputs = {}
+    for B, lens in ((3, [40, 21, 33]), (5, [19, 40, 8, 27, 36])):
+        costs, nf = _graph_costs(dec, lens, 24 + B)
+        valid = np.arange(costs.shape[1])[None, :] < nf[:, None]
+        inputs[B] = [torch.as_tensor(x, device=cuda) for x in (costs, valid)]
+    want = {B: dec.scan(*x, True, graph=False) for B, x in inputs.items()}
+    seen = []
+    for B in (3, 5, 3, 5):
+        for a, b in zip(dec.scan(*inputs[B], True), want[B], strict=True):
+            assert torch.equal(a, b)
+        assert dec._graphs["shape"] == (B, dec.am.n_sen)
+        assert set(dec._graphs["runs"]) == {(True, False)}
+        run = dec._graphs["runs"][True, False]
+        assert run.graph is not None and run.io.costs.shape[0] == B
+        seen.append(run)
+    assert len({id(r) for r in seen}) == 4
+
+
+def test_decode_corpus_two_replicas_one_card(cuda, tmp_path):
+    """Two replicas on one card (`Mesh([[card], [card]])`): their rows
+    run in two threads whose first scans capture at once; the results
+    equal one replica's, and each kernel counts one launch per frame
+    either replica stepped."""
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
+    from pocketsphinx_tpu_torch.parallel.batch import Mesh
+    dec = _graph_decoder(tmp_path, cuda, seed=9)
+    fe = chip_smoke.en_us_frontend()
+    secs = (1.2, 0.9, 1.1, 0.7, 1.0, 0.8)
+    pcms = [synth.make_pcm(80 + i, s) for i, s in enumerate(secs)]
+    order = sorted(range(len(pcms)), key=lambda i: len(pcms[i]))
+    frames = sum(-(-fe.n_frames(max(len(pcms[i]) for i in rows))
+                   // dec.CHUNK) * dec.CHUNK
+                 for rows in np.array_split(np.array(order), 2))
+    runs = []
+    # one replica (a twin) in batches of 3, then two on `dec` (unscanned)
+    # taking 3 rows each of one batch of 6: the same rows per scan, so
+    # the same GEMM shapes
+    for search, mesh, B in ((dec.to(cuda), make_mesh(n_data=1), 3),
+                            (dec, Mesh([[cuda], [cuda]]), 6)):
+        pipe = BatchDecodePipeline(search, fe, mesh=mesh)
+        before = [m.launches for m in (fan, chain, transitions)]
+        got = chip_smoke._results(pipe.decode_corpus(pcms, batch_size=B))
+        torch.cuda.synchronize()
+        assert [m.launches - n for m, n in zip(
+            (fan, chain, transitions), before)] == [frames] * 3
+        runs.append(got)
+    assert pipe.replicas[0] is not pipe.replicas[1]
+    assert runs[0] == runs[1] and any(h for h, _ in runs[0])
+    for r in pipe.replicas:
+        assert r._graphs["runs"][True, False].graph is not None
+
+
+def test_graph_capture_with_garbage(cuda, tmp_path):
+    """A capture while the garbage collector runs at every allocation and
+    an unreachable cycle holds another decoder and its captured graph:
+    collecting it during the capture would destroy that graph, a call
+    that invalidates the capture. The capture must succeed and replay
+    equal to the eager step."""
+    import gc
+    old = _graph_decoder(tmp_path / "old", cuda, seed=7)
+    costs, nf = _graph_costs(old, [40, 21, 33], 28)
+    valid = np.arange(costs.shape[1])[None, :] < nf[:, None]
+    c, v = (torch.as_tensor(x, device=cuda) for x in (costs, valid))
+    old.scan(c, v, True)
+    assert old._graphs["runs"][True, False].graph is not None
+    old.cycle = old
+    del old
+    dec = _graph_decoder(tmp_path / "new", cuda, seed=7)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        got = dec.scan(c, v, True)
+    finally:
+        gc.set_threshold(*thresholds)
+    for a, b in zip(got, dec.scan(c, v, True, graph=False), strict=True):
+        assert torch.equal(a, b)
