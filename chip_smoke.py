@@ -138,23 +138,31 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
 11. tensor parallelism over the mesh's "model" axis (`tensor_parallel`:
    `decode_corpus` on a mesh whose rows split the scoring by codebooks
    or senone slots and the scan's word-transition block by the LM
-   tables' entry columns, `NgramFusedDecoder.shard`), once per mesh: the
-   kernels launch once per frame stepped, on the leads; each data row's
-   split costs against the unsplit scoring (largest difference printed,
-   within the scoring tolerance); the (hyp, segments) and the guard
-   count equal the unsplit run's where the costs are equal, and always
-   equal the unsplit search's on the split costs; the first row's
-   minimal records equal the unsplit scan's; audio-s/s, scan ms per
-   frame, peak memory per card, the block's device ms on each part and
-   the per-frame copy ms.  (a) `tp_20k`, right after phase 10(d): phase
-   5's decoder (LM mode B) in two parts on one card
+   tables' entry columns, `NgramFusedDecoder.shard`), once per mesh,
+   each split scan through its CUDA graph (one graph over the group's
+   cards): the fan and the chain launch once per frame stepped, on the
+   leads, the transition kernel once per frame and part; each data
+   row's split costs against the unsplit scoring (largest difference
+   printed, within the scoring tolerance); the (hyp, segments) and the
+   guard count equal the unsplit run's where the costs are equal, and
+   always equal the unsplit search's on the split costs; the first
+   row's minimal records through the graph equal its eager step's and
+   the unsplit scan's; audio-s/s, scan ms per frame, peak memory per
+   card, the split replica's graph buffers, and the device ms of one
+   frame's block as the scan runs it (`block_times`: each part's, the
+   whole split block's, and its copies and joins alone).  (a) `tp_20k`, right after
+   phase 10(d): phase 5's decoder (LM mode B) in two parts on one card
    (`Mesh([["cuda:0", "cuda:0"]])`), one B=8 batch, beside the unsplit
-   run; (b) `tp_126k`, right after phase 9(c): phase 9's decoder (LM mode
+   run, and `graph_vs_eager` on the split replica (minimal and full
+   records, carries, `decode_batch`'s results); (b) `tp_126k`, right
+   after phase 9(c): phase 9's decoder (LM mode
    C) and its 16 utterances in two parts on one card, against phase
    9(b)'s first run; (c) with two or more cards, over cards 0 and 1
    (`make_mesh(1, 2)`); (d) with four, `make_mesh(2, 2)`, 8 utterances
    per data row.  (c) and (d) print that they were skipped on fewer
-   cards.
+   cards.  With --profile, `split_scan_modes` of (a)'s, (b)'s and (c)'s
+   groups: the split scan through its graph and stepped eagerly beside
+   the unsplit decoder's, as `scan_modes` (peak memory per card).
 
 Every phase that decodes with the n-gram search holds each kernel's
 launches to the frames it stepped (the word-transition kernel once per
@@ -170,8 +178,9 @@ Any failed check raises; without CUDA it exits non-zero before any
 result.
 
 `--tp` runs phase 11(b)-(d) alone (phase 9's task built and decoded
-once unsplit as their reference), e.g. on a machine with four cards;
-with `--profile` it also profiles (c)'s split scan and the unsplit one
+once unsplit as their reference), e.g. on a machine with four cards,
+with `split_scan_modes` of (b)'s and (c)'s groups; with `--profile` it
+also profiles (c)'s split scan through its graph and the unsplit one
 (each card's busy share).
 
 `--ab TREE [TREE ...]` compares checkouts instead (e.g. the parent
@@ -609,11 +618,13 @@ def scan_modes(dec, fe, log=print, batch=8, reps=4, frames=64,
     turn, eager first (a tree without the graph: its one scan): the wall
     ms per frame of `reps` scans, peak memory over them (allocated and
     reserved, from a reset before the first scan, so a graph's capture is
-    in it when the decoder had none at this shape), and over one profiled
-    scan of `frames` frames the device ms per frame, the device's busy
-    share of its wall, the device launches per frame (kernels, copies
-    and fills; a replay's kernels count one each) and the launches the
-    host issued per frame.  Works with any tree's decoder (`--ab`)."""
+    in it when the decoder had none at this shape; for a decoder split
+    over a "model" group also the allocated peak of each card), and over
+    one profiled scan of `frames` frames the device ms per frame (summed
+    over the cards), the devices' busy share of its wall, the device
+    launches per frame (kernels, copies and fills; a replay's kernels
+    count one each) and the launches the host issued per frame.  Works
+    with any tree's decoder (`--ab`)."""
     import inspect
     import torch
     from torch.autograd import DeviceType
@@ -629,26 +640,37 @@ def scan_modes(dec, fe, log=print, batch=8, reps=4, frames=64,
     modes = ({"eager": dict(graph=False), "graph": dict(graph=True)}
              if "graph" in inspect.signature(dec.scan).parameters
              else {"default": {}})
+    cards = sorted({d.index for d in getattr(dec, "model_devices", None)
+                    or [dec.device]})
+
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
     out = {}
     for mode, kw in modes.items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        sync()
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
         ms = []
         for _ in range(reps):
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             dec.scan(costs, valid, minimal=minimal, **kw)
-            torch.cuda.synchronize()
+            sync()
             ms.append((time.perf_counter() - t0) / T * 1e3)
         r = dict(wall_ms_per_frame=ms,
-                 peak_alloc_bytes=torch.cuda.max_memory_allocated(),
-                 peak_reserved_bytes=torch.cuda.max_memory_reserved())
+                 peak_alloc_bytes=torch.cuda.max_memory_allocated(dec.device),
+                 peak_reserved_bytes=torch.cuda.max_memory_reserved(
+                     dec.device),
+                 peak_alloc_bytes_by_card={
+                     c: torch.cuda.max_memory_allocated(c) for c in cards})
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             dec.scan(costs[:, :frames], valid[:, :frames], minimal=minimal,
                      **kw)
-            torch.cuda.synchronize()
+            sync()
             wall = time.perf_counter() - t0
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
@@ -671,8 +693,40 @@ def scan_modes(dec, fe, log=print, batch=8, reps=4, frames=64,
             f"{r['device_launches_per_frame']:.2f} device and "
             f"{r['host_launches_per_frame']:.2f} host launches per frame; "
             f"peak {r['peak_alloc_bytes'] / 2**30:.2f} GiB allocated, "
-            f"{r['peak_reserved_bytes'] / 2**30:.2f} GiB reserved")
+            f"{r['peak_reserved_bytes'] / 2**30:.2f} GiB reserved"
+            + (f"; allocated by card {_gib(r['peak_alloc_bytes_by_card'])}"
+               if len(cards) > 1 else ""))
     return out
+
+
+def _gib(by_card):
+    """{card: bytes} as {card: GiB}, rounded to 3 places."""
+    return {c: round(b / 2**30, 3) for c, b in by_card.items()}
+
+
+def split_scan_modes(dec, group, fe, log=print):
+    """`scan_modes` of `dec` split over the "model" group `group` and of
+    `dec` unsplit, in turn, in one call: the split scan through its
+    graph and stepped eagerly beside the unsplit graph (and eager
+    step)."""
+    what = "+".join(str(d) for d in group)
+    log(f"scan_modes, split over {what}:")
+    split = scan_modes(dec.shard(group), fe, log)
+    log("scan_modes, unsplit:")
+    res = dict(group=[str(d) for d in group], split=split,
+               unsplit=scan_modes(dec, fe, log))
+    g, u = split["graph"], res["unsplit"]["graph"]
+    log(f"split over {what} through the graph: "
+        f"{min(g['wall_ms_per_frame']):.3f}-"
+        f"{max(g['wall_ms_per_frame']):.3f} ms per frame (unsplit "
+        f"{min(u['wall_ms_per_frame']):.3f}-"
+        f"{max(u['wall_ms_per_frame']):.3f}), device "
+        f"{g['device_ms_per_frame']:.3f} ms ({u['device_ms_per_frame']:.3f}),"
+        f" busy {g['busy']:.3f} ({u['busy']:.3f}), host launches "
+        f"{g['host_launches_per_frame']:.2f} per frame "
+        f"({u['host_launches_per_frame']:.2f}; eager split "
+        f"{split['eager']['host_launches_per_frame']:.2f})")
+    return res
 
 
 def pcm_batch(seeds, seconds):
@@ -1836,53 +1890,79 @@ def _parts(n_utts, lens, batch, dp):
 
 
 def block_times(sp, costs, reps=10):
-    """Device ms of the word-transition block of one frame on each part
-    of `sp`'s "model" group (CUDA events on that part's card), and of the
-    frame's copies to and from the parts off the lead (events on the
-    lead's stream, which waits for them); the exits of the frame come
-    from a short scan of `costs` (`frame_exits`)."""
+    """Device ms of one frame's word-transition block on `sp`, a decoder
+    split over a "model" group, as its scan runs it: `_transitions` on
+    the decoder's `_SplitBuffers` at the batch size of `costs`.  Returns
+    (each part's block into its static outputs, on the stream it runs
+    on: its card's own, or the lead's; the whole split block, on the
+    lead's stream, which waits for every part: the blocks, the exits'
+    copies to the parts on other cards, their outputs' copies back and
+    the 7 joins into [B, E]; those copies and joins alone, issued as
+    `_transitions` issues them).  CUDA events on each stream; the
+    frame's exits come from a short scan of `costs` (`frame_exits`)."""
     import torch
-    from pocketsphinx_tpu_torch import on_device
     from pocketsphinx_tpu_torch.ops.transitions import transitions
-    lead = sp.device
+    args = frame_exits(sp, costs)[0]
+    layout, wpen = args[1], args[7]
+    exits = tuple(x.to(sp.device) for x in args[2:7])
+    buf = sp._split_buffers(exits[0].shape[0])
+    lead = torch.cuda.current_stream(sp.device)
+    away = [p for p in buf.parts if p.stream is not None]
 
-    def ms(dev, fn):
-        with on_device(dev):
+    def ms(stream, fn):
+        with torch.cuda.device(stream.device), torch.cuda.stream(stream):
             fn()
-            torch.cuda.synchronize(dev)
+            torch.cuda.synchronize()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
+            ev[0].record(stream)
             for _ in range(reps):
                 fn()
-            ev[1].record()
-            torch.cuda.synchronize(dev)
+            ev[1].record(stream)
+            ev[1].synchronize()
             return ev[0].elapsed_time(ev[1]) / reps
 
-    shard_ms = []
-    copy_ms = 0.0
-    for (dev, _), args in zip(sp.tables["columns"], frame_exits(sp, costs)):
-        shard_ms.append(ms(dev, lambda: transitions(*args)))
-        if dev != lead:
-            exits = [x.to(lead) for x in args[2:7]]
-            outs = transitions(*args)
-            torch.cuda.synchronize(dev)
-            copy_ms += ms(lead, lambda: ([x.to(dev) for x in exits],
-                                         [o.to(lead) for o in outs]))
-    return shard_ms, copy_ms
+    def copies():
+        for p in away:
+            p.stream.wait_stream(lead)
+            with torch.cuda.stream(p.stream):
+                for b, x in zip(p.exits, exits):
+                    b.copy_(x)
+                for b, o in zip(p.lead_outs, p.outs):
+                    b.copy_(o)
+            lead.wait_stream(p.stream)
+        for i, out in enumerate(buf.joined):
+            torch.cat([p.lead_outs[i] for p in buf.parts], 1, out=out)
+
+    for p in away:
+        for b, x in zip(p.exits, exits):
+            b.copy_(x)
+    torch.cuda.synchronize(sp.device)
+    block_ms = [
+        ms(lead if p.stream is None else p.stream,
+           lambda p=p: transitions(p.tables, layout, *(p.exits or exits),
+                                   wpen, out=p.outs))
+        for p in buf.parts]
+    split_ms = ms(lead, lambda: sp._transitions(*exits, wpen))
+    return block_ms, split_ms, ms(lead, copies)
 
 
 def tensor_parallel(dec, fe, mesh, pcms, ref, ref_guard, log=print, batch=8,
-                    what=""):
+                    what="", check_graph=False):
     """Phase 11: `decode_corpus` of `pcms` through `dec` on `mesh` (a
-    "model" axis), once.  The kernels launch once per frame stepped, on
-    the leads.  The split costs of each data row's batch are held to the
-    unsplit ones (largest difference printed; within the scoring
+    "model" axis), once, each replica's scan through its CUDA graph (one
+    graph over its group's cards).  The fan and the chain launch once
+    per frame stepped, on the leads, the word-transition kernel once per
+    frame and part.  The split costs of each data row's batch are held
+    to the unsplit ones (largest difference printed; within the scoring
     tolerance); where they are equal the (hyp, segments) must equal
     `ref` (the unsplit run's) and the guard count `ref_guard`, else each
     row's result must equal the unsplit search's on the split costs.  The
-    first row's minimal records equal the unsplit scan's on the same
-    costs, every record.  Returns audio-s/s, scan ms per frame, peak
-    memory per card and the block's device times per part."""
+    first row's minimal records through the graph equal its eager step's
+    and the unsplit scan's on the same costs, every record; with
+    `check_graph`, `graph_vs_eager` holds that row's scan, carries and
+    `decode_batch` results too, minimal and full.  Returns audio-s/s,
+    scan ms per frame, peak memory per card, the bytes of the split
+    replica's graph buffers and the block's device times (`block_times`)."""
     import torch
     from pocketsphinx_tpu_torch.models.acoustic import senone_scores
     from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline
@@ -1946,16 +2026,26 @@ def tensor_parallel(dec, fe, mesh, pcms, ref, ref_guard, log=print, batch=8,
                          [None, :] < torch.as_tensor(nf, device=rep.device)
                          [:, None])
                 a = rep.scan(costs, valid, minimal=True)
+                e = rep.scan(costs, valid, minimal=True, graph=False)
                 r = dec.scan(costs.to(dec.device), valid.to(dec.device),
                              minimal=True)
-                for n, x, y in zip("kv ki etf etgt rank m nviol".split(), a,
-                                   r):
-                    if not torch.equal(x.to(dec.device), y):
+                for n, x, y, z in zip("kv ki etf etgt rank m nviol".split(),
+                                      a, e, r):
+                    if not torch.equal(x, y):
+                        raise AssertionError(f"phase 11{what}: minimal "
+                                             f"record {n}: graph != eager")
+                    if not torch.equal(x.to(dec.device), z):
                         raise AssertionError(f"phase 11{what}: minimal "
                                              f"record {n} differs")
                 res["min_records_equal"] = True
+                del a, e, r
+                if check_graph:
+                    res["graph_check"] = graph_vs_eager(
+                        rep, costs, nf, f"phase 11{what}", log)
                 if cuda:
-                    res["block_ms"], res["copy_ms"] = block_times(rep, costs)
+                    res["graph_bytes_split"] = graph_bytes(rep)
+                    (res["block_ms"], res["split_block_ms"],
+                     res["copy_ms"]) = block_times(rep, costs)
     res["cost_max_abs_diff"] = err
     if err == 0.0 and (out != ref or res["guard_violations"] != ref_guard):
         raise AssertionError(f"phase 11{what}: split decode_corpus differs "
@@ -1970,8 +2060,9 @@ def tensor_parallel(dec, fe, mesh, pcms, ref, ref_guard, log=print, batch=8,
 
 def graph_bytes(dec):
     """Bytes of the buffers `dec` keeps for its scan's CUDA graphs: the
-    static inputs and carry, and each graph's records (not the free
-    blocks of their private pool)."""
+    static inputs and carry, each graph's records and a split decoder's
+    block buffers on every card (not the free blocks of their private
+    pool)."""
     cache = dec.__dict__.get("_graphs")
     if not cache:
         return 0
@@ -1980,16 +2071,24 @@ def graph_bytes(dec):
     ts += [x for _, x in dec._carry_fields(io.carry)]
     for run in cache["runs"].values():
         ts += list(run.recs or ())
+    split = cache.get("split")
+    if split is not None:
+        ts += list(split.joined)
+        for p in split.parts:
+            ts += [x for xs in (p.outs, p.exits, p.lead_outs)
+                   for x in xs or ()]
     return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
                 for t in ts}.values())
 
 
-def tp_20k(dec, fe, log=print, batch=8):
+def tp_20k(dec, fe, log=print, batch=8, profile=False):
     """Phase 11(a): phase 5's 20k decoder (LM mode B) split in two parts
     on one card (`Mesh([["cuda:0", "cuda:0"]])`), one B=`batch` batch of
     phase 5's utterances through `decode_corpus`, held to the unsplit
-    run (`tensor_parallel`); with its scan ms per frame and peak memory
-    beside the unsplit run's."""
+    run (`tensor_parallel`, with `graph_vs_eager` on the split replica);
+    with its scan ms per frame and peak memory beside the unsplit run's.
+    With `profile`, `split_scan_modes` of the two parts beside the
+    unsplit decoder."""
     from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
     from pocketsphinx_tpu_torch.parallel.batch import Mesh
     from pocketsphinx_tpu_torch.testing import synth
@@ -2008,8 +2107,10 @@ def tp_20k(dec, fe, log=print, batch=8):
                    peak_mem_bytes=_peak(dev))
     res = tensor_parallel(dec, fe, Mesh([[dev, dev]]), pcms, ref,
                           pipe.guard_violations, log=log, batch=batch,
-                          what="(a) 20k mode B, one card")
+                          what="(a) 20k mode B, one card", check_graph=True)
     res["unsplit"] = unsplit
+    if profile:
+        res["scan_modes"] = split_scan_modes(dec, [dev, dev], fe, log)
     log(f"phase 11(a): scan {res['scan_ms_per_frame']:.3f} ms per B={batch} "
         f"frame split in two on one card, {unsplit['scan_ms_per_frame']:.3f} "
         f"unsplit; peak "
@@ -2022,7 +2123,8 @@ def tp_20k(dec, fe, log=print, batch=8):
 def tp_cards(work, log=print, batch=8, profile=False):
     """`--tp`: phase 11(b)-(d) alone.  Builds phase 9's task, decodes its
     utterances once unsplit on one card through `decode_corpus` (the
-    reference), then runs `tp_126k`."""
+    reference), then runs `tp_126k` with `split_scan_modes` of each
+    group."""
     from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
     t0 = time.perf_counter()
     dec, res = reference_decoder(work, "cuda")
@@ -2041,17 +2143,20 @@ def tp_cards(work, log=print, batch=8, profile=False):
     log(f"--tp: 126k task built and decoded unsplit in "
         f"{time.perf_counter() - t0:.1f} s ({json.dumps(res)}), scan "
         f"{held['scan_ms_per_frame']:.3f} ms per frame")
-    return tp_126k(held, fe, log=log, batch=batch, profile=profile)
+    return tp_126k(held, fe, log=log, batch=batch, profile=profile,
+                   modes=True)
 
 
-def tp_126k(held, fe, log=print, batch=8, profile=False):
+def tp_126k(held, fe, log=print, batch=8, profile=False, modes=False):
     """Phase 11(b)-(d) on phase 9's 126k decoder (LM mode C) and its
     utterances, each once, held to phase 9(b)'s first run
     (`tensor_parallel`): (b) two parts on one card; (c) with two or more
     cards, `make_mesh(1, 2)` over cards 0 and 1; (d) with four,
     `make_mesh(2, 2)` with `batch` utterances per data row.  (c) and (d)
     say so when they are skipped.  With `profile`, `profile_scan` of (c)'s
-    split decoder and of the unsplit one (each card's busy share)."""
+    split decoder and of the unsplit one (each card's busy share); with
+    `modes`, `split_scan_modes` of (b)'s and (c)'s groups beside the
+    unsplit decoder."""
     import torch
     from pocketsphinx_tpu_torch.parallel import make_mesh
     from pocketsphinx_tpu_torch.parallel.batch import Mesh
@@ -2062,6 +2167,8 @@ def tp_126k(held, fe, log=print, batch=8, profile=False):
     res["b"] = tensor_parallel(dec, fe, Mesh([[dev, dev]]), pcms, ref, guard,
                                log=log, batch=batch,
                                what="(b) 126k mode C, one card")
+    if modes:
+        res["b"]["scan_modes"] = split_scan_modes(dec, [dev, dev], fe, log)
     n = torch.cuda.device_count()
     for key, nd, nm in (("c", 1, 2), ("d", 2, 2)):
         if n < nd * nm:
@@ -2077,6 +2184,9 @@ def tp_126k(held, fe, log=print, batch=8, profile=False):
             res["c"]["profile"] = profile_scan(
                 dec.shard(make_mesh(1, 2).devices[0]), fe, log, batch=batch)
             res["c"]["profile_tp1"] = profile_scan(dec, fe, log, batch=batch)
+        if modes and key == "c":
+            res["c"]["scan_modes"] = split_scan_modes(
+                dec, list(make_mesh(1, 2).devices[0]), fe, log)
     for key in ("b", "c", "d"):
         r = res[key]
         if isinstance(r, dict):
@@ -2087,8 +2197,10 @@ def tp_126k(held, fe, log=print, batch=8, profile=False):
                 f"{held['scan_ms_per_frame']:.3f}), peak per card {gib} "
                 f"GiB (live before the run {live} GiB, of which the unsplit "
                 f"decoder's graph buffers "
-                f"{r['graph_bytes'] / 2**30:.3f} GiB), block ms per part {r.get('block_ms')}, copy ms per "
-                f"frame {r.get('copy_ms')}")
+                f"{r['graph_bytes'] / 2**30:.3f} GiB), block ms per part "
+                f"{r.get('block_ms')}, split block ms per frame "
+                f"{r.get('split_block_ms')} (copies and joins "
+                f"{r.get('copy_ms')})")
     return res
 
 
@@ -2696,7 +2808,7 @@ def main(argv):
     log(f"phase 10(d) ({t10:.1f} s) on {smi}")
     # phase 11(a), tensor parallelism at 20k, on the same decoder
     t0 = time.perf_counter()
-    tp = {"a": tp_20k(dec, fe, log=log)}
+    tp = {"a": tp_20k(dec, fe, log=log, profile="--profile" in argv)}
     t11 = time.perf_counter() - t0
     log(f"phase 11(a) ({t11:.1f} s) on {smi}")
     del dec
@@ -2732,7 +2844,8 @@ def main(argv):
         # phase 11(b)-(d), tensor parallelism at 126k, on phase 9's decoder
         t1 = time.perf_counter()
         tp.update(tp_126k(held, en_us_frontend(), log=log,
-                          profile="--profile" in argv))
+                          profile="--profile" in argv,
+                          modes="--profile" in argv))
         held.clear()
         t11 += time.perf_counter() - t1
         log(f"phase 11(b-d) ({time.perf_counter() - t1:.1f} s); phase 11 "

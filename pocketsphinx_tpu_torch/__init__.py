@@ -59,20 +59,30 @@ _capture_lock = threading.Lock()
 
 
 @contextlib.contextmanager
-def graph_capture(graph, pool=None):
-    """`torch.cuda.graph(graph, pool)`, with what a capture forbids
-    checked in the capturing thread only ("thread_local": another
-    replica's thread may sync its own card meanwhile) and Python's
-    garbage collector stopped: collecting an unreachable CUDA graph
-    during a capture destroys it, a call that invalidates the capture
-    (torch does not collect before a capture).  Captures in the process
-    run one at a time, so that the collector is on again only after the
-    last one."""
+def graph_capture(graph, pool=None, stream=None):
+    """`torch.cuda.graph(graph, pool, stream)` on the current card, with
+    what a capture forbids checked in the capturing thread only
+    ("thread_local": another replica's thread may sync its own card
+    meanwhile) and Python's garbage collector stopped: collecting an
+    unreachable CUDA graph during a capture destroys it, a call that
+    invalidates the capture (torch does not collect before a capture).
+    Captures in the process run one at a time, so that the collector is
+    on again only after the last one.  Pass a `stream` of the current
+    card where it may not be the first card captured on: torch's own
+    default capture stream is one for the process, on the card current
+    at its first capture.
+
+    The graph takes in the work of streams on other cards that wait on
+    an event recorded in the capture and that the capture waits on
+    again before it ends (a decoder split over a "model" group): one
+    graph over the group's cards.  Only the current card's allocations
+    go to the graph's pool, so such work must allocate nothing."""
     with _capture_lock:
         collect = gc.isenabled()
         gc.disable()
         try:
             with torch.cuda.graph(graph, pool=pool,
+                                  stream=stream,
                                   capture_error_mode="thread_local"):
                 yield
         finally:

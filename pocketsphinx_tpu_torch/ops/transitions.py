@@ -23,7 +23,9 @@ ctx_k, final base phones fb_k [B, K], right-context exit planes svk
     keeps the source's context), the LM history erw1/erw2 and fb_e.
 
 `transitions` launches `csrc/transitions.cu` for CUDA tensors and runs
-`transitions_ref` only for CPU tensors.  The tables are the decoder's
+`transitions_ref` only for CPU tensors; given `out=`, either writes into
+the caller's seven [B, nE] tensors (a split decoder's static buffers on
+a part's card, where a CUDA-graph capture may allocate nothing).  The tables are the decoder's
 own or one part's of a "model" group (`convert.split_scan_tables`: its
 column range, with scatter ids outside it sent to the spare column nE,
 which is dropped).  Within one history's CSR row, and within one
@@ -74,6 +76,9 @@ _E_TABLES = {"f0p_E", "isfill_E", "fillpen_E", "isreal_E", "lmwid_E",
              "uni_row", "ctx_base"}
 #: the dense table the kernel reads rows of, by LM mode
 _DENSE = {"rows": "rows", "sparse": "bg", "csr": "fat_rows"}
+#: the dtypes of the outputs (entry, am, prw_e, ctx_new, erw1, erw2, fb_e)
+_OUT_DTYPES = (torch.float32, torch.int64, torch.int64, torch.int32,
+               torch.int32, torch.int32, torch.int64)
 
 
 def reset_launches():
@@ -123,14 +128,15 @@ def _csr_rows(tb, lm, h1c):
     return base, ctxrow
 
 
-def transitions_ref(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen):
+def transitions_ref(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen, out=None):
     """Plain torch version of the block (see module docstring).
 
     tb: block tables; lm: `LMLayout`; kv [B, K] f32, ki [B, K] i64,
     ctx_k [B, K] i32, fb_k [B, K] i64, svk [B, NRC, K] f32; wpen: the
     word insertion penalty (a float32 value).
     Returns (entry f32, am i64, prw_e i64, ctx_new i32, erw1 i32,
-    erw2 i32, fb_e i64), each [B, nE]."""
+    erw2 i32, fb_e i64), each [B, nE]: in the tensors of `out` (seven
+    such tensors, `_check_out`) when given."""
     nE = tb["isfill_E"].shape[0]
     B, K = ki.shape
     V = lm.V
@@ -192,7 +198,13 @@ def transitions_ref(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen):
     erw1 = torch.where(tb["isreal_E"], tb["lmwid_E"], srcrw1)
     # fillers inherit the source's full history; real words shift it
     erw2 = torch.where(tb["isreal_E"], srcrw1, srcrw2)
-    return entry, am, prw_e, ctx_new, erw1, erw2, fb_e
+    res = entry, am, prw_e, ctx_new, erw1, erw2, fb_e
+    if out is None:
+        return res
+    _check_out(out, B, nE, dev)
+    for o, r in zip(out, res):
+        o.copy_(r)
+    return out
 
 
 def _check_exits(kv, ki, ctx_k, fb_k, svk):
@@ -214,6 +226,21 @@ def _check_exits(kv, ki, ctx_k, fb_k, svk):
             raise TypeError(f"{name}: dtype {x.dtype} != {dt}")
         if x.device != kv.device:
             raise ValueError(f"{name}: device {x.device} != {kv.device}")
+
+
+def _check_out(out, B, nE, device):
+    """Raises unless `out` holds the block's seven outputs, [B, nE] each,
+    contiguous, on `device`, with `outputs`' dtypes."""
+    if len(out) != len(_OUT_DTYPES):
+        raise ValueError(f"transitions: out holds {len(out)} tensors, not "
+                         f"{len(_OUT_DTYPES)}")
+    for i, (o, dt) in enumerate(zip(out, _OUT_DTYPES)):
+        if tuple(o.shape) != (B, nE) or o.dtype != dt:
+            raise ValueError(f"transitions: out[{i}] is {tuple(o.shape)} "
+                             f"{o.dtype}, not {(B, nE)} {dt}")
+        if o.device != device or not o.is_contiguous():
+            raise ValueError(f"transitions: out[{i}] must be contiguous on "
+                             f"{device}")
 
 
 def _kernel_tables(tb, lm, device):
@@ -296,19 +323,22 @@ def launch_shape(B, nE, K, n_sm):
 
 
 def transitions(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen,
-                cols_per_thread=None, k_split=None):
+                cols_per_thread=None, k_split=None, out=None):
     """The block on the tensors' device: the CUDA kernel for CUDA
     tensors, `transitions_ref` for CPU tensors.  Same arguments and
     results as `transitions_ref`; `cols_per_thread` (one of
     `COLS_PER_THREAD`) and `k_split` (one of `K_SPLITS`) set the
     kernel's entry columns per thread and splits of the exits (default:
     `launch_shape` of the shapes, each given value in place of its own).
-    The [B, K] exits may be row views (stride 1 along K)."""
+    The [B, K] exits may be row views (stride 1 along K).  With `out`
+    the kernel writes into its seven tensors and the call allocates
+    nothing on the card, as a CUDA-graph capture on a card other than
+    the capturing one needs."""
     global launches
     _check_exits(kv, ki, ctx_k, fb_k, svk)
     dev = kv.device
     if dev.type == "cpu":
-        return transitions_ref(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen)
+        return transitions_ref(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen, out)
     if dev.type != "cuda":
         raise ValueError(f"transitions: unsupported device {dev}")
     if lm.mode not in _MODES:
@@ -341,7 +371,11 @@ def transitions(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen,
         raise ValueError(f"transitions: NRC = {NRC} exit planes (and {nw} "
                          f"accept words per column) do not fit in shared "
                          f"memory")
-    outs = _outputs(B, nE, dev)
+    if out is None:
+        outs = outputs(B, nE, dev)
+    else:
+        _check_out(out, B, nE, dev)
+        outs = tuple(out)
     if not (B and nE):
         return outs
     a = _launch_args(t, lm, kv, ki, ctx_k, fb_k, svk, wpen, outs, kc, ks,
@@ -359,11 +393,11 @@ def transitions(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen,
     return outs
 
 
-def _outputs(B, nE, dev):
-    """(entry, am, prw_e, ctx_new, erw1, erw2, fb_e) [B, nE], empty."""
-    return tuple(torch.empty((B, nE), dtype=dt, device=dev) for dt in (
-        torch.float32, torch.int64, torch.int64, torch.int32, torch.int32,
-        torch.int32, torch.int64))
+def outputs(B, nE, dev):
+    """(entry, am, prw_e, ctx_new, erw1, erw2, fb_e) [B, nE], empty: the
+    block's outputs, or buffers for its `out`."""
+    return tuple(torch.empty((B, nE), dtype=dt, device=dev)
+                 for dt in _OUT_DTYPES)
 
 
 def _vec(t, lm, cpt):

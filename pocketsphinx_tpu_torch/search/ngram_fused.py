@@ -42,10 +42,14 @@ The scan runs in chunks of CHUNK frames, each with its senone
 pre-gather (`_steps`).  On a CUDA decoder one chunk is captured once per
 (B, records, mask) as a CUDA graph over static buffers and replayed for
 every chunk (`_ScanGraph`), as the JAX package compiles its scan once
-with `jax.jit`; the frame index is then a device value.  On the CPU the
-same chunk runs on the same buffers without capture.  `graph=False` (a
-constructor or method argument) runs the step eagerly, issued from
-Python frame by frame; a decoder split over a "model" group always does.
+with `jax.jit`; the frame index is then a device value.  A decoder split
+over a "model" group (`shard`) captures the same chunk with every part's
+word-transition block in it, on static buffers of each part
+(`_SplitBuffers`): one graph over the group's cards, as the JAX package
+compiles its scan over a "model" mesh.  On the CPU the same chunk runs
+on the same buffers without capture.  `graph=False` (a constructor or
+method argument) runs the step eagerly, issued from Python frame by
+frame.
 
 Streaming: `with_carry` runs the scan from a carry and a frame offset
 and returns the carry (the JAX `_make_scan(mask_carry=True).with_carry`);
@@ -68,7 +72,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import graph_capture, on_device, resolve_device
+from .. import graph_capture, resolve_device
 from ..convert import column_ranges, scan_tables, split_scan_tables
 from ..models.dict2pid import Dict2Pid
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
@@ -129,6 +133,53 @@ class _ScanInputs:
         self.carry = dec.init_carry(B)
 
 
+class _Part:
+    """One part of a split decoder's word-transition block at one batch
+    size B on card `device`: its block tables `tables`, the block's
+    seven outputs [B, columns] on its card (`outs`) and on the lead
+    (`lead_outs`).  A part on another card than the lead's also has a
+    stream of that card (`stream`) and the frame's exits copied there
+    (`exits`: kv, ki, ctx_k, fb_k [B, K] and svk [B, NRC, K]), and its
+    `lead_outs` are a copy of `outs`; a part on the lead's card reads
+    the lead's exits and runs on the lead's stream (those two None), and
+    its `lead_outs` are its `outs`."""
+
+    def __init__(self, dec, device, tables, B):
+        self.tables = tables
+        n = tables["isfill_E"].shape[0]
+        self.stream = self.exits = None
+        if device == dec.device:
+            self.outs = self.lead_outs = transitions_ops.outputs(B, n,
+                                                                 device)
+            return
+        self.stream = torch.cuda.Stream(device)
+        K, NRC = dec.K, dec.n_rcp
+        # allocated on the part's stream, which alone uses them there
+        with torch.cuda.stream(self.stream):
+            self.exits = tuple(
+                torch.empty(shape, dtype=dt, device=device)
+                for shape, dt in (((B, K), torch.float32),
+                                  ((B, K), torch.int64),
+                                  ((B, K), torch.int32),
+                                  ((B, K), torch.int64),
+                                  ((B, NRC, K), torch.float32)))
+            self.outs = transitions_ops.outputs(B, n, device)
+        self.lead_outs = transitions_ops.outputs(B, n, dec.device)
+
+
+class _SplitBuffers:
+    """The static buffers of a split decoder's word-transition block at
+    one batch size B: one `_Part` for each part of the "model" group, in
+    column order, and the joined outputs [B, E] on the lead (`joined`).
+    The eager step and a capture write the same ones (`_transitions`),
+    so nothing of the block allocates on a part's card under capture."""
+
+    def __init__(self, dec, B):
+        self.tables, self.B = dec.tables, B
+        self.parts = [_Part(dec, d, tb, B) for d, tb in dec.tables["columns"]]
+        self.joined = transitions_ops.outputs(B, dec.nE, dec.device)
+
+
 class _ScanGraph:
     """One CHUNK of the scan step over the static inputs `io` (a
     `_ScanInputs`) and the chunk's records [B, CH, ...] (`recs`): `run`
@@ -143,17 +194,28 @@ class _ScanGraph:
     thread's `_build.tally` instead (they step no frame of a scan, and
     another replica's thread may launch meanwhile), and `run` adds the
     capture's to the counters on every replay.  On the CPU `run` calls
-    the same chunk on the same buffers.  The decoder that owns it is passed in, not kept: the
-    decoder keeps its graphs, and a graph that kept it would tie both
-    into a cycle that only the garbage collector frees."""
+    the same chunk on the same buffers.  The decoder that owns it is
+    passed in, not kept: the decoder keeps its graphs, and a graph that
+    kept it would tie both into a cycle that only the garbage collector
+    frees.
 
-    def __init__(self, dec, io, minimal, mask, pool=None):
+    A split decoder's chunk holds every part's block: the warm-up runs
+    each part once on its card (each card's kernels set their
+    shared-memory opt-in there; the lead's stream waits for the parts,
+    so the capture's sync of the lead's card finds them done), and the
+    capture takes in the streams of the parts on other cards
+    (`_transitions`), so that a replay steps the whole group, counting
+    `CHUNK` transition launches per part.  Nothing here syncs a card
+    outside the capture lock: another replica's thread may be capturing
+    on the same card, and a device-wide sync invalidates its capture."""
+
+    def __init__(self, dec, io, minimal, mask, pool=None, stream=None):
         self.io, self.minimal, self.mask = io, minimal, mask
         self.recs = None
         self.graph = None
         self.launches = None
         if dec.device.type == "cuda":
-            self._capture(dec, pool)
+            self._capture(dec, pool, stream)
 
     def _chunk(self, dec):
         io = self.io
@@ -165,7 +227,7 @@ class _ScanGraph:
                 buf[:, i] = r
         dec._copy_carry(io.carry, carry)
 
-    def _capture(self, dec, pool):
+    def _capture(self, dec, pool, stream):
         with torch.cuda.device(dec.device):
             cur = torch.cuda.current_stream()
             side = torch.cuda.Stream()
@@ -175,7 +237,7 @@ class _ScanGraph:
             cur.wait_stream(side)
             self.recs = tuple(torch.empty_like(r) for r in self.recs)
             graph = torch.cuda.CUDAGraph()
-            with _build.tally() as made, graph_capture(graph, pool):
+            with _build.tally() as made, graph_capture(graph, pool, stream):
                 self._chunk(dec)
         self.launches = made
         self.graph = graph
@@ -318,10 +380,11 @@ class NgramFusedDecoder:
         runs on every device of the group over its own contiguous range
         of entry columns (`convert.column_ranges`), and the senone
         scoring over its codebooks or senone slots
-        (`convert.split_scoring_tensors`).  The records equal the
-        unsplit decoder's bit for bit on the same costs; the split costs
-        agree with the unsplit ones within the scoring's float32
-        tolerance."""
+        (`convert.split_scoring_tensors`).  Its scan replays CUDA graphs
+        that span the group's cards, as the unsplit decoder's does.  The
+        records equal the unsplit decoder's bit for bit on the same
+        costs; the split costs agree with the unsplit ones within the
+        scoring's float32 tolerance."""
         devs = [resolve_device(d) for d in devices]
         other = object.__new__(type(self))
         other.__dict__.update(self.__dict__)
@@ -1187,23 +1250,56 @@ class NgramFusedDecoder:
         prw_e, ctx_new, erw1, erw2, fb_e) [B, E] on the lead from this
         frame's top-K exits (scores kv, word ids ki, contexts ctx_k,
         final base phones fb_k [B, K], right-context exit planes svk
-        [B, n_rc, K]).  On a "model" group each device computes its own
-        column range (`_columns`) from copies of the exits, and the lead
-        joins the ranges in column order: the max and first argmax over
-        K are per column, so the joined tensors are the unsplit block's
-        bit for bit."""
-        shards = self.tables["columns"]
-        if shards is None:
+        [B, n_rc, K]).  On a "model" group each part computes its own
+        column range (`_columns`) into its static outputs
+        (`_SplitBuffers`), and the lead joins the ranges in column order
+        into the joined buffers, which it returns (the next frame
+        overwrites them): the max and first argmax over K are per
+        column, so the joined tensors are the unsplit block's bit for
+        bit.
+
+        A part on another card runs on a stream of its card: it waits for
+        the lead's stream (the exits are ready), copies the exits into
+        its buffers, runs its block and copies its outputs back to the
+        lead, and the lead's stream waits for it.  Those parts are issued
+        first, and their copies back last, so that the parts' blocks run
+        side by side and beside the lead's own parts.  Only events order
+        the streams: the same calls run eagerly and under a capture on
+        the lead, whose graph then takes in every card's part."""
+        if self.tables["columns"] is None:
             return self._columns(self.tables, kv, ki, ctx_k, fb_k, svk, wpen)
-        lead = kv.device
-        outs = []
-        for dev, tb in shards:
-            with on_device(dev):
-                outs.append(self._columns(
-                    tb, *(x.to(dev, non_blocking=True)
-                          for x in (kv, ki, ctx_k, fb_k, svk)), wpen))
-        return tuple(torch.cat([o[i].to(lead, non_blocking=True)
-                                for o in outs], 1) for i in range(7))
+        buf = self._split_buffers(kv.shape[0])
+        exits = (kv, ki, ctx_k, fb_k, svk)
+        lead = torch.cuda.current_stream(kv.device) if kv.is_cuda else None
+        away = [p for p in buf.parts if p.stream is not None]
+        for p in away:
+            p.stream.wait_stream(lead)
+            with torch.cuda.stream(p.stream):
+                for b, x in zip(p.exits, exits):
+                    b.copy_(x)
+                self._columns(p.tables, *p.exits, wpen, out=p.outs)
+        for p in buf.parts:
+            if p.stream is None:
+                self._columns(p.tables, *exits, wpen, out=p.outs)
+        for p in away:
+            with torch.cuda.stream(p.stream):
+                for b, o in zip(p.lead_outs, p.outs):
+                    b.copy_(o)
+            lead.wait_stream(p.stream)
+        for i, out in enumerate(buf.joined):
+            torch.cat([p.lead_outs[i] for p in buf.parts], 1, out=out)
+        return buf.joined
+
+    def _split_buffers(self, B):
+        """The static buffers of the split block at batch size B
+        (`_SplitBuffers`), kept for the eager step and the captures,
+        replaced when B or the tables change (the graphs hold on to those
+        they were captured with: `_graph_for`)."""
+        held = self.__dict__.get("_split")
+        if held is None or held.tables is not self.tables or held.B != B:
+            self._split = None
+            held = self._split = _SplitBuffers(self, B)
+        return held
 
     @property
     def lm_layout(self) -> LMLayout:
@@ -1211,7 +1307,7 @@ class NgramFusedDecoder:
         return LMLayout(self.lm_mode, self.V, self.N_BG, self.S_TRI, self.SB,
                         self.N_FAT)
 
-    def _columns(self, tb, kv, ki, ctx_k, fb_k, svk, wpen):
+    def _columns(self, tb, kv, ki, ctx_k, fb_k, svk, wpen, out=None):
         """The word-transition block over the entry columns of the block
         tables `tb` (the decoder's own, or one device's part of a "model"
         group, `convert.split_scan_tables`): `ops.transitions`, the CUDA
@@ -1219,9 +1315,10 @@ class NgramFusedDecoder:
         exit's context (the exact trigram row: modes rows, B and C),
         `cand` = exit score + LM score (+ the accept mask), and the first
         winner over K with its payloads.  Returns (entry, am, prw_e,
-        ctx_new, erw1, erw2, fb_e) [B, columns]."""
+        ctx_new, erw1, erw2, fb_e) [B, columns], in the tensors of `out`
+        when given."""
         return transitions(tb, self.lm_layout, kv, ki, ctx_k, fb_k, svk,
-                           wpen)
+                           wpen, out=out)
 
     def _step(self, carry, g, t, valid, minimal, mask=False):
         """One frame for B utterances.  g: this frame's senone costs by
@@ -1494,7 +1591,9 @@ class NgramFusedDecoder:
         or a 0-d int32 tensor on the device): the chunk's senone
         pre-gather, then `_step` per frame.  Yields (frame in the chunk,
         carry after it, its records); a caller that rebinds its carry to
-        each one holds no other."""
+        each one holds no other.  A split decoder's full records of a
+        frame hold its joined block outputs (entry, erw1, erw2), which
+        the next frame overwrites: copy them before taking the next."""
         B, CH = vch.shape
         gather = self.tables["gather"]
         # chunked pre-gather: this chunk's costs of every node's senones,
@@ -1511,20 +1610,16 @@ class NgramFusedDecoder:
     def _scan(self, costs, valid, minimal, carry=None, t0=0, mask=False,
               graph=None, keep_carry=True):
         """The scan in chunks: through the chunk's graph (`graph`, None:
-        the decoder's; a decoder split over a "model" group steps
-        eagerly) or eagerly.  Returns (records [B, Tp, ...], the carry
-        after the last frame, or None when not `keep_carry` on the graph
-        path)."""
+        the decoder's) or eagerly.  Returns (records [B, Tp, ...], the
+        carry after the last frame, or None when not `keep_carry` on the
+        graph path)."""
         B, T, n_sen = costs.shape
         CH = self.CHUNK
         Tp = -(-T // CH) * CH
         costs = torch.nn.functional.pad(costs, (0, 0, 0, Tp - T))
         valid = torch.nn.functional.pad(valid, (0, Tp - T))
         if graph is None:
-            graph = self.graph and self.tables["columns"] is None
-        elif graph and self.tables["columns"] is not None:
-            raise ValueError("a decoder split over a model group steps its "
-                             "scan eagerly (graph=False)")
+            graph = self.graph
         if graph:
             return self._scan_graph(costs, valid, minimal, carry, t0, mask,
                                     keep_carry)
@@ -1567,24 +1662,34 @@ class NgramFusedDecoder:
         """The `_ScanGraph` of these shapes on this decoder's tables,
         made on first use.  The decoder keeps the graphs of one (B,
         n_sen) and its tables: their static inputs (`_ScanInputs`, shared,
-        as their replays never overlap: one stream, one at a time) and
-        one memory pool.  A scan of another shape drops them all first,
-        so a decoder holds at most one static carry."""
+        as their replays never overlap: one stream, one at a time), a
+        split decoder's block buffers (`_SplitBuffers`), one memory pool
+        and the stream they are captured on.  A scan of another shape
+        drops them all first, so a decoder holds at most one static
+        carry."""
         cache = self.__dict__.get("_graphs")
         if (cache is None or cache["tables"] is not self.tables
                 or cache["shape"] != (B, n_sen)):
             self._graphs = cache = None
-            pool = None
+            pool = stream = None
             if self.device.type == "cuda":
                 with torch.cuda.device(self.device):
                     pool = torch.cuda.graph_pool_handle()
+                    stream = torch.cuda.Stream()
+            split = (None if self.tables["columns"] is None
+                     else self._split_buffers(B))
             cache = self._graphs = dict(
                 tables=self.tables, shape=(B, n_sen), pool=pool,
-                inputs=_ScanInputs(self, B, n_sen), runs={})
+                stream=stream, inputs=_ScanInputs(self, B, n_sen),
+                split=split, runs={})
         run = cache["runs"].get((minimal, mask))
         if run is None:
+            if cache["split"] is not None:
+                # an eager step at another B may have replaced them
+                self._split = cache["split"]
             run = cache["runs"][minimal, mask] = _ScanGraph(
-                self, cache["inputs"], minimal, mask, cache["pool"])
+                self, cache["inputs"], minimal, mask, cache["pool"],
+                cache["stream"])
         return run
 
     # -- 1-best backtrace (device) -------------------------------------------

@@ -419,6 +419,95 @@ def test_tp_two_cards(cuda, tmp_path, monkeypatch):
         atol=2e-2, rtol=1e-5)
 
 
+def _tp_graph_equal(dec, group):
+    """`dec.shard(group)` on one B=8 cost matrix of unequal lengths,
+    minimal and full records: through its CUDA graph (the default, one
+    graph over the group's cards), stepped eagerly and unsplit, records
+    and carries equal; each run launches the fan and the chain once per
+    frame and the transition kernel once per frame and part."""
+    sp = dec.shard(group)
+    tp = len(group)
+    costs, nf = _graph_costs(dec, [50, 33, 17, 50, 41, 9, 26, 48], 31)
+    valid = np.arange(costs.shape[1])[None, :] < nf[:, None]
+    c, v = (torch.as_tensor(x, device=dec.device) for x in (costs, valid))
+    frames = -(-costs.shape[1] // dec.CHUNK) * dec.CHUNK
+    for minimal in (True, False):
+        runs = []
+        for d, graph in ((sp, None), (sp, True), (sp, False), (dec, None)):
+            before = [m.launches for m in (fan, chain, transitions)]
+            runs.append(d._scan(c, v, minimal, graph=graph))
+            for k in group:
+                torch.cuda.synchronize(k)
+            assert [m.launches - n for m, n in zip(
+                (fan, chain, transitions), before)] == [
+                    frames, frames, frames * (tp if d is sp else 1)]
+        run = sp._graphs["runs"][minimal, False]
+        assert run.graph is not None and run.launches == dict(
+            fan=dec.CHUNK, chain=dec.CHUNK, transitions=dec.CHUNK * tp)
+        (rg, cg) = runs[0]
+        for r, k in runs[1:]:
+            for a, b in zip(rg, r, strict=True):
+                assert a.device == dec.device and torch.equal(a, b)
+            assert _carry_equal(dec, cg, k)
+    want = chip_smoke._results(dec.decode_batch(None, nf, False, c))
+    assert chip_smoke._results(sp.decode_batch(None, nf, False, c)) == want
+    assert sp.hyp_scores == dec.hyp_scores and any(h for h, _ in want)
+    assert sp.guard_violations_batch == dec.guard_violations_batch
+
+
+@pytest.mark.parametrize("tp", [2, 3])
+def test_tp_graph_one_card(cuda, tmp_path, monkeypatch, tp):
+    """`tp` model parts on one card (LM modes B and C) through the graph
+    equal their eager step and the unsplit decoder."""
+    for dec in _tp_decoders(tmp_path, monkeypatch, cuda).values():
+        _tp_graph_equal(dec, ["cuda:0"] * tp)
+
+
+def test_tp_graph_two_cards(cuda, tmp_path, monkeypatch):
+    """With two or more cards: the parts on cards 0 and 1, and three parts
+    on cards 0, 1 and 0 (LM modes B and C), through one graph over both
+    cards equal their eager step and the unsplit decoder on card 0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    for dec in _tp_decoders(tmp_path, monkeypatch, "cuda:0").values():
+        for group in (["cuda:0", "cuda:1"], ["cuda:0", "cuda:1", "cuda:0"]):
+            _tp_graph_equal(dec, group)
+
+
+def test_tp_replicas_one_card(cuda, tmp_path):
+    """Two split replicas on one card (`Mesh([[card, card], [card,
+    card]])`): their rows run in two threads whose first scans capture
+    at once; the results equal one split replica's, each replica's
+    graph counts its own launches (a chunk's fan and chain, and its
+    transitions on both parts), and the counters add one launch per
+    frame either replica stepped (two transition launches)."""
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline
+    from pocketsphinx_tpu_torch.parallel.batch import Mesh
+    dec = _graph_decoder(tmp_path, cuda, seed=11)
+    fe = chip_smoke.en_us_frontend()
+    secs = (1.2, 0.9, 1.1, 0.7, 1.0, 0.8)
+    pcms = [synth.make_pcm(90 + i, s) for i, s in enumerate(secs)]
+    order = sorted(range(len(pcms)), key=lambda i: len(pcms[i]))
+    frames = sum(-(-fe.n_frames(max(len(pcms[i]) for i in rows))
+                   // dec.CHUNK) * dec.CHUNK
+                 for rows in np.array_split(np.array(order), 2))
+    one = chip_smoke._results(BatchDecodePipeline(
+        dec, fe, mesh=Mesh([[cuda, cuda]])).decode_corpus(pcms,
+                                                         batch_size=3))
+    pipe = BatchDecodePipeline(dec, fe, mesh=Mesh([[cuda, cuda]] * 2))
+    before = [m.launches for m in (fan, chain, transitions)]
+    got = chip_smoke._results(pipe.decode_corpus(pcms, batch_size=6))
+    torch.cuda.synchronize()
+    assert [m.launches - n for m, n in zip(
+        (fan, chain, transitions), before)] == [frames, frames, 2 * frames]
+    assert got == one and any(h for h, _ in one)
+    assert pipe.replicas[0] is not pipe.replicas[1]
+    for r in pipe.replicas:
+        assert len(r.tables["columns"]) == 2
+        assert r._graphs["runs"][True, False].launches == dict(
+            fan=dec.CHUNK, chain=dec.CHUNK, transitions=2 * dec.CHUNK)
+
+
 def test_flat_cuda_equals_cpu(cuda, tmp_path):
     """The flat search on CUDA: a decode and a B=3 batch of unequal
     lengths give the CPU's records, hypotheses and segments."""

@@ -296,7 +296,7 @@ def test_graph_capture_one_at_a_time(monkeypatch):
     state = {"in": 0, "most": 0, "gc_on": []}
 
     @contextlib.contextmanager
-    def graph(g, pool=None, capture_error_mode="global"):
+    def graph(g, pool=None, stream=None, capture_error_mode="global"):
         assert capture_error_mode == "thread_local"
         state["in"] += 1
         state["most"] = max(state["most"], state["in"])

@@ -9,6 +9,14 @@ unsplit port and the JAX package, on the CPU:
     rows exist), full and minimal records at B=4 with unequal lengths,
     the guard count `nviol` included; `decode_batch` gives the same
     hypotheses, scores and guard counts;
+  * the split decoder's chunk runner (`graph=True`, the chunk a card
+    captures as one CUDA graph over the group, run on the CPU on the
+    same static buffers) equals its eager step (records and the carry
+    after the last frame), the unsplit scan and the JAX scan; so does
+    `with_carry` from frame 0 and resumed at frame 37 from a carry;
+  * each part's static block buffers (`_SplitBuffers`) are made once per
+    batch size, shared by the runner and the eager step, and dropped
+    with the runners when the batch size changes;
   * each device's block tables hold its column range, with the global
     column ids of the scatters rebased to it (`split_scan_tables`);
   * the senone scoring split over codebooks (tp divides CB) or senone
@@ -292,3 +300,109 @@ def test_mesh_shapes(monkeypatch):
     for nd, nm in ((3, 2), (1, 5), (5, 1)):
         with pytest.raises(ValueError, match="CUDA devices"):
             make_mesh(nd, nm)
+
+
+def _carry_equal(dec, a, b):
+    for (n, x), (_, y) in zip(dec._carry_fields(a), dec._carry_fields(b),
+                              strict=True):
+        assert x.dtype == y.dtype and torch.equal(x, y), n
+
+
+@pytest.mark.parametrize("minimal", [False, True], ids=["full", "minimal"])
+@pytest.mark.parametrize("tp", [2, 3])
+def test_split_runner_equals_eager(decoders, scans, tp, minimal):
+    """Through the chunk runner and stepped eagerly: records and carry
+    equal, and the records equal the unsplit scan's and the JAX scan's."""
+    _, pt = decoders
+    costs, valid, rj, rp = scans[minimal]
+    sp = pt.shard(["cpu"] * tp)
+    rg, cg = sp._scan(costs, valid, minimal, graph=True)
+    run = sp._graphs["runs"][minimal, False]
+    assert run.graph is None and run.io.costs.shape[0] == len(LENS)
+    re, ce = sp._scan(costs, valid, minimal, graph=False)
+    names = MINIMAL if minimal else FULL
+    assert_records_equal(rg, re, names)
+    assert_records_equal(rg, rp, names)
+    assert_records_equal(rg, rj, names)
+    _carry_equal(sp, cg, ce)
+    assert sp.graph and int(rg[-1].sum()) > 0
+
+
+@pytest.mark.parametrize("tp", [2, 3])
+def test_split_with_carry_resumed(decoders, tp):
+    """`with_carry` over blocks of 37 and 43 frames at B=2, the second
+    resumed at frame 37 from the first one's carry: through the runner,
+    the records and carries equal the eager split step's and the
+    unsplit runner's."""
+    _, pt = decoders
+    costs = torch.as_tensor(np.stack([tie_costs(pt.am.n_sen, 80, 60 + b)
+                                      for b in range(2)]))
+    valid = torch.ones((2, 80), dtype=torch.bool)
+    valid[1, 70:] = False
+    sp = pt.shard(["cpu"] * tp)
+    outs = []
+    for dec, graph in ((sp, True), (sp, False), (pt, True)):
+        r1, k1 = dec.with_carry(costs[:, :37], valid[:, :37], graph=graph)
+        r2, k2 = dec.with_carry(costs[:, 37:], valid[:, 37:], k1, 37,
+                                graph=graph)
+        outs.append(([r[:, :37] for r in r1] + [r[:, :43] for r in r2],
+                     k1, k2))
+    for recs, k1, k2 in outs[1:]:
+        assert_records_equal(recs, outs[0][0], FULL * 2)
+        _carry_equal(sp, outs[0][1], k1)
+        _carry_equal(sp, outs[0][2], k2)
+    assert (outs[0][0][11] > 37).any()        # entries stamped after t0
+
+
+def test_split_buffers_once_per_batch_size(decoders, scans, monkeypatch):
+    """The block buffers of a split decoder: one set per batch size,
+    shared by the runners and the eager step (made once), each part's
+    outputs over its column range and the joined [B, E] on the lead; an
+    eager step at another B makes its own while the runners keep theirs,
+    which a later capture at their B writes again; a scan at another B
+    makes new ones with its runners and drops the old; a decoder moved
+    with `shard` gets its own."""
+    import weakref
+    from pocketsphinx_tpu_torch.search import ngram_fused as nf
+    _, pt = decoders
+    costs, valid, _, _ = scans[True]
+    B = len(LENS)
+    made = []
+    init = nf._SplitBuffers.__init__
+
+    def count(self, dec, b):
+        made.append(b)
+        init(self, dec, b)
+
+    monkeypatch.setattr(nf._SplitBuffers, "__init__", count)
+    sp = pt.shard(["cpu"] * 3)
+    sp.scan(costs, valid, True, graph=False)
+    first = sp._split_buffers(B)
+    sp.scan(costs, valid, True)
+    sp.scan(costs, valid, False)
+    sp.scan(costs, valid, False, graph=False)
+    buf = sp._graphs["split"]
+    assert made == [B] and buf is first and sp._split_buffers(B) is buf
+    widths = [b - a for a, b in column_ranges(pt.nE, 3)]
+    for p, w in zip(buf.parts, widths, strict=True):
+        assert p.stream is None and p.exits is None
+        assert p.lead_outs is p.outs
+        assert [tuple(o.shape) for o in p.outs] == [(B, w)] * 7
+    assert [tuple(o.shape) for o in buf.joined] == [(B, pt.nE)] * 7
+    # an eager step at another B replaces the eager set; the graphs keep
+    # theirs, and a later capture at B writes those again
+    sp.scan(costs[:2], valid[:2], True, graph=False)
+    assert made == [B, 2] and sp._split.B == 2 and sp._graphs["split"] is buf
+    sp.with_carry(costs, valid)
+    assert made == [B, 2] and sp._split is buf
+    old = weakref.ref(buf)
+    del buf, first
+    sp.scan(costs[:2], valid[:2], True)
+    assert made == [B, 2, 2] and old() is None
+    assert sp._graphs["split"].B == 2 and sp._graphs["shape"][0] == 2
+    assert sp._split is sp._graphs["split"]
+    twin = sp.shard(["cpu"] * 3)
+    twin.scan(costs[:2], valid[:2], True)
+    assert made == [B, 2, 2, 2]
+    assert twin._graphs["split"] is not sp._graphs["split"]
+    assert pt.__dict__.get("_split") is None

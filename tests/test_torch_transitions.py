@@ -16,6 +16,8 @@ matrices with tied frames:
   * within each history's CSR bigram row and each context's trigram row
     the entry columns are unique (the overlays' order does not matter),
     on bench-1.7k's LM and on a seeded ARPA LM;
+  * the op given `out=` fills the given tensors, equal to the allocating
+    call, whole and per part;
   * the packed accept table (one or more 64-bit words per column), the
     kernel's sorted overlay copies (whole and per part), its default
     launch shape, and the op's checks; a CPU call never loads the CUDA
@@ -384,3 +386,38 @@ def test_cpu_call_loads_no_library(decoders, monkeypatch):
                        wpen)
     with pytest.raises(ValueError):
         tr.transitions(tb, lm, kv, ki, ctx_k, fb_k, svk[:, :, :-1], wpen)
+
+
+def test_out_fills_given_tensors(decoders):
+    """With `out=` the op writes its seven outputs into the given
+    [B, nE] tensors and returns them, equal to the allocating call, on a
+    real frame's exits and on tied ones, for the whole tables and for
+    each part of a 2-way split; `out` of another shape, dtype or layout
+    is refused."""
+    _, pt = decoders
+    costs = torch.as_tensor(tie_costs(pt.am.n_sen, 2 * pt.CHUNK, seed=12,
+                                      tie_frame=2 * pt.CHUNK - 1))
+    real = chip_smoke.frame_exits(pt, torch.stack([costs, costs.flip(0)]))[0]
+    tables = [pt.tables] + [tb for _, tb in pt.shard(["cpu"] * 2)
+                            .tables["columns"]]
+    B = real[2].shape[0]
+    for args in (real, chip_smoke.tie_exits(real, np.random.default_rng(5))):
+        for tb in tables:
+            nE = tb["isfill_E"].shape[0]
+            want = tr.transitions(tb, *args[1:])
+            for op in (tr.transitions, tr.transitions_ref):
+                out = tr.outputs(B, nE, "cpu")
+                got = op(tb, *args[1:], out=out)
+                assert all(g is o for g, o in zip(got, out, strict=True))
+                for o, w in zip(out, want, strict=True):
+                    assert o.dtype == w.dtype and torch.equal(o, w)
+    tb = pt.tables
+    nE = tb["isfill_E"].shape[0]
+    bad = list(tr.outputs(B, nE, "cpu"))
+    for i, x in ((0, torch.empty((B, nE), dtype=torch.float64)),
+                 (3, torch.empty((B, nE + 1), dtype=torch.int32)),
+                 (6, torch.empty((nE, B), dtype=torch.int64).t())):
+        with pytest.raises(ValueError, match=f"out\\[{i}\\]"):
+            tr.transitions(tb, *real[1:], out=bad[:i] + [x] + bad[i + 1:])
+    with pytest.raises(ValueError, match="6 tensors"):
+        tr.transitions(tb, *real[1:], out=bad[:6])
