@@ -16,6 +16,11 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    (`check_fan`); both timed with CUDA events as device time (calls
    captured in a CUDA graph and replayed) and as per call through the
    Python wrapper, and the kernel at each choice of its plane groups;
+   (b) `check_denoise`: the frontend's noise-removal gains kernel
+   (`csrc/denoise.cu`) against its plain version (the frame loop of
+   torch ops) at phase 5's batch shape (B=8, T=499, 25 filters) and at a
+   ragged one (B=3, T=37, 40 filters), bit-equal, timed the same way,
+   beside its bytes bound and its dependency chain's;
 3. the grouped chain kernel (one launch per frame over every chain
    bucket) the same way at the 20k-word decoder's bucket list (the
    variant buckets and the CI bucket), against its plain version, ties
@@ -43,7 +48,10 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    kernels, from the same cost matrix; then the batch's costs (unequal
    lengths) through the graph and stepped eagerly (`graph_vs_eager`),
    minimal and full records: records, carries, hypotheses, segments,
-   scores and guard counts equal;
+   scores and guard counts equal; the noise-removal kernel launched once
+   per frontend batch; the frontend stage's seconds with the kernel and
+   with the plain loop in turns (`frontend_kernel_vs_plain`), features
+   equal;
 6. with --profile only: torch.profiler over 64 scan steps of the B=8
    decode, device time by kernel, the device's busy share, device
    launches and device ms per frame and the fan's and the word-transition
@@ -78,7 +86,11 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    its search's size (A arcs, P HMM rows, N allphone nodes), search
    seconds and ms per frame, then held equal (records, hypothesis,
    segments, lattice, alignment) to `Decoder._to("cpu")` decoding the
-   same costs; (e) a 5-state synthetic model over bench-20k.dic and
+   same costs; each mode's search through its captured CUDA graph
+   against an eager twin (`Decoder._to("cuda", graph=False)`,
+   `modes_graph_vs_eager`): records and results equal, ms per frame in
+   turns, host launches per frame, the capture's seconds; (e) a 5-state
+   synthetic model over bench-20k.dic and
    bench-20k.lm.bin: the chain kernel at NST=5 against its plain version
    at that decoder's bucket list (ties on and off, timed as in phase 3),
    one 2 s utterance through `decode_raw` with fan launches 0 and chain
@@ -127,7 +139,10 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    flat search (PS_NGRAM_IMPL=flat) at the 1.7k width, one B=8 batch of
    seeded 2-5 s utterances through `decode_batch`, every row's 7 record
    arrays, hypothesis and segments equal to the same search on the CPU
-   from the same costs, ms per frame and peak memory, one `decode_raw`
+   from the same costs, ms per frame and peak memory, the scan through
+   its captured graph against the eager step (`flat_graph_vs_eager`:
+   records and carry equal, ms per frame in turns, host launches per
+   frame, the capture's seconds), one `decode_raw`
    with the best-path pass, and how many hypotheses the fused search
    gives equal (counted, not required); (c) `flat_20k`: the flat search
    at the 20k width, a 2 s utterance at B=1 equal to its own row of a B=2
@@ -162,16 +177,28 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    per data row.  (c) and (d) print that they were skipped on fewer
    cards.  With --profile, `split_scan_modes` of (a)'s, (b)'s and (c)'s
    groups: the split scan through its graph and stepped eagerly beside
-   the unsplit decoder's, as `scan_modes` (peak memory per card).
+   the unsplit decoder's, as `scan_modes` (peak memory per card);
+12. the examples (`examples/torch_*.py`) on the card: (a)
+   `stream_server_check`, right after phase 10(a) on phase 7's model
+   directory: `torch_stream_server.py --stdio` as a program fed phase
+   10(a)'s seeded bursts, in n-gram mode and with `-kws`, its events
+   equal to its `serve` run in this process on the same input; (b)
+   `examples_1k7`, right after phase 10(b), under a PS_REFERENCE tree of
+   phase 9(e)'s 1.7k model directory: `torch_batch.py`'s hypotheses
+   equal to the flat search's eager `decode_batch` (one noise-removal
+   launch), `torch_simple.py`'s to `decode_raw`'s, `torch_live.py` and
+   `torch_segment.py` one line per endpointer segment.
 
 Every phase that decodes with the n-gram search holds each kernel's
 launches to the frames it stepped (the word-transition kernel once per
 frame on each part of a "model" group).  Prints the kernels' JSON line
-(the three kernels at the 20k shapes with the main path's launches,
+(the three scan kernels at the 20k shapes with the main path's launches,
 phase 11(a)'s (`tp_launches`), phase 7's (`facade_launches`) and phase
 10(a)'s (`cli_launches`), the transition kernel's LM-mode-rows check as
 `rows_*` and its 70-phone check as `phones_*`; then at the 126k shapes,
-`*_126k`, with phase 9(b)'s and phase 11(b)-(d)'s), the card's name and
+`*_126k`, with phase 9(b)'s and phase 11(b)-(d)'s; then the
+noise-removal kernel, `denoise`, with phase 5's launches and phase
+12(b)'s as `example_launches`), each phase's seconds, the card's name and
 power limit, then as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises; without CUDA it exits non-zero before any
@@ -300,13 +327,18 @@ def chain_group_args(per, device):
                      VAR=flat("VAR"), g=g, pip=per[0]["pip"])
 
 
-#: the port's kernels, by their module in `pocketsphinx_tpu_torch.ops`
+#: the n-gram scan's kernels, by their module in
+#: `pocketsphinx_tpu_torch.ops`: each launches once per frame stepped
 KERNELS = ("fan", "chain", "transitions")
+#: every kernel of the port: the scan's and the frontend's gains
+#: recurrence (once per batch with noise removal)
+ALL_KERNELS = KERNELS + ("denoise",)
 
 
 def _kernel_modules():
-    from pocketsphinx_tpu_torch.ops import chain, fan, transitions
-    return dict(fan=fan, chain=chain, transitions=transitions)
+    from pocketsphinx_tpu_torch.ops import chain, denoise, fan, transitions
+    return dict(fan=fan, chain=chain, transitions=transitions,
+                denoise=denoise)
 
 
 def reset_counts():
@@ -315,9 +347,85 @@ def reset_counts():
         m.reset_launches()
 
 
-def counts():
-    """Every kernel's launches since `reset_counts`, by name."""
-    return {k: m.launches for k, m in _kernel_modules().items()}
+def counts(names=KERNELS):
+    """The launches of the kernels `names` (default the scan's) since
+    `reset_counts`, by name."""
+    mods = _kernel_modules()
+    return {k: mods[k].launches for k in names}
+
+
+def denoise_inputs(rng, B, T, nfilt):
+    """Mel power spectra [B, T, nfilt] float32 for the gains kernel:
+    log-normal energies swinging over several decades around a level per
+    filter, with unequal lengths (the first row full, the others from 1
+    to T frames) and zero power past each length, as `process_batch`
+    gives frames of zero samples."""
+    level = rng.uniform(2.0, 8.0, (B, 1, nfilt))
+    swing = np.cumsum(rng.normal(0.0, 0.3, (B, T, 1)), axis=1)
+    x = 10.0 ** (level + np.clip(swing, -3, 3)
+                 + rng.normal(0.0, 0.5, (B, T, nfilt)))
+    lens = np.concatenate([[T], rng.integers(1, T + 1, B - 1)])
+    x[np.arange(T)[None, :] >= lens[:, None]] = 0.0
+    return x.astype(np.float32)
+
+
+#: the gains recurrence's loop-carried chain: 3 dependent float32
+#: operations per frame (the noise and signal floors: a multiply, an add
+#: and a select), at 4 cycles each
+DENOISE_CHAIN_CYCLES = 12
+
+
+def sm_clock_hz():
+    """The card's highest SM clock (nvidia-smi's clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def check_denoise(log, shapes=((8, 499, 25), (3, 37, 40))):
+    """Phase 2(b): the noise-removal gains kernel against its plain
+    version (the frame loop of torch ops, on the card) on `denoise_inputs`
+    at phase 5's batch shape and at a ragged one, bit-equal; then timed at
+    the first shape as device time and through Python, beside its bounds:
+    the bytes (mfspec read once, the gains written once) over the memory
+    rate vs its float32 operations over the card's rate (`bound_ms`), and
+    the recurrence's dependency chain, T frames of
+    `DENOISE_CHAIN_CYCLES` at the card's highest SM clock
+    (`chain_bound_ms`)."""
+    import torch
+    from pocketsphinx_tpu_torch.ops import denoise
+    rng = np.random.default_rng(14)
+    err = 0.0
+    for shape in shapes:
+        x = torch.as_tensor(denoise_inputs(rng, *shape), device="cuda")
+        n = denoise.launches
+        got = denoise.gains(x)
+        if denoise.launches != n + 1:
+            raise AssertionError("denoise: the wrapper did not count its "
+                                 "launch")
+        torch.cuda.synchronize()
+        err = max(err, compare((got,), (denoise.gains_ref(x),),
+                               f"denoise {shape}"))
+    x = torch.as_tensor(denoise_inputs(rng, *shapes[0]), device="cuda")
+    B, T, nf = shapes[0]
+    ms = time_ms(lambda: denoise.gains(x), graph=True)
+    wms = time_ms(lambda: denoise.gains(x))
+    # the plain loop is ~20 launches a frame: few repetitions
+    plain = time_ms(lambda: denoise.gains_ref(x), reps=2, trials=3,
+                    graph=True)
+    wplain = time_ms(lambda: denoise.gains_ref(x), reps=1, trials=3)
+    bms, by = bound_ms(2 * x.numel() * 4, 30 * x.numel())
+    chain = T * DENOISE_CHAIN_CYCLES / sm_clock_hz() * 1e3
+    log(f"phase 2(b) denoise B={B} T={T} nfilt={nf}: bit-equal (and at "
+        f"{list(shapes[1:])}); device time: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms; through Python: kernel {wms:.4f} ms, plain "
+        f"{wplain:.4f} ms; bound {bms:.6f} ms ({by}), dependency chain "
+        f"{chain:.4f} ms ({chain / ms:.3f} of the kernel's time)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, chain_bound_ms=chain, wrapper_ms=wms,
+                plain_wrapper_ms=wplain, shape=list(shapes[0]))
 
 
 def frame_exits(dec, costs):
@@ -604,11 +712,15 @@ def _host_launches(prof):
     (`cuda*`, `cu*`) that put work on a stream (kernels, graphs, copies,
     fills), by name."""
     from torch.autograd import DeviceType
-    names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
-             "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
-             "cuMemcpyAsync", "cuMemsetD")
     return {e.key: e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CPU and e.key.startswith(names)}
+            if e.device_type == DeviceType.CPU
+            and e.key.startswith(LAUNCH_APIS)}
+
+
+#: the CUDA API calls that put work on a stream
+LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+               "cuGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync",
+               "cuMemcpyAsync", "cuMemsetD")
 
 
 def scan_modes(dec, fe, log=print, batch=8, reps=4, frames=64,
@@ -745,6 +857,34 @@ def features(fe, pcm, n_samps, device):
     return compute_feats(cep, nf), nf
 
 
+def frontend_kernel_vs_plain(fe, pcm, ns, device, log=print):
+    """Phase 5's frontend stage (PCM -> MFCC -> features of one batch)
+    with the noise-removal gains through the kernel and through the
+    plain loop (`denoise.gains_ref` on the card), in turns (kernel,
+    plain, plain, kernel): each one's seconds, and the features equal."""
+    import torch
+    from pocketsphinx_tpu_torch.ops import denoise
+    out = {"kernel": [], "plain": []}
+    feats = {}
+    kernel = denoise.gains
+    try:
+        for which in ("kernel", "plain", "plain", "kernel"):
+            denoise.gains = kernel if which == "kernel" else \
+                denoise.gains_ref
+            t0 = _sync(device)
+            feats[which] = features(fe, pcm, ns, device)[0]
+            out[which].append(_sync(device) - t0)
+    finally:
+        denoise.gains = kernel
+    if not torch.equal(feats["kernel"], feats["plain"]):
+        raise AssertionError("frontend: features through the gains kernel "
+                             "!= through the plain loop")
+    log(f"phase 5 frontend stage (B={pcm.shape[0]}): gains kernel "
+        f"{[round(x, 4) for x in out['kernel']]} s, plain loop "
+        f"{[round(x, 4) for x in out['plain']]} s; features equal")
+    return out
+
+
 def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
               check_cpu=True, log=print):
     """Drive the port's main path: `n_single` utterances through
@@ -798,13 +938,16 @@ def main_path(dec, fe, device, n_single=3, batch=8, repeats=3,
         if runs[0].setdefault("hyps", hyps) != hyps:
             raise AssertionError("repeated batch decode changed its result")
     hyps = runs[0].pop("hyps")
-    res["launches"] = counts()
+    res["launches"] = counts(ALL_KERNELS)
     if cuda:
-        want = dict.fromkeys(KERNELS, frames)
+        # one gains launch per frontend batch (n_single + repeats)
+        want = dict(dict.fromkeys(KERNELS, frames),
+                    denoise=n_single + repeats)
         if res["launches"] != want:
             raise AssertionError(f"launch counts {res['launches']} != "
                                  f"expected {want}")
         res["peak_mem_bytes"] = _peak(device)
+        res["frontend"] = frontend_kernel_vs_plain(fe, pcm, ns, device, log)
     # the batch (unequal lengths) through the graph and stepped eagerly
     costs = senone_scores(dec.scoring(), feats, time_chunk=16)
     res["graph_check"] = graph_vs_eager(dec, costs, nf, "phase 5 (20k)", log)
@@ -1175,6 +1318,10 @@ def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
     log(f"modes: {device} results equal the CPU's "
         f"({res['cpu_check_s']:.1f} s)")
     if cuda:
+        t0 = time.perf_counter()
+        res["graph_vs_eager"] = modes_graph_vs_eager(dec, kept, log)
+        log(f"modes: graph == eager ({time.perf_counter() - t0:.1f} s)")
+    if cuda:
         g = res["modes"]["jsgf"]
         res["exit_block"] = exit_block_ms(
             (g["A"], 2500, 5000, 10000, 20000), g["P"] / g["A"], log)
@@ -1234,6 +1381,100 @@ def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
         raise AssertionError(f"5-state {device} vs cpu result differs: "
                              f"{result[0]} / {mode_result(cpu5)[0]}")
     return res
+
+
+def _search_run(search, costs):
+    """One utterance's costs [T, n_sen] through a mode's search alone (an
+    aligner over its text)."""
+    if type(search).__name__ == "Aligner":
+        return search.align(None, search._align_words, costs=costs)
+    return search.decode(None, costs=costs)
+
+
+def _search_key(out):
+    """A mode search's result ((hyp, segments), or an aligner's entries)
+    as comparable tuples."""
+    from dataclasses import astuple
+    if isinstance(out[0], str):
+        return out[0], [(x.word, x.start, x.end) for x in out[1]]
+    return [[astuple(e) for e in level] for level in out]
+
+
+#: frames of an eager run that `modes_graph_vs_eager` and
+#: `flat_graph_vs_eager` profile for its host launches per frame (a
+#: constant count per frame)
+EAGER_PROFILE_FRAMES = 48
+
+
+def _host_launches_per_frame(fn, frames):
+    """The launches the host issues per frame (`LAUNCH_APIS` calls) over
+    one profiled call of `fn` that steps `frames` frames, counted from
+    the profiler's raw events (`key_averages` takes seconds over the
+    eager steps' tens of thousands of events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.name().startswith(LAUNCH_APIS)
+               for e in prof.profiler.kineto_results.events()) / frames
+
+
+def modes_graph_vs_eager(dec, kept, log=print,
+                         turns=("graph", "eager", "eager", "graph")):
+    """Phase 8's modes through their captured graphs (`dec`) against a
+    twin that steps them eagerly (`Decoder._to(..., graph=False)`), on
+    each mode's costs of `kept` ((mode, search name, feats, result)):
+    each search alone in `turns`, wall ms per frame (the records' host
+    copy included), its records and result equal on both paths; the
+    host's launches per frame over one profiled decode through the graph
+    and over the first `EAGER_PROFILE_FRAMES` frames stepped eagerly (an
+    aligner: its whole utterance); the capture's seconds (an aligner
+    captures at each `align`)."""
+    import torch
+    eager = dec._to(dec.device, graph=False)
+    out = {}
+    for mode, name, feats, _ in kept:
+        t0 = time.perf_counter()
+        costs = dec._scores(feats).cpu().numpy()
+        T = costs.shape[0]
+        searches = {"graph": dec._searches[name],
+                    "eager": eager._searches[name]}
+        ms = {"graph": [], "eager": []}
+        results = {}
+        for which in turns:
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            results[which] = _search_key(_search_run(searches[which], costs))
+            torch.cuda.synchronize()
+            ms[which].append((time.perf_counter() - w0) / T * 1e3)
+        check_records(searches["graph"], searches["eager"],
+                      f"{mode} graph vs eager")
+        if results["graph"] != results["eager"]:
+            raise AssertionError(f"{mode}: graph vs eager result differs")
+        g = searches["graph"].chunk_graph
+        if g is None or g.graph is None:
+            raise AssertionError(f"{mode}: no captured graph")
+        if searches["eager"].chunk_graph is not None:
+            raise AssertionError(f"{mode}: the eager twin has a graph")
+        n = T if mode == "align" else EAGER_PROFILE_FRAMES
+        host = dict(
+            graph=_host_launches_per_frame(
+                lambda: _search_run(searches["graph"], costs), T),
+            eager=_host_launches_per_frame(
+                lambda: _search_run(searches["eager"], costs[:n]), n))
+        out[mode] = dict(frames=T, graph_ms_per_frame=ms["graph"],
+                         eager_ms_per_frame=ms["eager"],
+                         host_launches_per_frame=host,
+                         capture_s=g.capture_s,
+                         seconds=time.perf_counter() - t0)
+        log(f"modes {mode} graph vs eager, {T} frames: records and results "
+            f"equal; ms per frame graph {[round(x, 4) for x in ms['graph']]}"
+            f", eager {[round(x, 4) for x in ms['eager']]}; host launches "
+            f"per frame graph {host['graph']:.2f}, eager "
+            f"{host['eager']:.2f}; capture {g.capture_s:.3f} s "
+            f"({out[mode]['seconds']:.1f} s)")
+    return out
 
 
 def _results(out):
@@ -1710,6 +1951,58 @@ def _host(x):
     return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
 
 
+def flat_graph_vs_eager(flat, costs, nf, log=print,
+                        turns=("graph", "eager", "eager", "graph")):
+    """Phase 10(b): the flat search's scan of `costs` [B, T, n_sen] (rows
+    of `nf` frames) through its captured graph and stepped eagerly
+    (`graph=False`), each in `turns`: wall ms per frame, and records and
+    the carry after the last frame bit-equal on both paths; the host's
+    launches per frame over one profiled scan through the graph and over
+    the first `EAGER_PROFILE_FRAMES` frames stepped eagerly."""
+    import torch
+    T = costs.shape[1]
+    valid = (torch.arange(T, device=costs.device)[None, :]
+             < torch.as_tensor(nf, device=costs.device)[:, None])
+    ms = {"graph": [], "eager": []}
+    kept = {}
+    for which in turns:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = flat.with_carry(costs, valid, graph=which == "graph")
+        torch.cuda.synchronize()
+        ms[which].append((time.perf_counter() - t0) / T * 1e3)
+        kept.setdefault(which, r)
+        del r
+    (rg, cg), (re_, ce) = kept["graph"], kept["eager"]
+    for i, (a, b) in enumerate(zip(rg, re_, strict=True)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flat: record {i}: graph != eager")
+    for i, (a, b) in enumerate(zip(cg, ce, strict=True)):
+        for x, y in zip(a, b, strict=True):
+            if not torch.equal(x, y):
+                raise AssertionError(f"flat: carry {i}: graph != eager")
+    del kept, rg, re_, cg, ce
+    run = flat.chunk_graph
+    if run is None or run.graph is None:
+        raise AssertionError("flat: no captured graph")
+    n = EAGER_PROFILE_FRAMES
+    host = dict(
+        graph=_host_launches_per_frame(
+            lambda: flat.scan(costs, valid, graph=True), T),
+        eager=_host_launches_per_frame(
+            lambda: flat.scan(costs[:, :n], valid[:, :n], graph=False), n))
+    res = dict(B=int(costs.shape[0]), frames=int(T), records_equal=True,
+               carry_equal=True, graph_ms_per_frame=ms["graph"],
+               eager_ms_per_frame=ms["eager"],
+               host_launches_per_frame=host, capture_s=run.capture_s)
+    log(f"phase 10(b) flat B={res['B']}, {T} frames: graph == eager; ms "
+        f"per frame graph {[round(x, 4) for x in ms['graph']]}, eager "
+        f"{[round(x, 4) for x in ms['eager']]}; host launches per frame "
+        f"graph {host['graph']:.2f}, eager {host['eager']:.2f}; capture "
+        f"{run.capture_s:.3f} s")
+    return res
+
+
 def flat_1k7(work, device, log=print, hmm=None, dic=None, lmfile=None):
     """Phase 10(b): the flat search at the 1.7k width through the `Decoder`
     with PS_NGRAM_IMPL=flat: one B=8 batch of seeded 2-5 s utterances
@@ -1747,6 +2040,8 @@ def flat_1k7(work, device, log=print, hmm=None, dic=None, lmfile=None):
                build_s=build_s, seconds=secs, ms_per_frame=secs / T * 1e3,
                peak_mem_bytes=peak, lm_order_used=flat.lm_order_used,
                hyps=[h for h, _ in out][:4])
+    if flat.device.type == "cuda":
+        res["graph_vs_eager"] = flat_graph_vs_eager(flat, costs, nf, log)
     cpu = flat.to("cpu")
     t0 = time.perf_counter()
     out_c = cpu.decode_batch(None, nf[:held], costs=costs[
@@ -2281,6 +2576,202 @@ def profile_scan(dec, fe, log, frames=64, batch=8):
                 device_s_by_card={c: us / 1e6 for c, us in busy.items()})
 
 
+EXAMPLES = os.path.join(HERE, "examples")
+
+
+def run_example(name, argv, env=None):
+    """examples/`name` run in this process as its own program with
+    `argv` (and the environment variables `env`): (what it printed, its
+    seconds).  Raises unless it exits 0."""
+    import io
+    import runpy
+    path = os.path.join(EXAMPLES, name)
+    saved = sys.argv, {k: os.environ.get(k) for k in env or {}}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        os.environ.update(env or {})
+        sys.argv = [path] + list(argv)
+        with contextlib.redirect_stdout(out):
+            try:
+                runpy.run_path(path, run_name="__main__")
+            except SystemExit as e:
+                if e.code not in (0, None):
+                    raise AssertionError(f"{name} exited {e.code}") from e
+    finally:
+        sys.argv = saved[0]
+        for k, v in saved[1].items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def stream_server_check(work, hmm, dic, lmfile, dec, cmn0, log=print,
+                        device="cuda"):
+    """Phase 12(a): `examples/torch_stream_server.py --stdio` as a program
+    on `device` over the model directory `hmm` with `dic`, once in n-gram
+    mode (`lmfile`) and once with `-kws` (seeded keyphrases), both fed
+    phase 10(a)'s seeded bursts on their standard input and started
+    together; meanwhile its `serve` runs in this process on the same
+    input, in n-gram mode with `dec` (a `Decoder` over the same files,
+    its CMN state set back to `cmn0`, as built), with `-kws` on a
+    `Decoder` it builds.  The programs' events must equal the in-process
+    ones, with two or more utterances, partial events in n-gram mode and
+    a final event in each."""
+    import copy
+    import io
+    import runpy
+    from pocketsphinx_tpu_torch.testing import synth
+
+    path = os.path.join(EXAMPLES, "torch_stream_server.py")
+    pcm = synth.bursts_pcm(LIVE_SEED, LIVE_SECONDS).astype("<i2")
+    raw = os.path.join(work, "stream_bursts.raw")
+    pcm.tofile(raw)
+    kws = synth.write_keyphrases(dic, os.path.join(work, "stream_kws.txt"),
+                                 seed=12, n=20)
+    base = ["-hmm", hmm, "-dict", dic]
+    flags = {"ngram": base + ["-lm", lmfile], "kws": base + ["-kws", kws]}
+    t0 = time.perf_counter()
+    procs = {}
+    for mode, fl in flags.items():
+        with open(raw, "rb") as inp:
+            procs[mode] = subprocess.Popen(
+                [sys.executable, path, "--stdio", "--device", device, *fl],
+                stdin=inp, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    mod = runpy.run_path(path, run_name="torch_stream_server")
+    res = {}
+    try:
+        for mode, fl in flags.items():
+            data, out = io.BytesIO(pcm.tobytes()), io.BytesIO()
+            config = mod["parse_args"](["--stdio", *fl])[1]
+            t1 = time.perf_counter()
+            if mode == "ngram":
+                dec.cmn_state = copy.deepcopy(cmn0)
+                mod["serve"](data.read, out.write, config, decoder=dec)
+            else:
+                mod["serve"](data.read, out.write, config, device=device)
+            res[mode] = dict(events=out.getvalue().decode().splitlines(),
+                             in_process_s=time.perf_counter() - t1)
+        for mode, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"torch_stream_server {mode} exited {p.returncode}: "
+                    + stderr.decode()[-2000:])
+            got = stdout.decode().splitlines()
+            want = res[mode].pop("events")
+            if got != want:
+                raise AssertionError(f"torch_stream_server {mode}: events "
+                                     f"{got} != serve's {want}")
+            kinds = [json.loads(x)["event"] for x in got]
+            if kinds.count("start") < 2 or "final" not in kinds or (
+                    mode == "ngram" and "partial" not in kinds):
+                raise AssertionError(f"torch_stream_server {mode}: events "
+                                     f"{kinds}")
+            res[mode].update(events=len(got), starts=kinds.count("start"),
+                             partials=kinds.count("partial"),
+                             finals=[json.loads(x)["t"][:60] for x in got
+                                     if json.loads(x)["event"] == "final"])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res["seconds"] = time.perf_counter() - t0
+    log("phase 12(a) torch_stream_server --stdio: events equal serve() "
+        "in-process: " + json.dumps(res))
+    return res
+
+
+def examples_1k7(work, hmm, log=print, dic=None, lmfile=None,
+                 device="cuda"):
+    """Phase 12(b): the other examples on `device`, in this process, under
+    a PS_REFERENCE tree of the 1.7k task (the model directory `hmm` as
+    model/en-us/en-us, `dic` and `lmfile`, default bench-1.7k, as
+    test/data/turtle.dic and turtle.lm.bin, a seeded 2 s utterance as
+    test/data/goforward.raw): `torch_batch.py`'s eight hypotheses equal
+    the flat search's eager `decode_batch` of the same batch (one launch
+    of the noise-removal kernel in it); `torch_simple.py`'s hypothesis
+    equals a `Decoder`'s `decode_raw`; `torch_live.py` and
+    `torch_segment.py` over phase 10(a)'s seeded bursts print one line
+    for each segment the endpointer finds, with its span."""
+    from pocketsphinx_tpu_torch import Decoder
+    from pocketsphinx_tpu_torch.fileio.dictionary import Dictionary
+    from pocketsphinx_tpu_torch.lm.ngram import read_lm
+    from pocketsphinx_tpu_torch.models.acoustic import AcousticModel
+    from pocketsphinx_tpu_torch.models.dict2pid import Dict2Pid
+    from pocketsphinx_tpu_torch.search.ngram_flat import NgramFlatDecoder
+    from pocketsphinx_tpu_torch.testing import synth
+    from pocketsphinx_tpu_torch.vad import Endpointer
+
+    dic = dic or os.path.join(BENCH, "bench-1.7k.dic")
+    lmfile = lmfile or os.path.join(BENCH, "bench-1.7k.lm.bin")
+    root = os.path.join(work, "ps_reference")
+    data = os.path.join(root, "test", "data")
+    os.makedirs(data, exist_ok=True)
+    os.makedirs(os.path.join(root, "model", "en-us"), exist_ok=True)
+    os.symlink(hmm, os.path.join(root, "model", "en-us", "en-us"))
+    os.symlink(dic, os.path.join(data, "turtle.dic"))
+    os.symlink(lmfile, os.path.join(data, "turtle.lm.bin"))
+    utt = synth.make_pcm(350, 2.0).astype("<i2")
+    utt.tofile(os.path.join(data, "goforward.raw"))
+    bursts = synth.bursts_pcm(LIVE_SEED, LIVE_SECONDS)
+    wav = _write_wav(os.path.join(work, "examples_bursts.wav"), bursts)
+    env = {"PS_REFERENCE": root}
+    dev = ["--device", device]
+    res = {}
+
+    reset_counts()
+    out, secs = run_example("torch_batch.py", dev, env)
+    launches = counts(ALL_KERNELS)
+    if device != "cpu" and launches != dict(dict.fromkeys(KERNELS, 0),
+                                            denoise=1):
+        raise AssertionError(f"torch_batch launches {launches}: want one "
+                             f"denoise launch and no n-gram scan kernel")
+    am = AcousticModel.load(hmm)
+    flat = NgramFlatDecoder(
+        am, Dict2Pid(am.mdef, Dictionary(am.mdef, dic, os.path.join(
+            hmm, "noisedict"))), read_lm(lmfile, lw=6.5, wip=0.65),
+        device=device, graph=False)
+    pcm8, ns8 = np.tile(utt.astype(np.float32), (8, 1)), \
+        np.full(8, len(utt), np.int32)
+    feats, nf = features(en_us_frontend(), pcm8, ns8, device)
+    want = [h for h, _ in flat.decode_batch(feats, nf)]
+    if out.splitlines() != want:
+        raise AssertionError(f"torch_batch {out.splitlines()} != the flat "
+                             f"search's eager decode_batch {want}")
+    res["batch"] = dict(seconds=secs, hyps=want[:1], launches=launches)
+    del flat
+
+    out, secs = run_example("torch_simple.py", dev, env)
+    d = Decoder(hmm=hmm, dict=dic, lm=lmfile, device=device)
+    h = d.decode_raw(utt.tobytes())
+    if not out.splitlines() or out.splitlines()[0] != h.hypstr:
+        raise AssertionError(f"torch_simple {out!r} != decode_raw "
+                             f"{h.hypstr!r}")
+    res["simple"] = dict(seconds=secs, hyp=h.hypstr,
+                         segments=len(out.splitlines()) - 1)
+    spans = [f"{a:.2f}-{b:.2f}" for a, b, _ in
+             Endpointer(sample_rate=16000).segment(bursts)]
+    if len(spans) < 2:
+        raise AssertionError(f"the VAD found {len(spans)} segments")
+    out, secs = run_example("torch_live.py", dev + [wav], env)
+    lines = out.splitlines()
+    if [x[1:x.index("]")] for x in lines] != spans:
+        raise AssertionError(f"torch_live {lines} != segments {spans}")
+    res["live"] = dict(seconds=secs, hyps=[x.split("] ", 1)[-1]
+                                           for x in lines])
+    out, secs = run_example("torch_segment.py", [wav])
+    lines = out.splitlines()
+    if [x.split(": ")[1].split(" ")[0] for x in lines] != spans:
+        raise AssertionError(f"torch_segment {lines} != segments {spans}")
+    res["segment"] = dict(seconds=secs, segments=len(lines))
+    log("phase 12(b) examples at 1.7k: " + json.dumps(res))
+    return res
+
+
 def fan_bytes(B, NRC, W, LP):
     """Bytes a fan step over W words must move, counted without the
     carry's pads: the S/TF/CX planes read and written, the exit plane,
@@ -2751,7 +3242,7 @@ def main(argv):
     if argv[:1] == ["--ab"]:
         return ab(argv[1:], log)
     t0 = time.perf_counter()
-    secs = _build.build(KERNELS, verbose=True)
+    secs = _build.build(ALL_KERNELS, verbose=True)
     log(f"built kernels in {time.perf_counter() - t0:.1f} s: {secs}")
     ptx = ptxas_summary(_build.logs.get("transitions", ""))
     log("transitions kernel (registers, spill store bytes, spill load "
@@ -2779,6 +3270,9 @@ def main(argv):
     B = 8
     fan_res = check_fan(B, dec.n_rcp, dec.n_multi,
                         dec.senid_fin_d.shape[-1], log)
+    t0 = time.perf_counter()
+    den_res = check_denoise(log)
+    log(f"phase 2(b) ({time.perf_counter() - t0:.1f} s) on {smi}")
     chain_res = check_chain(B, buckets_of(dec), log)
     tr_res = check_transitions(dec, fe, log, batch=B)
     with tempfile.TemporaryDirectory() as work:
@@ -2826,8 +3320,17 @@ def main(argv):
             + json.dumps(mres, default=float))
         t0 = time.perf_counter()
         # phase 7's decoder is 10(a)'s reference, over the same files
+        cmn0 = held.pop("cmn0")
         cres = cli_20k(work, "cuda", log=log, hmm=os.path.join(work, "hmm"),
-                       dec=dec3, cmn0=held.pop("cmn0"))[0]
+                       dec=dec3, cmn0=cmn0)[0]
+        t12 = time.perf_counter()
+        ex_a = stream_server_check(
+            work, os.path.join(work, "hmm"),
+            os.path.join(BENCH, "bench-20k.dic"),
+            os.path.join(BENCH, "bench-20k.lm.bin"), dec3, cmn0, log=log)
+        t12 = time.perf_counter() - t12
+        log(f"phase 12(a) ({t12:.1f} s) on {smi}")
+        t0 += t12
         t1 = time.perf_counter()
         f20 = flat_20k(dec3, "cuda", log=log)
         del dec3
@@ -2865,6 +3368,11 @@ def main(argv):
         log(f"phase 10(a') ({t1 - t0:.1f} s), 10(b) "
             f"({time.perf_counter() - t1:.1f} s); phase 10 {t10:.1f} s "
             f"on {smi}")
+        t0 = time.perf_counter()
+        ex_b = examples_1k7(work, hmm17, log=log)
+        t12 += time.perf_counter() - t0
+        log(f"phase 12(b) ({time.perf_counter() - t0:.1f} s); phase 12 "
+            f"{t12:.1f} s on {smi}")
     log(f"phase 10: cli single {cres['single']['seconds']:.2f} s, live "
         f"{cres['live']['seconds']:.2f} s at 20k (builds included); flat "
         f"1.7k B={f17['batch']} {f17['ms_per_frame']:.3f} ms/frame, peak "
@@ -2923,6 +3431,17 @@ def main(argv):
         for key in [x for x in k
                     if x.startswith(("nst5", "rows_", "phones_"))]:
             del kernels[-1][key]
+    # the frontend's gains kernel: its launches on the main path (phase 5)
+    # and in `torch_batch.py` (phase 12(b))
+    kernels.append(dict(name="denoise", route="cuda",
+                        source="pocketsphinx_tpu_torch/csrc/denoise.cu",
+                        replaces="pocketsphinx_tpu/frontend/mfcc.py:406",
+                        launches=res["launches"]["denoise"],
+                        example_launches=ex_b["batch"]["launches"]["denoise"],
+                        library_ms=None, **den_res))
+    log(f"phase 12 examples: stream server events equal (n-gram "
+        f"{ex_a['ngram']['events']}, kws {ex_a['kws']['events']} events); "
+        f"torch_batch, torch_simple, torch_live, torch_segment equal")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -180,18 +180,16 @@ class Decoder:
         """A read-only twin for checking one device's run against
         another's: its searches' tables on `device` and a copy of the CMN
         state, but a shallow copy otherwise, so it shares this decoder's
-        config, dictionary, model and LMs; `graph=False` steps its n-gram
-        searches' scan eagerly (`NgramFusedDecoder.to`).  Do not change
+        config, dictionary, model and LMs; `graph=False` steps every
+        search's frames eagerly (each search's `to`).  Do not change
         either one (`add_word`, `load_dict`, `update_mllr`, ...): the
         other's searches would not be rebuilt."""
         import copy
         other = object.__new__(type(self))
         other.__dict__.update(self.__dict__)
         other.device = torch.device(device)
-        other._searches = {
-            k: (s.to(other.device, graph=graph)
-                if isinstance(s, NgramFusedDecoder) else s.to(other.device))
-            for k, s in self._searches.items()}
+        other._searches = {k: s.to(other.device, graph=graph)
+                           for k, s in self._searches.items()}
         other.cmn_state = copy.deepcopy(self.cmn_state)
         other.perf = Timer("decode", other.device)
         other.stage_timers = {k: Timer(k, other.device)

@@ -45,17 +45,15 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops import denoise
+from ..ops.denoise import (LAMBDA_A, LAMBDA_B, LAMBDA_POWER, LAMBDA_T,
+                           MAX_GAIN, MU_T)
 
 LOG_FLOOR = 1e-4
 
-# Noise-suppression constants (fe_noise.c:65-74)
+# Noise-suppression constants (fe_noise.c:65-74); the recurrence's are
+# the gains kernel's (`ops.denoise`)
 SMOOTH_WINDOW = 4
-LAMBDA_POWER = 0.7
-LAMBDA_A = 0.995
-LAMBDA_B = 0.5
-LAMBDA_T = 0.85
-MU_T = 0.2
-MAX_GAIN = 20.0
 
 
 def make_warp(warp_type: str | None, warp_params: str | None):
@@ -416,35 +414,14 @@ def noise_removal_np(mfspec: np.ndarray) -> np.ndarray:
 
 
 def noise_removal(mfspec):
-    """[B, T, nfilt] -> denoised, a loop over T.  Port of
-    `noise_removal_jax`: frames beyond an utterance's length still flow
-    through the recurrence (their values are garbage but do not affect
-    earlier frames; downstream masking applies)."""
-    B, T, n = mfspec.shape
-    power = mfspec[:, 0]
-    noise = mfspec[:, 0] / MAX_GAIN
-    floor = mfspec[:, 0] / MAX_GAIN
-    peak = torch.zeros_like(power)
-    gains = torch.empty_like(mfspec)
-    for t in range(T):
-        x = mfspec[:, t]
-        power = LAMBDA_POWER * power + (1 - LAMBDA_POWER) * x
-        noise = torch.where(power >= noise,
-                            LAMBDA_A * noise + (1 - LAMBDA_A) * power,
-                            LAMBDA_B * noise + (1 - LAMBDA_B) * power)
-        signal = torch.clamp(power - noise, min=1.0)
-        floor = torch.where(signal >= floor,
-                            LAMBDA_A * floor + (1 - LAMBDA_A) * signal,
-                            LAMBDA_B * floor + (1 - LAMBDA_B) * signal)
-        cur_in = signal
-        peak = peak * LAMBDA_T
-        signal = torch.where(signal < LAMBDA_T * peak, peak * MU_T, signal)
-        peak = torch.where(cur_in > peak, cur_in, peak)
-        signal = torch.maximum(signal, floor)
-        safe_power = torch.clamp(power, min=1e-30)
-        gain = torch.where(signal < MAX_GAIN * power, signal / safe_power,
-                           torch.full_like(signal, MAX_GAIN))
-        gains[:, t] = torch.clamp(gain, min=1.0 / MAX_GAIN)
+    """[B, T, nfilt] -> denoised.  Port of `noise_removal_jax`: the gains
+    recurrence is `ops.denoise.gains` (the CUDA kernel for a CUDA tensor,
+    its plain loop for a CPU tensor), whose frames beyond an utterance's
+    length still flow through the recurrence (their values are garbage
+    but do not affect earlier frames; downstream masking applies); the
+    boxcar smoothing over the filters is torch ops."""
+    n = mfspec.shape[-1]
+    gains = denoise.gains(mfspec)
     # boxcar smooth over the filter axis
     idx = np.arange(n)
     l1 = torch.as_tensor(np.maximum(idx - SMOOTH_WINDOW, 0),

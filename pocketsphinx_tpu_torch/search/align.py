@@ -3,8 +3,11 @@
 Port of `pocketsphinx_tpu.search.align`.  The graph build
 (`build_graph`), `_backtrace` and `_emit_entries` are host code, copied;
 the per-frame step is torch on the aligner's device (CUDA unless
-`device="cpu"`), and its compact per-frame backpointer records (int8 /
-uint8 / bool) are copied to the host once per utterance.
+`device="cpu"`), run as captured 16-frame chunks (`base.ChunkGraph`,
+captured anew at each `align`, whose network is its own, as the JAX scan
+compiles per shape; `graph=False`: frame by frame), and its compact
+per-frame backpointer records (int8 / uint8 / bool) are copied to the
+host once per utterance.
 
 The reference's alignment path (`pocketsphinx align`: ps_set_align_text
 -> linear word FSG with optional silences and alternate pronunciations
@@ -75,8 +78,9 @@ class Aligner(DeviceSearch):
     def __init__(self, am: AcousticModel, d2p: Dict2Pid,
                  silprob: float = 0.005, wip: float = 0.65, lw: float = 6.5,
                  use_silence: bool = True, use_altpron: bool = True,
-                 device=None):
+                 device=None, graph: bool = True):
         self.device = resolve_device(device)
+        self.graph = graph
         self.am = am
         self.d2p = d2p
         self.dict = d2p.dict
@@ -284,9 +288,9 @@ class Aligner(DeviceSearch):
             if n.is_start:
                 S0[pi, 0] = n.start_pen
         #: the last alignment's records (SRC, OSRC, EWIN, ESRC, OUT)
-        _, self.records = self._run(
+        _, self.records = self._scan(
             lambda S, sen_t, _t: self.step(S, sen_t, tp_d, preds_d, pen_d),
-            t(S0), (sen,), T)
+            t(S0), (sen,), T, key=(tp_d, preds_d, pen_d))
         return self._backtrace(words, nodes, sen.cpu().numpy(),
                                *self.records, preds)
 

@@ -3,8 +3,9 @@ phone-bigram LM (src/allphone_search.c re-design).
 
 Port of `pocketsphinx_tpu.search.allphone`.  The networks (`_build_*`)
 and `_backtrace` are host code, copied; the per-frame step is torch on
-the search's device (CUDA unless `device="cpu"`), and its exit records
-are copied to the host once per utterance.
+the search's device (CUDA unless `device="cpu"`), run as captured
+16-frame chunks (`base.ChunkGraph`; `graph=False`: frame by frame), and
+its exit records are copied to the host once per utterance.
 
 With -allphone_ci (default), the network is the CI phone set; each frame
 every phone HMM updates densely, phone transitions apply the phone LM
@@ -43,8 +44,10 @@ SHIFT = 1 << 10
 
 class AllphoneDecoder(DeviceSearch):
     def __init__(self, am: AcousticModel, lm: NgramModel | None = None,
-                 ci_only: bool = True, pip: float = 1.0, device=None):
+                 ci_only: bool = True, pip: float = 1.0, device=None,
+                 graph: bool = True):
         self.device = resolve_device(device)
+        self.graph = graph
         self.am = am
         self.mdef = am.mdef
         self.lm = lm
@@ -167,8 +170,9 @@ class AllphoneDecoder(DeviceSearch):
 
     def step(self, carry, sen_t, t):
         """One frame: carry (S, STF, PRC) [N, NST], sen_t [N, NST] senone
-        goodness, t the frame index.  Returns (new carry, records (out,
-        out start frame, out predecessor class) [N])."""
+        goodness, t the frame index (an int, or a 0-d int32 tensor on the
+        device).  Returns (new carry, records (out, out start frame, out
+        predecessor class) [N])."""
         tb = self.tables
         S, STF, PRC = carry
         nci = self.mdef.n_ciphone
@@ -202,8 +206,8 @@ class AllphoneDecoder(DeviceSearch):
         T = costs.shape[0]
         N, NST = self.n_node, self.mdef.n_emit_state
         sen = -costs[:, self.tables["senid"]].reshape(T, N, NST)
-        _, self.records = self._run(self.step, self.initial_carry(), (sen,),
-                                    T)
+        _, self.records = self._scan(self.step, self.initial_carry(),
+                                     (sen,), T)
         return self._backtrace(*self.records, T)
 
     def _backtrace(self, eout, estf, eprc, T):

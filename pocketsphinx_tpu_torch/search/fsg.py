@@ -4,9 +4,11 @@ fsg_lextree.c, fsg_history.c re-design).
 Port of `pocketsphinx_tpu.search.fsg`.  The host network build
 (`__init__`'s grammar edits, `_build`) and `_backtrace` are NumPy copies;
 the per-frame step is torch on the search's device (CUDA unless
-`device="cpu"`), one Python call per frame where the JAX package ran one
-`lax.scan`.  The records stay on the device until the utterance ends and
-are copied to the host once.
+`device="cpu"`), its frames run as 16-frame chunks captured once as a
+CUDA graph and replayed (`base.ChunkGraph`) where the JAX package ran
+one `lax.scan` (`graph=False`: one Python call per frame).  The records
+stay on the device until the utterance ends and are copied to the host
+once.
 
 Every word-labeled grammar arc owns a dense HMM chain (word-instance-per-
 arc, like the reference's per-FSG-state lextrees but flattened to
@@ -48,8 +50,9 @@ class FsgDecoder(DeviceSearch):
                  wip: float = 0.65, pip: float = 1.0,
                  silprob: float = 0.005, fillprob: float = 1e-8,
                  use_filler: bool = True, use_altpron: bool = True,
-                 device=None):
+                 device=None, graph: bool = True):
         self.device = resolve_device(device)
+        self.graph = graph
         self.am = am
         self.d2p = d2p
         self.dict = d2p.dict
@@ -228,7 +231,7 @@ class FsgDecoder(DeviceSearch):
         T = costs.shape[0]
         NST = self.mdef.n_emit_state
         sen = -costs[:, self.tables["senid"]].reshape(T, self.P, NST)
-        self._dev_records, self._records = self._run(
+        self._dev_records, self._records = self._scan(
             self.step, self.initial_carry(), (sen,), T)
         return self._backtrace(self._records, T)
 

@@ -4,8 +4,10 @@
 Port of `pocketsphinx_tpu.search.kws`.  `parse_kws_file`, the network
 build (`_build`) and the detection merge with its `delay` filter are
 host code, copied; the per-frame step is torch on the search's device
-(CUDA unless `device="cpu"`), and its records (the per-keyphrase ratio
-and start frame) are copied to the host once per utterance.
+(CUDA unless `device="cpu"`), run as captured 16-frame chunks
+(`base.ChunkGraph`; `graph=False`: frame by frame), and its records (the
+per-keyphrase ratio and start frame) are copied to the host once per
+utterance.
 
 Each keyphrase is a linear phone chain; the background model is a loop
 over all CI phones with loop probability kws_plp.  A detection fires when
@@ -68,8 +70,10 @@ class Detection:
 class KwsDecoder(DeviceSearch):
     def __init__(self, am: AcousticModel, d2p: Dict2Pid,
                  keyphrases: list[tuple[str, float]],
-                 plp: float = 0.1, delay: int = 10, device=None):
+                 plp: float = 0.1, delay: int = 10, device=None,
+                 graph: bool = True):
         self.device = resolve_device(device)
+        self.graph = graph
         self.am = am
         self.d2p = d2p
         self.dict = d2p.dict
@@ -168,8 +172,9 @@ class KwsDecoder(DeviceSearch):
 
     def step(self, carry, bg_sen, kw_sen, t):
         """One frame: carry (Sbg, Skw, STF), the background's and the
-        keyphrases' senone goodness, t the frame index.  Returns (new
-        carry, records (ratio, start frame) [NK])."""
+        keyphrases' senone goodness, t the frame index (an int, or a 0-d
+        int32 tensor on the device).  Returns (new carry, records (ratio,
+        start frame) [NK])."""
         tb = self.tables
         Sbg, Skw, STF = carry
         plp = float(np.float32(self.log_plp))
@@ -217,8 +222,8 @@ class KwsDecoder(DeviceSearch):
         sen = -costs[:, self.tables["senid"]]
         bg_sen_all = sen[:, :nci * NST].reshape(T, nci, NST)
         kw_sen_all = sen[:, nci * NST:].reshape(T, NK, K, NST)
-        _, self.records = self._run(self.step, self.initial_carry(),
-                                    (bg_sen_all, kw_sen_all), T)
+        _, self.records = self._scan(self.step, self.initial_carry(),
+                                     (bg_sen_all, kw_sen_all), T)
         return self._detections(*self.records, T)
 
     def _detections(self, ratios, stfs, T) -> list[Detection]:

@@ -6,7 +6,11 @@ exactness oracle.  The network build (`_build`, `_lm_tables`) is a NumPy
 copy of the JAX module's; the per-frame step is torch ops on the
 decoder's device over `ops.hmm.hmm_step_sm`, with the batch axis written
 out ([B, ...]) where the JAX package used `jax.vmap`, and the 1-best
-backtrace is the JAX module's Python walk.
+backtrace is the JAX module's Python walk.  The scan (the JAX
+`_make_scan`'s `jax.jit`) runs as 16-frame chunks captured once per
+batch size as a CUDA graph and replayed (`base.ChunkGraph`; on the CPU
+the same chunk on the same buffers); `graph=False` steps it eagerly,
+frame by frame.
 
 Every dictionary word keeps a dense HMM chain and all words are evaluated
 every frame (no pruning).  Exact language-model application at every word
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import math
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,6 +58,7 @@ from ..lm.ngram import NgramModel
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..models.dict2pid import Dict2Pid
 from ..ops.hmm import hmm_step_sm
+from .base import CHUNK, ChunkGraph, clone_tree
 
 NEG_INF = -1e30
 SHIFT = 1 << 10
@@ -73,8 +79,12 @@ class NgramFlatDecoder:
 
     def __init__(self, am: AcousticModel, d2p: Dict2Pid, lm: NgramModel,
                  silprob: float = 0.005, fillprob: float = 1e-8,
-                 pip: float = 1.0, nwpen: float = 1.0, device=None):
+                 pip: float = 1.0, nwpen: float = 1.0, device=None,
+                 graph: bool = True):
         self.device = resolve_device(device)
+        #: scan through a `ChunkGraph` (default) or, with False, eagerly
+        #: frame by frame (`with_carry(..., graph=)` overrides it)
+        self.graph = graph
         self.am = am
         self.d2p = d2p
         self.dict = d2p.dict
@@ -93,13 +103,17 @@ class NgramFlatDecoder:
         device tables are made again on first use."""
         self._build()
 
-    def to(self, device) -> "NgramFlatDecoder":
+    def to(self, device, graph=None) -> "NgramFlatDecoder":
         """A decoder sharing this one's host network, with its tables on
-        `device` (e.g. to check a CUDA run against the CPU)."""
+        `device` (e.g. to check a CUDA run against the CPU); `graph`
+        (default this one's) as the constructor's."""
         other = object.__new__(type(self))
         other.__dict__.update(self.__dict__)
         other.device = torch.device(device)
+        if graph is not None:
+            other.graph = graph
         other.tables = None
+        other.chunk_graph = None
         return other
 
     # -- static structure ----------------------------------------------------
@@ -485,15 +499,18 @@ class NgramFlatDecoder:
                       for nc, oc in zip(new, carry))
         return carry, (escore, estf, eprw, eascr, eh1, eh2, ectx)
 
-    def with_carry(self, costs, valid, carry=None, t0=0):
+    def with_carry(self, costs, valid, carry=None, t0=0, graph=None):
         """Scan costs [B, T, n_sen] (on the decoder's device) with valid
         [B, T] bool from `carry` (None: `init_carry`), frames numbered from
         `t0`; a frame whose `valid` is false leaves that row's carry as it
-        was.  Returns (records, each [B, T, W], the carry after the last
-        frame)."""
+        was.  `graph` (None: the decoder's): through the chunk's graph or
+        eagerly.  Returns (records, each [B, T, W], the carry after the
+        last frame)."""
         B, T = costs.shape[:2]
         if carry is None:
             carry = self.init_carry(B)
+        if self.graph if graph is None else graph:
+            return self._with_carry_graph(costs, valid, carry, t0)
         times = torch.arange(t0, t0 + T, dtype=torch.int32,
                              device=costs.device)
         recs = None
@@ -508,10 +525,31 @@ class NgramFlatDecoder:
                 buf[:, i] = r
         return recs, carry
 
-    def scan(self, costs, valid):
+    def _with_carry_graph(self, costs, valid, carry, t0):
+        """`with_carry` through the `ChunkGraph` of this batch size: T
+        padded to whole chunks with valid=False frames (which leave the
+        carry as it was), the records cut back to T frames.  The decoder
+        keeps one runner, of its tables and last (B, n_sen)."""
+        B, T, n_sen = costs.shape
+        Tp = -(-T // CHUNK) * CHUNK
+        costs = torch.nn.functional.pad(costs, (0, 0, 0, Tp - T))
+        valid = torch.nn.functional.pad(valid, (0, Tp - T))
+        tables = self._tables()
+        run = self.chunk_graph
+        if run is None or not run.fits(tables, (B, n_sen)):
+            self.chunk_graph = None       # its buffers go first
+            run = self.chunk_graph = ChunkGraph(self.device, tables,
+                                                 (B, n_sen))
+        recs, carry = run.run(
+            lambda c, cost_t, v, t: self._step(c, cost_t, t, v), carry,
+            (costs.transpose(0, 1), valid.transpose(0, 1)), Tp, t0)
+        return (tuple(r[:T].transpose(0, 1).contiguous() for r in recs),
+                clone_tree(carry))
+
+    def scan(self, costs, valid, graph=None):
         """The records [B, T, W] of costs [B, T, n_sen] with valid [B, T]
-        from the start of an utterance."""
-        return self.with_carry(costs, valid)[0]
+        from the start of an utterance (`graph` as in `with_carry`)."""
+        return self.with_carry(costs, valid, graph=graph)[0]
 
     # -- decode --------------------------------------------------------------
 
@@ -535,26 +573,48 @@ class NgramFlatDecoder:
         self.records = tuple(r[0].cpu().numpy() for r in recs)
         return self._backtrace(self.records, T)
 
-    def decode_batch(self, feats, n_frames, costs=None):
+    def decode_batch(self, feats, n_frames, costs=None, keep_records=True,
+                     timings=None):
         """Batched decode: feats [B, T, F, L] (padded; or costs [B, T,
         n_sen]), n_frames [B] -> list of (hyp, segs).  Scoring and the
         scan run on the device for the whole batch; backtrace per
         utterance on the host.  Per-utterance records are kept in
-        `batch_records`; `records` is not changed."""
+        `batch_records` (None without `keep_records`); `records` is not
+        changed.  A dict passed as `timings` receives the seconds of the
+        scoring, the scan and the backtrace (the device synchronized at
+        each boundary), as `NgramFusedDecoder.decode_batch`'s."""
+        t0 = self._sync(timings)
         costs = self._costs(feats, costs)
+        t1 = self._sync(timings)
         B, T = costs.shape[:2]
         nf = (n_frames.cpu().numpy() if torch.is_tensor(n_frames)
               else np.asarray(n_frames)).astype(np.int64)
         valid = (torch.arange(T, device=self.device)[None, :]
                  < torch.as_tensor(nf, device=self.device)[:, None])
         recs = tuple(r.cpu().numpy() for r in self.scan(costs, valid))
-        self.batch_records = []
+        t2 = self._sync(timings)
+        batch_records = []
         out = []
         for b in range(B):
             per_utt = tuple(r[b] for r in recs)
-            self.batch_records.append(per_utt)
+            batch_records.append(per_utt)
             out.append(self._backtrace(per_utt, int(nf[b])))
+        self.batch_records = batch_records if keep_records else None
+        if timings is not None:
+            timings.update(scoring=t1 - t0, scan=t2 - t1,
+                           backtrace=self._sync(timings) - t2)
         return out
+
+    #: the flat search is exact (no top-K shortlist): no guard counts
+    guard_violations = 0
+    #: the scan's `ChunkGraph` (None before its first scan through it)
+    chunk_graph = None
+
+    def _sync(self, timings):
+        """The wall clock, after the device's queued work when timing."""
+        if timings is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
 
     def adapt_records(self, raw, T):
         """Streamed records are already flat records: the first T frames."""

@@ -72,17 +72,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import graph_capture, resolve_device
+from .. import resolve_device
 from ..convert import column_ranges, scan_tables, split_scan_tables
 from ..models.dict2pid import Dict2Pid
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..lm.ngram import NgramModel
-from ..ops import _build, chain as chain_ops, fan as fan_ops
 from ..ops import transitions as transitions_ops
 from ..ops.chain import ChainGroup, chain_group_step
 from ..ops.fan import fan_step, padded_width
 from ..ops.hmm import hmm_step_sm
 from ..ops.transitions import LMLayout, transitions
+from .base import add_launches, capture_chunk
 
 NEG_INF = -1e30
 SHIFT = 1 << 10
@@ -101,12 +101,6 @@ def _eascr(escore, tf, entv_at_entry, Mcp, t):
     corr = Mcp[t] - np.where(has, Mcp[tfi], 0.0)
     return (escore - np.where(has, entv_at_entry, 0.0) + corr).astype(
         np.float32)
-
-
-#: the kernels' modules by name, whose `launches` counters a graph
-#: replay adds to
-_KERNEL_OPS = {"chain": chain_ops, "fan": fan_ops,
-               "transitions": transitions_ops}
 
 
 def _records_like(rec, T):
@@ -228,19 +222,10 @@ class _ScanGraph:
         dec._copy_carry(io.carry, carry)
 
     def _capture(self, dec, pool, stream):
-        with torch.cuda.device(dec.device):
-            cur = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(cur)
-            with _build.tally(), torch.cuda.stream(side):
-                self._chunk(dec)
-            cur.wait_stream(side)
+        def fresh_recs():
             self.recs = tuple(torch.empty_like(r) for r in self.recs)
-            graph = torch.cuda.CUDAGraph()
-            with _build.tally() as made, graph_capture(graph, pool, stream):
-                self._chunk(dec)
-        self.launches = made
-        self.graph = graph
+        self.graph, self.launches = capture_chunk(
+            dec.device, lambda: self._chunk(dec), pool, stream, fresh_recs)
 
     def run(self, dec, costs, valid, t_base):
         """One chunk of `dec`'s scan: costs [B, CH, n_sen] and valid
@@ -253,8 +238,7 @@ class _ScanGraph:
             self._chunk(dec)
             return self.recs
         self.graph.replay()
-        for name, n in self.launches.items():
-            _KERNEL_OPS[name].launches += n
+        add_launches(self.launches)
         return self.recs
 
 

@@ -905,3 +905,90 @@ def test_graph_capture_with_garbage(cuda, tmp_path):
         gc.set_threshold(*thresholds)
     for a, b in zip(got, dec.scan(c, v, True, graph=False), strict=True):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(8, 499, 25), (3, 37, 40), (2, 1, 25),
+                                   (5, 9, 7)],
+                         ids=["main_path", "ragged", "one_frame", "narrow"])
+def test_denoise_kernel_bit_equal(cuda, shape):
+    """The gains kernel equals its plain version on the card bit for bit,
+    frames past each length (zero power) included, one launch a call."""
+    from pocketsphinx_tpu_torch.ops import denoise
+    x = chip_smoke.denoise_inputs(np.random.default_rng(5), *shape)
+    x = torch.as_tensor(x, device=cuda)
+    n = denoise.launches
+    got = denoise.gains(x)
+    assert denoise.launches == n + 1
+    torch.cuda.synchronize()
+    chip_smoke.compare((got,), (denoise.gains_ref(x),), "denoise")
+
+
+def test_frontend_denoise_launches(cuda):
+    """`process_batch` with noise removal launches the gains kernel once
+    per batch, and its cepstra agree with the CPU's."""
+    from pocketsphinx_tpu_torch.ops import denoise
+    fe = chip_smoke.en_us_frontend()
+    pcm, ns = chip_smoke.pcm_batch([1, 2, 3], [1.0, 0.6, 0.8])
+    n = denoise.launches
+    cep, nf = fe.process_batch(torch.as_tensor(pcm, device=cuda), ns)
+    assert denoise.launches == n + 1
+    cep_c, nf_c = fe.process_batch(pcm, ns, device="cpu")
+    assert torch.equal(nf.cpu(), nf_c)
+    for b, k in enumerate(nf_c.tolist()):
+        np.testing.assert_allclose(cep[b, :k].cpu().numpy(),
+                                   cep_c[b, :k].numpy(), atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["jsgf", "kws", "allphone", "allphone_tri",
+                                  "align"])
+def test_mode_graph_equals_eager(cuda, tmp_path, mode):
+    """Each grammar / keyword / allphone / align search on the card steps
+    its whole chunks through a captured CUDA graph, kept across
+    utterances (the aligner's per `align`), and gives the records and
+    results of its eager twin (`Decoder._to(..., graph=False)`)."""
+    dec = chip_smoke.mode_decoder(str(tmp_path), cuda)
+    name = chip_smoke.add_mode(dec, mode, str(tmp_path))
+    eager = dec._to(cuda, graph=False)
+    rng = np.random.default_rng(27)
+    runner = None
+    for T in (90, 11, 48):
+        costs = rng.uniform(0, 400, (T, dec.am.n_sen)).astype(np.float32)
+        costs[T // 3] = 200.0
+        for d in (dec, eager):
+            d.activate_search(name)
+            d.decode_senscr(costs)
+        assert chip_smoke.mode_result(dec) == chip_smoke.mode_result(eager)
+        chip_smoke.check_records(dec._searches[name], eager._searches[name],
+                                 mode)
+        g = dec._searches[name].chunk_graph
+        assert eager._searches[name].chunk_graph is None
+        if T >= 16:
+            assert g.graph is not None and g.capture_s > 0
+        if mode != "align" and runner is not None and T >= 16:
+            assert g is runner
+        runner = g if T >= 16 else runner
+
+
+def test_flat_graph_equals_eager_cuda(cuda, tmp_path):
+    """The flat search's scan through its captured graph equals the eager
+    step on the card, records and carry, at B=4 with unequal lengths."""
+    from pocketsphinx_tpu_torch import Decoder
+    from pocketsphinx_tpu_torch.lm.ngram import read_lm
+    from pocketsphinx_tpu_torch.search.ngram_flat import NgramFlatDecoder
+    hmm, dic, lmf = synth.small_task(str(tmp_path), seed=7)
+    d = Decoder(hmm=hmm, dict=dic, device="cpu")
+    flat = NgramFlatDecoder(d.am, d.d2p, read_lm(lmf, lw=6.5, wip=0.65),
+                            device=cuda)
+    rng = np.random.default_rng(32)
+    lens = torch.tensor([45, 30, 7, 45], device=cuda)
+    costs = torch.as_tensor(rng.uniform(0, 400, (4, 45, d.am.n_sen)),
+                            dtype=torch.float32, device=cuda)
+    valid = torch.arange(45, device=cuda)[None] < lens[:, None]
+    rg, cg = flat.with_carry(costs, valid)
+    assert flat.chunk_graph.graph is not None
+    re_, ce = flat.with_carry(costs, valid, graph=False)
+    for a, b in zip(rg, re_):
+        assert torch.equal(a, b)
+    for a, b in zip(cg, ce):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)

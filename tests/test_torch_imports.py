@@ -1,6 +1,7 @@
 """The port stands alone: it imports and runs with JAX blocked, imports
 nothing of JAX or of the JAX package, and its entry points run on CUDA
-unless the caller asks for the CPU."""
+unless the caller asks for the CPU.  So do its examples
+(`examples/torch_*.py`)."""
 
 import ast
 import pathlib
@@ -13,7 +14,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "pocketsphinx_tpu_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
         ".__init__") for p in PORT.rglob("*.py"))
@@ -271,3 +273,40 @@ def test_precision_setup():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+def test_examples_import_alone():
+    """The port's five examples exist and load as modules (not run) with
+    JAX and the JAX package blocked."""
+    assert [p.name for p in EXAMPLES] == [
+        "torch_batch.py", "torch_live.py", "torch_segment.py",
+        "torch_simple.py", "torch_stream_server.py"]
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['pocketsphinx_tpu'] = None\n"
+        "for path in sys.argv[1:]:\n"
+        "    assert callable(runpy.run_path(path, run_name='x')['main'])\n")
+    r = subprocess.run([sys.executable, "-c", code, *map(str, EXAMPLES)],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_examples_default_to_cuda(monkeypatch, capsys):
+    """Without --device an example asks for the card, and fails without
+    one, naming CUDA."""
+    import runpy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("PS_REFERENCE", str(ROOT / "no-such-tree"))
+    for name in ("torch_simple.py", "torch_live.py", "torch_batch.py"):
+        monkeypatch.setattr(sys, "argv", [name])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            runpy.run_path(str(ROOT / "examples" / name),
+                           run_name="__main__")
+    mod = runpy.run_path(str(ROOT / "examples" / "torch_stream_server.py"),
+                         run_name="x")
+    args, config = mod["parse_args"](["--stdio", "-hmm", "h", "-kws", "k"])
+    assert args.device is None and args.stdio
+    assert (config["hmm"], config["kws"]) == ("h", "k")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod["serve"](lambda n: b"", lambda b: None, config)

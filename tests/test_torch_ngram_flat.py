@@ -4,7 +4,11 @@ JAX package's given the same cost matrix: the mpx chain rows of
 arrays, hypotheses and segments, through `decode` and through
 `decode_batch` at B=3 with unequal lengths (each row also equal to its own
 B=1 decode), with the trigram-context LM rows and with the bigram-only
-rows (a small `LM_TABLE_BUDGET` on the instance).  The JAX side
+rows (a small `LM_TABLE_BUDGET` on the instance).  The scan through its
+chunked runner (the counterpart of the JAX `_make_scan`'s `jax.jit`: T
+padded to whole 16-frame chunks with invalid frames) equals the JAX
+records and the eager loop (`graph=False`), carry included, at B=8 with
+unequal lengths.  The JAX side
 backtraces in its C extension, the port in Python: the segments must
 agree.  A small dictionary (bench-1.7k picks plus fillers) with a seeded
 ARPA trigram LM, one frame of tied costs so that every max ties."""
@@ -150,3 +154,35 @@ def test_with_carry_blocks_equal_whole(decoders):
         got.append([r[:, :n] for r in recs])
     for k in range(len(RECORDS)):
         assert torch.equal(torch.cat([g[k] for g in got], 1), whole[k])
+
+
+def test_scan_graph_equal_jax_and_eager(decoders, monkeypatch):
+    jx, pt = decoders
+    lens = [37, 20, 5, 37, 1, 33, 16, 29]
+    B, T = len(lens), max(lens)
+    costs = np.stack([tie_costs(pt.am.n_sen, T, seed=40 + b, tie_frame=11)
+                      for b in range(B)])
+    monkeypatch.setattr(jax_acoustic, "senone_scores_jax",
+                        lambda *a, **k: jnp.asarray(costs))
+    jx.decode_batch(np.zeros((B, T, 3, 13), np.float32), lens)
+    c = torch.as_tensor(costs)
+    valid = torch.arange(T)[None, :] < torch.as_tensor(lens)[:, None]
+    assert pt.graph
+    rg, cg = pt.with_carry(c, valid)
+    runner = pt.chunk_graph
+    assert runner is not None and runner.shape == (B, pt.am.n_sen)
+    re_, ce = pt.with_carry(c, valid, graph=False)
+    for a, b in zip(rg, re_):
+        assert a.shape == (B, T, pt.W) and torch.equal(a, b)
+    for a, b in zip(cg, ce):
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    for b, n in enumerate(lens):
+        _assert_records(tuple(r[b, :n].numpy() for r in rg),
+                        tuple(np.asarray(r)[:n] for r in jx.batch_records[b]))
+    # resumed from the carry at frame T, the runner of this B is kept
+    rg2, _ = pt.with_carry(c[:, :9], valid[:, :9], cg, T)
+    re2, _ = pt.with_carry(c[:, :9], valid[:, :9], ce, T, graph=False)
+    assert pt.chunk_graph is runner
+    for a, b in zip(rg2, re2):
+        assert torch.equal(a, b)
