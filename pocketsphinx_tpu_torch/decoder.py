@@ -43,7 +43,7 @@ from .frontend.feat import CmnLive, compute_feats_typed
 from .frontend.mfcc import MelFrontend
 from .models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from .models.dict2pid import Dict2Pid
-from .profile import DecodeStats, PerfReport, Timer, log_xrt
+from .profile import PerfReport, Timer, log_xrt
 from .search.align import Aligner
 from .search.lattice import Lattice
 from .search.ngram_fused import NgramFusedDecoder
@@ -140,13 +140,12 @@ class Decoder:
         self._costs = None
         self._feats = None
 
-        # xRT timing + work counters (ps->perf / ngram_search_stats_t;
-        # see profile.py); stage timers wait for the device's work
+        # xRT timing (ps->perf; see profile.py); stage timers wait for
+        # the device's work
         self.perf = Timer("decode", self.device)
         self.stage_timers = {k: Timer(k, self.device) for k in
                              ("frontend", "search", "bestpath")}
         self.all_perf = PerfReport()
-        self.stats = DecodeStats()
 
         if mode == "lm":
             self.add_lm("_default", config["lm"])
@@ -194,7 +193,7 @@ class Decoder:
         other.perf = Timer("decode", other.device)
         other.stage_timers = {k: Timer(k, other.device)
                               for k in self.stage_timers}
-        other.all_perf, other.stats = PerfReport(), DecodeStats()
+        other.all_perf = PerfReport()
         other._fe_stream_active = False
         other._lattice = None
         other.start_utt()
@@ -679,17 +678,12 @@ class Decoder:
             for (w, s, e), (a, ls) in zip(segs, scr)]
 
     def _account_utt(self, n_frames: int):
-        """Accumulate totals + counters and log xRT at INFO level
+        """Accumulate the totals and log xRT at INFO level
         (src/ngram_search.c:866-871-style lines)."""
         n_speech = n_frames / self.fe.frate
         self._utt_speech = n_speech
         self.all_perf.add(n_speech, self.perf,
                           self.stage_timers.values())
-        search = self._searches.get(self._active)
-        self.stats.add_utt(
-            n_frames, getattr(search, "P", 0),
-            self.am.scoring_arrays["w_lin"].shape[-1],
-            getattr(search, "W", 0))
         if self.config["loglevel"] in ("INFO", "DEBUG"):
             for t in self.stage_timers.values():
                 log_xrt(t.name, t, n_speech,

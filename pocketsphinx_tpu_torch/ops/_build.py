@@ -37,6 +37,8 @@ _lock = threading.Lock()
 logs: dict[str, str] = {}
 #: the open `tally` of each thread
 _tallies = threading.local()
+#: the wall seconds of this process's kernel builds
+seconds = 0.0
 
 
 def nvcc() -> str:
@@ -58,9 +60,11 @@ def _target(name: str) -> Path:
 def build(names, verbose: bool = False) -> dict[str, float]:
     """Compile the named kernels that are not built yet, one nvcc
     process per source, all started together.  Returns the seconds each
-    build took (0.0 for one already on disk).  Raises with nvcc's
-    output when a build fails."""
+    build took (0.0 for one already on disk), and adds the wall seconds
+    of the builds to `seconds`.  Raises with nvcc's output when a build
+    fails."""
     import time
+    global seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     secs = {}
@@ -89,6 +93,8 @@ def build(names, verbose: bool = False) -> dict[str, float]:
         if verbose and log:
             print(log, flush=True)
         os.replace(tmp, out)
+    if procs:
+        seconds += time.perf_counter() - t0
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return secs

@@ -27,13 +27,12 @@ as the JAX package reduces on its CPU backend.
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from .. import on_device, resolve_device
+from .. import on_device, profile, resolve_device
 
 def _rank_count():
     import torch.distributed as dist
@@ -180,35 +179,39 @@ class BatchDecodePipeline:
         A dict passed as `timings` receives the seconds of each stage
         (frontend, scoring, scan, backtrace) summed over the batches and
         the replicas (the devices are synchronized at each stage
-        boundary)."""
-        dp = self.data_parallelism
-        B = batch_size or 8 * dp
-        B = (B // dp) * dp or dp
-        order = sorted(range(len(pcm_list)), key=lambda i: len(pcm_list[i]))
-        results: list = [None] * len(pcm_list)
-        self.guard_violations = 0
+        boundary).  The stages are `profile` spans ("ps.corpus",
+        "ps.batch", "ps.frontend" and the search's)."""
+        with profile.span("ps.corpus"):
+            dp = self.data_parallelism
+            B = batch_size or 8 * dp
+            B = (B // dp) * dp or dp
+            order = sorted(range(len(pcm_list)),
+                           key=lambda i: len(pcm_list[i]))
+            results: list = [None] * len(pcm_list)
+            self.guard_violations = 0
 
-        def run(part):
-            return self._decode_rows(pcm_list, *part, timings is not None)
+            def run(part):
+                return self._decode_rows(pcm_list, *part,
+                                         timings is not None)
 
-        pool = ThreadPoolExecutor(dp) if dp > 1 else None
-        try:
-            for i0 in range(0, len(order), B):
-                parts = [(rows, search) for rows, search in zip(
-                    np.array_split(np.array(order[i0:i0 + B]), dp),
-                    self.replicas) if len(rows)]
-                outs = (list(pool.map(run, parts)) if pool
-                        else [run(p) for p in parts])
-                for (rows, search), (out, st) in zip(parts, outs):
-                    for k, v in (st or {}).items():
-                        timings[k] = timings.get(k, 0.0) + v
-                    self.guard_violations += search.guard_violations
-                    for k, i in enumerate(rows):
-                        results[i] = out[k]
-        finally:
-            if pool is not None:
-                pool.shutdown()
-        return results
+            pool = ThreadPoolExecutor(dp) if dp > 1 else None
+            try:
+                for i0 in range(0, len(order), B):
+                    parts = [(rows, search) for rows, search in zip(
+                        np.array_split(np.array(order[i0:i0 + B]), dp),
+                        self.replicas) if len(rows)]
+                    outs = (list(pool.map(run, parts)) if pool
+                            else [run(p) for p in parts])
+                    for (rows, search), (out, st) in zip(parts, outs):
+                        for k, v in (st or {}).items():
+                            timings[k] = timings.get(k, 0.0) + v
+                        self.guard_violations += search.guard_violations
+                        for k, i in enumerate(rows):
+                            results[i] = out[k]
+            finally:
+                if pool is not None:
+                    pool.shutdown()
+            return results
 
     def _decode_rows(self, pcm_list, rows, search, timed: bool):
         """PCM -> (hyp, segs) of the utterances `rows` through `search`, on
@@ -216,24 +219,20 @@ class BatchDecodePipeline:
         from ..frontend.feat import compute_feats
 
         dev = search.device
-        with on_device(dev):
-            t0 = _sync(dev, timed)
-            pcm = np.zeros((len(rows), max(len(pcm_list[i]) for i in rows)),
-                           np.float32)
-            for k, i in enumerate(rows):
-                pcm[k, :len(pcm_list[i])] = pcm_list[i]
-            ns = np.array([len(pcm_list[i]) for i in rows], np.int32)
-            cep, nfr = self.fe.process_batch(pcm, ns, device=dev)
-            feats = compute_feats(cep, nfr, cmn=self.cmn)
-            t1 = _sync(dev, timed)
-            st = {"frontend": t1 - t0} if timed else None
+        st = {} if timed else None
+        with on_device(dev), profile.span("ps.batch"):
+            with profile.span("ps.frontend", st, "frontend", dev):
+                with profile.span("ps.frontend.pcm"):
+                    pcm = np.zeros((len(rows),
+                                    max(len(pcm_list[i]) for i in rows)),
+                                   np.float32)
+                    for k, i in enumerate(rows):
+                        pcm[k, :len(pcm_list[i])] = pcm_list[i]
+                    ns = np.array([len(pcm_list[i]) for i in rows], np.int32)
+                with profile.span("ps.frontend.mfcc"):
+                    cep, nfr = self.fe.process_batch(pcm, ns, device=dev)
+                with profile.span("ps.frontend.features"):
+                    feats = compute_feats(cep, nfr, cmn=self.cmn)
             out = search.decode_batch(feats, nfr, keep_records=False,
                                       timings=st)
         return out, st
-
-
-def _sync(dev, timed: bool):
-    """The wall clock, after the device's queued work when timing."""
-    if timed and dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    return time.perf_counter()

@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from .. import graph_capture
+from .. import graph_capture, profile
 from ..models.acoustic import senone_scores
 from ..ops import _build, chain, denoise, fan, transitions
 
@@ -65,8 +65,11 @@ def capture_chunk(device, chunk, pool=None, stream=None, before=None):
     (`graph_capture`).  The kernels' launches of the warm-up and of the
     capture count in this thread's `_build.tally` instead of their
     counters.  Returns (the graph, the capture's launches by kernel
-    name), which a replay adds to the counters."""
-    with torch.cuda.device(device):
+    name, which a replay adds to the counters, and the seconds it took
+    without the kernels' builds inside it, which it also adds to
+    `profile`'s "capture_s")."""
+    w0, b0 = time.perf_counter(), _build.seconds
+    with profile.span("ps.capture"), torch.cuda.device(device):
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(cur)
@@ -78,7 +81,9 @@ def capture_chunk(device, chunk, pool=None, stream=None, before=None):
         graph = torch.cuda.CUDAGraph()
         with _build.tally() as made, graph_capture(graph, pool, stream):
             chunk()
-    return graph, made
+    secs = time.perf_counter() - w0 - (_build.seconds - b0)
+    profile.count("capture_s", secs)
+    return graph, made, secs
 
 
 class ChunkGraph:
@@ -94,9 +99,10 @@ class ChunkGraph:
     the chunk is captured at the first `run`
     (`capture_chunk`; `capture_s` its seconds) and replayed for every
     whole chunk; on the CPU `run` calls the same chunk on the same
-    buffers.  The step is passed in, not kept: the search keeps its
-    runner, and a runner that kept the search would tie both into a
-    cycle that only the garbage collector frees."""
+    buffers.  Each chunk is a "ps.scan.chunk" span, the eager rest a
+    "ps.scan.tail" one.  The step is passed in, not kept: the search
+    keeps its runner, and a runner that kept the search would tie both
+    into a cycle that only the garbage collector frees."""
 
     def __init__(self, device, key, shape=None):
         self.device, self.key, self.shape = torch.device(device), key, shape
@@ -140,36 +146,37 @@ class ChunkGraph:
         n_full = T // CHUNK * CHUNK
         out = None
         for c0 in range(0, n_full, CHUNK):
-            for buf, x in zip(self.xs, xs):
-                buf.copy_(x[c0:c0 + CHUNK])
-            self.t_base.fill_(t0 + c0)
-            if self.device.type != "cuda":
-                self._chunk(step)
-            else:
-                if self.graph is None:
-                    w0 = time.perf_counter()
-                    self.graph, self.launches = capture_chunk(
-                        self.device, lambda: self._chunk(step),
-                        stream=torch.cuda.Stream(self.device),
-                        before=self._fresh_recs)
-                    copy_tree(self.carry, carry)   # the warm-up stepped it
-                    self.capture_s = time.perf_counter() - w0
-                self.graph.replay()
-                add_launches(self.launches)
-            if out is None:
-                out = _records(self.recs, T)
-            for o, r in zip(out, self.recs):
-                o[c0:c0 + CHUNK] = r
+            with profile.span("ps.scan.chunk"):
+                for buf, x in zip(self.xs, xs):
+                    buf.copy_(x[c0:c0 + CHUNK])
+                self.t_base.fill_(t0 + c0)
+                if self.device.type != "cuda":
+                    self._chunk(step)
+                else:
+                    if self.graph is None:
+                        made = capture_chunk(
+                            self.device, lambda: self._chunk(step),
+                            stream=torch.cuda.Stream(self.device),
+                            before=self._fresh_recs)
+                        self.graph, self.launches, self.capture_s = made
+                        copy_tree(self.carry, carry)   # the warm-up stepped it
+                    self.graph.replay()
+                    add_launches(self.launches)
+                if out is None:
+                    out = _records(self.recs, T)
+                for o, r in zip(out, self.recs):
+                    o[c0:c0 + CHUNK] = r
         # the last T mod CHUNK frames, eagerly from the static carry
         carry = self.carry
         self.t_base.fill_(t0 + n_full)
-        for t in range(n_full, T):
-            carry, rec = step(carry, *(x[t] for x in xs),
-                              self.t_base + (t - n_full))
-            if out is None:
-                out = _records([r[None] for r in rec], T)
-            for o, r in zip(out, rec):
-                o[t] = r
+        with profile.span("ps.scan.tail"):
+            for t in range(n_full, T):
+                carry, rec = step(carry, *(x[t] for x in xs),
+                                  self.t_base + (t - n_full))
+                if out is None:
+                    out = _records([r[None] for r in rec], T)
+                for o, r in zip(out, rec):
+                    o[t] = r
         return out, carry
 
 

@@ -47,13 +47,12 @@ from __future__ import annotations
 
 import math
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import profile, resolve_device
 from ..lm.ngram import NgramModel
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..models.dict2pid import Dict2Pid
@@ -582,39 +581,32 @@ class NgramFlatDecoder:
         `batch_records` (None without `keep_records`); `records` is not
         changed.  A dict passed as `timings` receives the seconds of the
         scoring, the scan and the backtrace (the device synchronized at
-        each boundary), as `NgramFusedDecoder.decode_batch`'s."""
-        t0 = self._sync(timings)
-        costs = self._costs(feats, costs)
-        t1 = self._sync(timings)
+        each boundary), as `NgramFusedDecoder.decode_batch`'s; the stages
+        are its `profile` spans."""
+        dev = self.device
+        with profile.span("ps.scoring", timings, "scoring", dev):
+            costs = self._costs(feats, costs)
         B, T = costs.shape[:2]
-        nf = (n_frames.cpu().numpy() if torch.is_tensor(n_frames)
-              else np.asarray(n_frames)).astype(np.int64)
-        valid = (torch.arange(T, device=self.device)[None, :]
-                 < torch.as_tensor(nf, device=self.device)[:, None])
-        recs = tuple(r.cpu().numpy() for r in self.scan(costs, valid))
-        t2 = self._sync(timings)
-        batch_records = []
-        out = []
-        for b in range(B):
-            per_utt = tuple(r[b] for r in recs)
-            batch_records.append(per_utt)
-            out.append(self._backtrace(per_utt, int(nf[b])))
-        self.batch_records = batch_records if keep_records else None
-        if timings is not None:
-            timings.update(scoring=t1 - t0, scan=t2 - t1,
-                           backtrace=self._sync(timings) - t2)
+        with profile.span("ps.scan", timings, "scan", dev):
+            nf = (n_frames.cpu().numpy() if torch.is_tensor(n_frames)
+                  else np.asarray(n_frames)).astype(np.int64)
+            valid = (torch.arange(T, device=dev)[None, :]
+                     < torch.as_tensor(nf, device=dev)[:, None])
+            recs = tuple(r.cpu().numpy() for r in self.scan(costs, valid))
+        with profile.span("ps.backtrace", timings, "backtrace", dev):
+            batch_records = []
+            out = []
+            for b in range(B):
+                per_utt = tuple(r[b] for r in recs)
+                batch_records.append(per_utt)
+                out.append(self._backtrace(per_utt, int(nf[b])))
+            self.batch_records = batch_records if keep_records else None
         return out
 
     #: the flat search is exact (no top-K shortlist): no guard counts
     guard_violations = 0
     #: the scan's `ChunkGraph` (None before its first scan through it)
     chunk_graph = None
-
-    def _sync(self, timings):
-        """The wall clock, after the device's queued work when timing."""
-        if timings is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
 
     def adapt_records(self, raw, T):
         """Streamed records are already flat records: the first T frames."""

@@ -72,7 +72,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import profile, resolve_device
 from ..convert import column_ranges, scan_tables, split_scan_tables
 from ..models.dict2pid import Dict2Pid
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
@@ -224,7 +224,7 @@ class _ScanGraph:
     def _capture(self, dec, pool, stream):
         def fresh_recs():
             self.recs = tuple(torch.empty_like(r) for r in self.recs)
-        self.graph, self.launches = capture_chunk(
+        self.graph, self.launches, _ = capture_chunk(
             dec.device, lambda: self._chunk(dec), pool, stream, fresh_recs)
 
     def run(self, dec, costs, valid, t_base):
@@ -1633,12 +1633,13 @@ class NgramFusedDecoder:
             self._copy_carry(run.io.carry, carry)
         recs = None
         for c0 in range(0, Tp, CH):
-            rc = run.run(self, costs[:, c0:c0 + CH], valid[:, c0:c0 + CH],
-                         t0 + c0)
-            if recs is None:
-                recs = _records_like([r[:, 0] for r in rc], Tp)
-            for buf, r in zip(recs, rc):
-                buf[:, c0:c0 + CH] = r
+            with profile.span("ps.scan.chunk"):
+                rc = run.run(self, costs[:, c0:c0 + CH],
+                             valid[:, c0:c0 + CH], t0 + c0)
+                if recs is None:
+                    recs = _records_like([r[:, 0] for r in rc], Tp)
+                for buf, r in zip(recs, rc):
+                    buf[:, c0:c0 + CH] = r
         return recs, (self._clone_carry(run.io.carry, B) if keep_carry
                       else None)
 
@@ -1688,7 +1689,9 @@ class NgramFusedDecoder:
         out = torch.full((B, T, 3), -1, dtype=torch.int32, device=dev)
         n = torch.zeros(B, dtype=torch.int32, device=dev)
         done = torch.zeros(B, dtype=torch.bool, device=dev)
+        reads = 0
         for i in range(T):
+            reads += 1
             if bool(done.all()):
                 break
             w, s, nxt, fin = step(t, key)
@@ -1699,6 +1702,7 @@ class NgramFusedDecoder:
             t = torch.where(new_done, t, s - 1)
             key = torch.where(new_done, key, nxt)
             done = new_done
+        profile.count("host_syncs", reads)
         return out, n
 
     def backtrace(self, escore, etf, etgt, eprw, nf):
@@ -1787,9 +1791,9 @@ class NgramFusedDecoder:
         stream (`batch_records` is then None).  `costs` [B, T, n_sen]
         skips the scoring.  A dict passed as `timings` receives the
         seconds of the scoring, scan and backtrace stages (the device is
-        synchronized at each stage boundary).  `graph` as in `scan`."""
-        import time
-
+        synchronized at each stage boundary).  `graph` as in `scan`.
+        The stages are `profile` spans; the batch counts its frames and
+        its blocking reads of results in `profile`'s counters."""
         minimal = not keep_records and min(self.topk, self.W) <= 254
         if not keep_records and not minimal:
             warnings.warn(
@@ -1797,48 +1801,47 @@ class NgramFusedDecoder:
                 f"exceeds the uint8 rank-map limit (254): falling back "
                 f"to full [T, E] records.", RuntimeWarning, stacklevel=2)
         dev = self.device
-
-        def sync():
-            if timings is not None and dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            return time.perf_counter()
-
-        t0 = sync()
-        if costs is None:
-            feats = torch.as_tensor(feats, device=dev)
-            costs = senone_scores(self.scoring(), feats, time_chunk=16)
-        costs = torch.as_tensor(costs, device=dev).to(torch.float32)
-        B, T = costs.shape[:2]
-        nf = (n_frames.cpu().numpy() if torch.is_tensor(n_frames)
-              else np.asarray(n_frames)).astype(np.int64)
-        t1 = sync()
-        valid = (torch.arange(T, device=dev)[None, :]
-                 < torch.as_tensor(nf, device=dev)[:, None])
-        raw = self.scan(costs, valid, minimal=minimal, graph=graph)
-        t2 = sync()
-        if minimal:
-            tables, ns, scs = self.backtrace_min(*raw[:5], nf)
-            viol, m_rec = raw[6], raw[5]
-            self.batch_records = None
-        else:
-            tables, ns, scs = self.backtrace(raw[0], raw[1], raw[2], raw[5],
-                                             nf)
-            viol, m_rec = raw[9], raw[8]
-            self.batch_records = _LazyBatchRecords(self, raw, nf)
-        tables, ns = tables.cpu().numpy(), ns.cpu().numpy()
-        scs, m_rec = scs.cpu().numpy(), m_rec.cpu().numpy()
-        viol = viol.cpu().numpy()
-        t3 = sync()
-        if timings is not None:
-            timings.update(scoring=t1 - t0, scan=t2 - t1, backtrace=t3 - t2)
-        self.hyp_scores = [
-            float(scs[b]) + float(m_rec[b, :max(nf[b] - 1, 0)].sum())
-            for b in range(B)]
-        self.guard_violations_batch = [
-            int(viol[b, :nf[b]].sum()) for b in range(B)]
-        self.guard_violations = int(sum(self.guard_violations_batch))
-        return [self._segs_from_table(tables[b], int(ns[b]))
+        with profile.span("ps.scoring", timings, "scoring", dev):
+            if costs is None:
+                feats = torch.as_tensor(feats, device=dev)
+                costs = senone_scores(self.scoring(), feats, time_chunk=16)
+            costs = torch.as_tensor(costs, device=dev).to(torch.float32)
+            B, T = costs.shape[:2]
+            if torch.is_tensor(n_frames):
+                profile.count("host_syncs")
+                n_frames = n_frames.cpu().numpy()
+            nf = np.asarray(n_frames).astype(np.int64)
+        profile.count("scan.batches")
+        profile.count("scan.lane_frames", B * -(-T // self.CHUNK) * self.CHUNK)
+        profile.count("scan.real_frames", int(nf.sum()))
+        with profile.span("ps.scan", timings, "scan", dev):
+            valid = (torch.arange(T, device=dev)[None, :]
+                     < torch.as_tensor(nf, device=dev)[:, None])
+            raw = self.scan(costs, valid, minimal=minimal, graph=graph)
+        with profile.span("ps.backtrace", timings, "backtrace", dev):
+            if minimal:
+                tables, ns, scs = self.backtrace_min(*raw[:5], nf)
+                viol, m_rec = raw[6], raw[5]
+                self.batch_records = None
+            else:
+                tables, ns, scs = self.backtrace(raw[0], raw[1], raw[2],
+                                                 raw[5], nf)
+                viol, m_rec = raw[9], raw[8]
+                self.batch_records = _LazyBatchRecords(self, raw, nf)
+            with profile.span("ps.backtrace.to_host"):
+                profile.count("host_syncs", 5)
+                tables, ns = tables.cpu().numpy(), ns.cpu().numpy()
+                scs, m_rec = scs.cpu().numpy(), m_rec.cpu().numpy()
+                viol = viol.cpu().numpy()
+        with profile.span("ps.segments"):
+            self.hyp_scores = [
+                float(scs[b]) + float(m_rec[b, :max(nf[b] - 1, 0)].sum())
                 for b in range(B)]
+            self.guard_violations_batch = [
+                int(viol[b, :nf[b]].sum()) for b in range(B)]
+            self.guard_violations = int(sum(self.guard_violations_batch))
+            return [self._segs_from_table(tables[b], int(ns[b]))
+                    for b in range(B)]
 
     def _backtrace(self, recs, T):
         """Host 1-best walk over one utterance's flat records (escore,

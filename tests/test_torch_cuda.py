@@ -992,3 +992,41 @@ def test_flat_graph_equals_eager_cuda(cuda, tmp_path):
     for a, b in zip(cg, ce):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+def test_capture_seconds_and_spans_on_the_card(cuda):
+    """A graph capture adds its seconds to the program's "capture_s"
+    counter (the runner's `capture_s` is that measurement); replays
+    under the profiler record their "ps." spans, whose device-side
+    annotations are user annotations, not device work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from pocketsphinx_tpu_torch import profile
+    from pocketsphinx_tpu_torch.search.base import CHUNK, ChunkGraph
+    T = 2 * CHUNK + 5
+    xs = (torch.arange(T, dtype=torch.float32, device=cuda)[:, None]
+          .repeat(1, 3),)
+
+    def step(carry, x, t):
+        carry = carry * 0.5 + x
+        return carry, (carry,)
+    run = ChunkGraph(cuda, key=None)
+    before = profile.counters().get("capture_s", 0.0)
+    first, _ = run.run(step, torch.zeros(3, device=cuda), xs, T)
+    assert run.graph is not None and run.capture_s > 0
+    assert profile.counters()["capture_s"] - before == pytest.approx(
+        run.capture_s)
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        again, _ = run.run(step, torch.zeros(3, device=cuda), xs, T)
+        torch.cuda.synchronize()
+    assert profile.counters()["capture_s"] - before == pytest.approx(
+        run.capture_s)                    # a replay captures nothing
+    assert torch.equal(first[0], again[0])
+    events = prof.profiler.kineto_results.events()
+    host = [e.name() for e in events if e.device_type() == DeviceType.CPU]
+    assert host.count("ps.scan.chunk") == 2
+    assert host.count("ps.scan.tail") == 1
+    assert all(e.is_user_annotation() for e in events
+               if e.device_type() == DeviceType.CUDA
+               and e.name().startswith("ps."))
