@@ -12,10 +12,13 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
 2. the fan kernel against its plain torch version at the main path's
    shapes (B=8; the fan carry padded to a multiple of 4 columns), ties
    on and off, bit-equal, with the exit plane written into a strided
-   view of a wider buffer and the partial maxima of the new scores
-   (`check_fan`); both timed with CUDA events as device time (calls
-   captured in a CUDA graph and replayed) and as per call through the
-   Python wrapper, and the kernel at each choice of its plane groups;
+   view of a wider buffer and the partial maxima of the new scores, on
+   nonzero offsets `m_prev` (the renormalization the scan defers to the
+   kernels' load: 0, NEG_INF, large negative, positive rows) as the
+   scan's step takes them (`check_fan`); both timed with CUDA events as
+   device time (calls captured in a CUDA graph and replayed) and as per
+   call through the Python wrapper, and the kernel at each choice of its
+   plane groups;
    (b) `check_denoise`: the frontend's noise-removal gains kernel
    (`csrc/denoise.cu`) against its plain version (the frame loop of
    torch ops) at phase 5's batch shape (B=8, T=499, 25 filters) and at a
@@ -24,8 +27,9 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
 3. the grouped chain kernel (one launch per frame over every chain
    bucket) the same way at the 20k-word decoder's bucket list (the
    variant buckets and the CI bucket), against its plain version, ties
-   on and off; then the word-transition kernel (`check_transitions`, one
-   launch per frame over every entry column) on a real frame's top-K
+   on and off, with `m_prev` as in phase 2; then the word-transition
+   kernel (`check_transitions`, one launch per frame over every entry
+   column) on a real frame's top-K
    exits of that decoder (LM mode B), on the same exits with ties
    (`tie_exits`) and with one live exit (`solo_exits`), at its default
    launch shape and at each launch option (columns per thread x splits
@@ -218,11 +222,14 @@ and phase 5's 20k-word decoder, runs this script's `scan_modes` on it
 utterance with full records, the shape of `decode` and the stream, each
 through the graph and stepped eagerly where the tree has the graph),
 times the fan
-kernel at the 20k and 126k shapes (the tree's `check_fan`) and the
+kernel at the 20k and 126k shapes and the chain kernel at the 20k
+decoder's buckets (this script's `check_fan` and `check_chain`, with
+offsets `m_prev` where the tree's kernels take them) and the
 word-transition kernel at the 20k (mode B) and 1.7k (mode rows) shapes,
-builds phase 9's 126k decoder and runs both `scan_modes` and the
-word-transition kernel's timing on it (`check_transitions`), and prints
-one JSON line per tree and one line per width and path.
+builds phase 9's 126k decoder and runs `scan_modes`, the chain kernel's
+timing at its buckets and the word-transition kernel's timing on it
+(`check_transitions`), and prints one JSON line per tree, one line of
+kernel times per tree and one line per width and path.
 Give the trees in turns (A B B A) to see the host's drift.
 """
 
@@ -273,6 +280,22 @@ def fan_inputs(rng, B, NRC, W, LP, ties):
         pcx=rng.integers(0, 1 << 20, (B, W)).astype(np.int32),
         pre=rng.uniform(0, 60, (B, 3, NRC, LP)).astype(np.float32),
         lp=lp, tp=tp)
+
+
+def m_prev_inputs(rng, B, kind):
+    """[B] float32 offsets for the fan and chain kernels' `m_prev` (the
+    renormalization the scan defers to the next frame's load): "zero";
+    "large", negative and in the thousands, as a long utterance's best
+    scores reach; "mixed", the rows in turn 0, NEG_INF (the clamped
+    maximum of a row whose tokens are all dead), a large negative value
+    and a small positive one."""
+    if kind == "zero":
+        return np.zeros(B, np.float32)
+    large = -rng.uniform(1e3, 1e5, B).astype(np.float32)
+    if kind == "large":
+        return large
+    return np.stack([np.float32(0.0), np.float32(NEG_INF), large[0],
+                     np.float32(1.5)])[np.arange(B) % 4]
 
 
 def chain_inputs(rng, B, NST, D, W, RF, NFD, has_var, ties):
@@ -1340,7 +1363,7 @@ def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
         raise AssertionError(f"5-state model has NST={s5.NST}")
     if cuda:
         # at the decode's batch (B=1), and at phase 3's B=8
-        res["chain5"] = {B: check_chain(B, buckets_of(s5), log)
+        res["chain5"] = {B: check_chain(B, buckets_of(s5), log, m_prev=True)
                          for B in (1, 8)}
     for level in range(1, s5.lm.order):      # the best-path LM maps
         s5.lm._level_map(level)
@@ -1567,8 +1590,8 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
     fe = en_us_frontend()
     if cuda:
         res["fan"] = check_fan(batch, dec.n_rcp, dec.n_multi,
-                               dec.senid_fin_d.shape[-1], log)
-        res["chain"] = check_chain(batch, buckets_of(dec), log)
+                               dec.senid_fin_d.shape[-1], log, m_prev=True)
+        res["chain"] = check_chain(batch, buckets_of(dec), log, m_prev=True)
         res["transitions"] = check_transitions(dec, fe, log, batch=batch)
         if profile:
             res["profile"] = profile_scan(dec, fe, log, batch=batch)
@@ -2772,28 +2795,34 @@ def examples_1k7(work, hmm, log=print, dic=None, lmfile=None,
     return res
 
 
-def fan_bytes(B, NRC, W, LP):
+def fan_bytes(B, NRC, W, LP, m_prev=False):
     """Bytes a fan step over W words must move, counted without the
     carry's pads: the S/TF/CX planes read and written, the exit plane,
-    pred/ptf/pcx, the exits, pre, lp, tp and the [B] maximum."""
+    pred/ptf/pcx, the exits, pre, lp, tp and the [B] maximum (and the
+    [B] offsets `m_prev`)."""
     return 4 * (18 * B * NRC * W + B * NRC * W + 6 * B * W
-                + 3 * B * NRC * LP + 13 * W + B)
+                + 3 * B * NRC * LP + 13 * W + B + (B if m_prev else 0))
 
 
-def check_fan(B, NRC, W, LP, log):
+def check_fan(B, NRC, W, LP, log, m_prev=False):
     """The fan kernel against its plain version on `fan_inputs`, ties off
     and on: every output bit-equal, the exit plane written into columns
     [0, W) of a [B, NRC, W + 13] buffer (the 20k scan's exit planes have
     13 more columns) whose other columns keep their values, and the max
     of the kernel's partial maxima equal to the plain version's; then
     both timed, and the kernel's device time at each choice of its plane
-    groups (`fan.GROUPS`; the wrapper's choice is `groups`)."""
+    groups (`fan.GROUPS`; the wrapper's choice is `groups`).  With
+    `m_prev`, every call takes "mixed" `m_prev_inputs` offsets, as the
+    scan's fan step does."""
     import torch
     from pocketsphinx_tpu_torch.ops import fan
     rng = np.random.default_rng(0)
     err = 0.0
     for ties in (False, True):
-        dev = to_device(fan_inputs(rng, B, NRC, W, LP, ties), "cuda")
+        a = fan_inputs(rng, B, NRC, W, LP, ties)
+        if m_prev:
+            a["m_prev"] = m_prev_inputs(rng, B, "mixed")
+        dev = to_device(a, "cuda")
         bufs = [torch.full((B, NRC, W + 13), 7.0, device="cuda")
                 for _ in range(2)]
         outs = fan.fan_step(**dev, out_f=bufs[0][:, :, :W])
@@ -2811,8 +2840,9 @@ def check_fan(B, NRC, W, LP, log):
                  for g in fan.GROUPS}
     groups = fan._groups(B, dev["S"].shape[-1], LP, torch.cuda.
                          get_device_properties(0).multi_processor_count)
-    bms, by = bound_ms(fan_bytes(B, NRC, W, LP), 18 * B * NRC * W)
-    log(f"fan B={B} NRC={NRC} W={W} LP={LP}: bit-equal (exit plane into a "
+    bms, by = bound_ms(fan_bytes(B, NRC, W, LP, m_prev), 18 * B * NRC * W)
+    log(f"fan B={B} NRC={NRC} W={W} LP={LP}"
+        f"{' with m_prev' if m_prev else ''}: bit-equal (exit plane into a "
         f"strided view, partial maxima); device time: kernel {ms:.4f} ms "
         f"({groups} plane groups; by groups "
         f"{ {g: round(t, 4) for g, t in by_groups.items()} }), plain "
@@ -2823,10 +2853,11 @@ def check_fan(B, NRC, W, LP, log):
                 groups=groups, ms_by_groups=by_groups)
 
 
-def check_chain(B, buckets, log):
+def check_chain(B, buckets, log, m_prev=False):
     """The grouped chain step over one frame's buckets, (NST, D, W, RF,
     NFD, has_var) each in layout order: bit-equal to its plain version
-    with ties off and on, then timed."""
+    with ties off and on, then timed; with `m_prev`, on "mixed"
+    `m_prev_inputs` offsets, as the scan's chain step."""
     import torch
     from pocketsphinx_tpu_torch.ops import chain
     rng = np.random.default_rng(1)
@@ -2834,6 +2865,9 @@ def check_chain(B, buckets, log):
     for ties in (False, True):
         per = [chain_inputs(rng, B, *bk, ties) for bk in buckets]
         grp, args = chain_group_args(per, "cuda")
+        if m_prev:
+            args["m_prev"] = torch.as_tensor(
+                m_prev_inputs(rng, B, "mixed"), device="cuda")
         outs = chain.chain_group_step(grp, **args)
         torch.cuda.synchronize()
         refs = chain.chain_group_ref(grp, **args)
@@ -2845,12 +2879,13 @@ def check_chain(B, buckets, log):
         tot_bytes += nbytes(p, []) + 4 * B * (3 * NST * D * W + NST * W
                                               + 3 * W)
         tot_ops += 12 * B * NST * D * W
-    bms, by = bound_ms(tot_bytes, tot_ops)
+    bms, by = bound_ms(tot_bytes + (4 * B if m_prev else 0), tot_ops)
     ms, plain, wms, wplain = timings(
         lambda: chain.chain_group_step(grp, **args),
         lambda: chain.chain_group_ref(grp, **args))
-    log(f"chain B={B}, {len(buckets)} buckets {[b[1:3] for b in buckets]} "
-        f"in one launch ({grp.n_blocks} blocks): bit-equal; device time: "
+    log(f"chain B={B}, {len(buckets)} buckets {[b[1:3] for b in buckets]}"
+        f"{' with m_prev' if m_prev else ''} in one launch "
+        f"({grp.n_blocks} blocks): bit-equal; device time: "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms; through Python: kernel "
         f"{wms:.4f} ms, plain {wplain:.4f} ms; bound {bms:.4f} ms ({by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -3156,11 +3191,20 @@ with tempfile.TemporaryDirectory() as w:
 out["scan_20k"] = ab.scan_modes(dec, fe, quiet)
 # B=1 with full records: the shape of `decode` and the stream
 out["scan_20k_b1"] = ab.scan_modes(dec, fe, quiet, batch=1, minimal=False)
-# the fan kernel at the 20k and 126k shapes (device ms, through Python)
+# the fan kernel at the 20k and 126k shapes and the chain kernel at the
+# 20k buckets (device ms, through Python), with the renormalization's
+# offsets where this tree's kernels take them; measured by the calling
+# script's checks, so that both trees are measured alike
+import inspect
+from pocketsphinx_tpu_torch.ops import fan
+mp = "m_prev" in inspect.signature(fan.fan_step).parameters
+out["m_prev"] = mp
 for key, W in (("fan_20k", dec.n_multi), ("fan_126k", 125973)):
-    r = chip_smoke.check_fan(8, dec.n_rcp, W, dec.senid_fin_d.shape[-1],
-                             quiet)
+    r = ab.check_fan(8, dec.n_rcp, W, dec.senid_fin_d.shape[-1], quiet,
+                     m_prev=mp)
     out[key] = [r["ms"], r["wrapper_ms"]]
+r = ab.check_chain(8, ab.buckets_of(dec), quiet, m_prev=mp)
+out["chain_20k"] = [r["ms"], r["wrapper_ms"]]
 # the word-transition kernel at the 20k, 1.7k and 126k shapes (device ms,
 # through Python; by launch option where the tree has them)
 def tr_times(key, d, f):
@@ -3179,6 +3223,8 @@ del d
 torch.cuda.empty_cache()
 with tempfile.TemporaryDirectory() as w:
     d = chip_smoke.reference_decoder(w, "cuda")[0]
+r = ab.check_chain(8, ab.buckets_of(d), quiet, m_prev=mp)
+out["chain_126k"] = [r["ms"], r["wrapper_ms"]]
 out["scan_126k"] = ab.scan_modes(d, chip_smoke.en_us_frontend(), quiet)
 out["scan_126k_b1"] = ab.scan_modes(d, chip_smoke.en_us_frontend(), quiet,
                                     batch=1, minimal=False)
@@ -3194,8 +3240,10 @@ def ab(trees, log):
     records: wall ms per frame, device ms per frame, busy share, device and host launches per frame, peak
     memory, through the graph and stepped eagerly, or the tree's one
     path); the fan kernel's device and through-Python ms at the 20k and
-    126k shapes (its own `check_fan`) and the word-transition kernel's at
-    the 20k, 1.7k and 126k shapes (`check_transitions`)."""
+    126k shapes and the chain kernel's at the 20k and 126k buckets (this
+    script's `check_fan` and `check_chain`, with `m_prev` where the tree
+    takes it) and the word-transition kernel's at the 20k, 1.7k and 126k
+    shapes (`check_transitions`)."""
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
@@ -3208,6 +3256,11 @@ def ab(trees, log):
             return r.returncode
         res = json.loads(r.stdout.strip().splitlines()[-1])
         log(json.dumps(dict(tree=tree, **res)))
+        log(f"{tree} kernels (device ms, through Python ms; m_prev "
+            f"{res.get('m_prev', False)}): "
+            + ", ".join(f"{k} {res[k][0]:.4f} / {res[k][1]:.4f}"
+                        for k in ("fan_20k", "fan_126k", "chain_20k",
+                                  "chain_126k") if k in res))
         for width in ("20k", "20k_b1", "126k", "126k_b1"):
             for mode, m in res.get(f"scan_{width}", {}).items():
                 log(f"{tree} {width} {mode}: wall "
@@ -3269,11 +3322,11 @@ def main(argv):
         raise AssertionError(f"20k LM mode {dec.lm_mode} != sparse")
     B = 8
     fan_res = check_fan(B, dec.n_rcp, dec.n_multi,
-                        dec.senid_fin_d.shape[-1], log)
+                        dec.senid_fin_d.shape[-1], log, m_prev=True)
     t0 = time.perf_counter()
     den_res = check_denoise(log)
     log(f"phase 2(b) ({time.perf_counter() - t0:.1f} s) on {smi}")
-    chain_res = check_chain(B, buckets_of(dec), log)
+    chain_res = check_chain(B, buckets_of(dec), log, m_prev=True)
     tr_res = check_transitions(dec, fe, log, batch=B)
     with tempfile.TemporaryDirectory() as work:
         ph_res = check_phones(work, log)

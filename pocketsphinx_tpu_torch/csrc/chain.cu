@@ -10,6 +10,9 @@
 // CI/filler chains (without) together.
 //
 // For every bucket k of depth D and width W, batch element b and word w:
+//   * the carry's scores less mprev[b], the previous frame's
+//     renormalization, which the scan defers to this load (zeros for
+//     none);
 //   * senone goodness -pre[b, j, d, w]; on the word's first node (fm)
 //     of a variant bucket the per-variant cost -prevd[b, j, v, fd_idx[w]]
 //     with v = min(VAR[b, j, w], nv[w] - 1) (mpx first phones);
@@ -50,7 +53,9 @@
 //     shift out[d-1] is a register carry; a node's carry, costs and 12
 //     transition words are loaded together before its arithmetic, so each
 //     thread keeps many loads in flight; neighbouring threads read and
-//     write neighbouring words (coalesced), each element once.
+//     write neighbouring words (coalesced), each element once;
+//   * no pass over the carry between frames: the renormalization's
+//     subtraction is one add per score as the node is loaded.
 //
 // Exactness: only adds, negations, compares and selects, in the order of
 // the reference; built with --fmad=false.
@@ -85,8 +90,9 @@ __device__ __forceinline__ void bucket_steps(
     const int32_t* __restrict__ row, int B, int b0, int by, int w,
     const float* __restrict__ S, const int32_t* __restrict__ TF,
     const int32_t* __restrict__ CX, const int32_t* __restrict__ VAR,
-    const float* __restrict__ g, long long gld,
-    const float* __restrict__ tp, const uint8_t* __restrict__ fm, const int32_t* __restrict__ nv_all,
+    const float* __restrict__ mprev, const float* __restrict__ g,
+    long long gld, const float* __restrict__ tp,
+    const uint8_t* __restrict__ fm, const int32_t* __restrict__ nv_all,
     const int32_t* __restrict__ fdi_all, float pip,
     float* __restrict__ nS, int32_t* __restrict__ nTF,
     int32_t* __restrict__ nCX, int32_t* __restrict__ nVAR,
@@ -111,6 +117,9 @@ __device__ __forceinline__ void bucket_steps(
     const float* prevd = g + (size_t)b * gld + __ldg(row + C_PREVD);
     const size_t vbase =
         (size_t)B * __ldg(row + C_VOFF) + (size_t)b * NST * W + w;
+    // read unconditionally: a test of the pointer here cost the
+    // compiler's schedule a third of its registers and 11% (PERF.md)
+    const float mp = mprev[b];
     int32_t var[NST], var_sum[NST];
     for (int j = 0; j < NST; ++j) {
       var[j] = HAS_VAR ? VAR[vbase + j * W] : 0;
@@ -120,7 +129,7 @@ __device__ __forceinline__ void bucket_steps(
     auto load = [&](Node<NST>& n, int d) {
       const size_t off = base + (size_t)d * W;
       for (int j = 0; j < NST; ++j) {
-        n.s[j] = S[off + j * DW];
+        n.s[j] = S[off + j * DW] - mp;
         n.pre[j] = pre[(size_t)j * DW + (size_t)d * W];
         n.tf[j] = TF[off + j * DW];
         n.cx[j] = CX[off + j * DW];
@@ -225,6 +234,7 @@ chain_group_kernel(const int32_t* __restrict__ tab, int nb, int B,
                    const int32_t* __restrict__ TF,
                    const int32_t* __restrict__ CX,
                    const int32_t* __restrict__ VAR,
+                   const float* __restrict__ mprev,
                    const float* __restrict__ g, long long gld,
                    const float* __restrict__ tp_all,
                    const uint8_t* __restrict__ fm_all,
@@ -245,8 +255,8 @@ chain_group_kernel(const int32_t* __restrict__ tab, int nb, int B,
   const float* tp = tp_all + __ldg(row + C_TP);      // [NK, D, W]
   const uint8_t* fm = fm_all + __ldg(row + C_FM);    // [D, W]
 
-#define BUCKET_ARGS row, B, threadIdx.y, blockDim.y, w, S, TF, CX, VAR, g, \
-    gld, tp, fm, nv_all, fdi_all, pip, nS, nTF, nCX, nVAR
+#define BUCKET_ARGS row, B, threadIdx.y, blockDim.y, w, S, TF, CX, VAR, \
+    mprev, g, gld, tp, fm, nv_all, fdi_all, pip, nS, nTF, nCX, nVAR
   if (__ldg(row + C_VAR))
     bucket_steps<NST, true>(BUCKET_ARGS, x0, ld0);
   else
@@ -257,33 +267,35 @@ chain_group_kernel(const int32_t* __restrict__ tab, int nb, int B,
 template <int NST>
 int launch(const int32_t* tab, int nb, int nblk, int B,
            const float* S, const int32_t* TF, const int32_t* CX,
-           const int32_t* VAR, const float* g, long long gld,
-           const float* tp, const uint8_t* fm, const int32_t* nv,
-           const int32_t* fdi, float pip, float* nS, int32_t* nTF,
-           int32_t* nCX, int32_t* nVAR, int32_t* x0, int ld0, int32_t* x1,
-           int ld1, cudaStream_t stream) {
+           const int32_t* VAR, const float* mprev, const float* g,
+           long long gld, const float* tp, const uint8_t* fm,
+           const int32_t* nv, const int32_t* fdi, float pip, float* nS,
+           int32_t* nTF, int32_t* nCX, int32_t* nVAR, int32_t* x0, int ld0,
+           int32_t* x1, int ld1, cudaStream_t stream) {
   const dim3 block(WT, B < BY ? B : BY);
   chain_group_kernel<NST><<<nblk, block, 0, stream>>>(
-      tab, nb, B, S, TF, CX, VAR, g, gld, tp, fm, nv, fdi, pip, nS, nTF,
-      nCX, nVAR, x0, ld0, x1, ld1);
+      tab, nb, B, S, TF, CX, VAR, mprev, g, gld, tp, fm, nv, fdi, pip, nS,
+      nTF, nCX, nVAR, x0, ld0, x1, ld1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One launch over the nb buckets of `tab` (nblk blocks in all).  Returns
+// One launch over the nb buckets of `tab` (nblk blocks in all); mprev:
+// [B] offsets to subtract from S as it is loaded (zeros for none).  Returns
 // cudaGetLastError() after the launch; cudaErrorInvalidValue for an NST the
 // kernel is not instantiated for.
 extern "C" int chain_group_launch(
     const void* tab, int nb, int nblk, int NST, int B, const void* S,
-    const void* TF, const void* CX, const void* VAR,
+    const void* TF, const void* CX, const void* VAR, const void* mprev,
     const void* g, long long gld, const void* tp, const void* fm,
     const void* nv, const void* fdi, float pip, void* nS, void* nTF,
     void* nCX, void* nVAR, void* x0, int ld0, void* x1, int ld1,
     void* stream) {
 #define CHAIN_ARGS (const int32_t*)tab, nb, nblk, B, (const float*)S,        \
     (const int32_t*)TF, (const int32_t*)CX, (const int32_t*)VAR,             \
-    (const float*)g, gld, (const float*)tp, (const uint8_t*)fm,              \
+    (const float*)mprev, (const float*)g, gld, (const float*)tp,             \
+    (const uint8_t*)fm,                                                      \
     (const int32_t*)nv, (const int32_t*)fdi, pip, (float*)nS,                \
     (int32_t*)nTF, (int32_t*)nCX, (int32_t*)nVAR, (int32_t*)x0, ld0,         \
     (int32_t*)x1, ld1, (cudaStream_t)stream

@@ -7,7 +7,9 @@
 // For every batch element b and multi-phone word w < Wm, over every
 // right-context plane rc:
 //   sen_j   = -pre[b, j, rc, lp[w]]           (per-final-diphone costs)
-//   s_j     = S[b, j, rc, w] + sen_j          (emission on the source)
+//   s_j     = (S[b, j, rc, w] - mprev[b]) + sen_j
+//             (the previous frame's renormalization, deferred by the scan
+//             to this load, then the emission on the source)
 //   exit    = max(s1 + tp[1->3], s2 + tp[2->3]) with ties to state 1
 //   state 2 = best of from(1) > self > skip(0); state 1 = from(0) > self;
 //   state 0 = self loop, then the chain-last entry pred[b, w] merged in
@@ -49,7 +51,9 @@
 //     256 threads per SM); capped at 128 for two blocks per SM it spilled
 //     and ran slower;
 //   * no passes around the kernel: the exit plane is written into the
-//     scan's exit buffer and the renormalization's max is reduced here.
+//     scan's exit buffer, the renormalization's max is reduced here, and
+//     its subtraction is applied here on the next frame's load (mprev),
+//     one add per loaded score instead of a pass over the carry.
 //
 // Exactness: only adds, negations, compares and selects, in the order of
 // the reference; built with --fmad=false.  Max is exact in any order.
@@ -94,7 +98,8 @@ __device__ __forceinline__ void unpack(const int4 v, int32_t* x) {
 template <int G>
 __global__ void __launch_bounds__(TPB)
 fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
-           const int32_t* __restrict__ CX, const float* __restrict__ pred,
+           const int32_t* __restrict__ CX, const float* __restrict__ mprev,
+           const float* __restrict__ pred,
            const int32_t* __restrict__ ptf, const int32_t* __restrict__ pcx,
            const float* __restrict__ pre, const int32_t* __restrict__ lp,
            const float* __restrict__ tp, float* __restrict__ nS,
@@ -111,6 +116,7 @@ fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
 
   const int tx = threadIdx.x % TW, g = threadIdx.x / TW;
   const int b = blockIdx.y;
+  const float mp = mprev[b];
   const int w0 = blockIdx.x * WB + 4 * tx;     // this thread's 4 words
   const bool live = w0 < Wp;
   const int r0 = g * NRC / G, r1 = (g + 1) * NRC / G;   // group's planes
@@ -186,6 +192,12 @@ fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
       float S0[4], S1[4], S2[4];
       int32_t m0tf[4], m1tf[4], m2tf[4], m0cx[4], m1cx[4], m2cx[4];
       unpack(s4[0], S0); unpack(s4[1], S1); unpack(s4[2], S2);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {       // the deferred renormalization
+        S0[k] = S0[k] - mp;
+        S1[k] = S1[k] - mp;
+        S2[k] = S2[k] - mp;
+      }
       unpack(f4[0], m0tf); unpack(f4[1], m1tf); unpack(f4[2], m2tf);
       unpack(c4[0], m0cx); unpack(c4[1], m1cx); unpack(c4[2], m2cx);
       float o0[4], o1[4], o2[4];
@@ -334,9 +346,10 @@ size_t smem_bytes(int G, int LP) {
 }
 
 template <int G>
-int launch(const void* S, const void* TF, const void* CX, const void* pred,
-           const void* ptf, const void* pcx, const void* pre, const void* lp,
-           const void* tp, void* nS, void* nTF, void* nCX, void* outf,
+int launch(const void* S, const void* TF, const void* CX, const void* mprev,
+           const void* pred, const void* ptf, const void* pcx,
+           const void* pre, const void* lp, const void* tp, void* nS,
+           void* nTF, void* nCX, void* outf,
            long long ob, long long orc, void* esc, void* etf, void* ecx,
            void* mx, int B, int NRC, int Wm, int Wp, int LP,
            cudaStream_t stream) {
@@ -361,8 +374,9 @@ int launch(const void* S, const void* TF, const void* CX, const void* pred,
   dim3 grid((Wp + WB - 1) / WB, B);
   fan_kernel<G><<<grid, TPB, smem_bytes(G, LP), stream>>>(
       (const float*)S, (const int32_t*)TF, (const int32_t*)CX,
-      (const float*)pred, (const int32_t*)ptf, (const int32_t*)pcx,
-      (const float*)pre, (const int32_t*)lp, (const float*)tp, (float*)nS,
+      (const float*)mprev, (const float*)pred, (const int32_t*)ptf,
+      (const int32_t*)pcx, (const float*)pre, (const int32_t*)lp,
+      (const float*)tp, (float*)nS,
       (int32_t*)nTF, (int32_t*)nCX, (float*)outf, ob, orc, (float*)esc,
       (int32_t*)etf, (int32_t*)ecx, (float*)mx, NRC, Wm, Wp, LP);
   return (int)cudaGetLastError();
@@ -372,18 +386,21 @@ int launch(const void* S, const void* TF, const void* CX, const void* pred,
 
 // One fan step on `stream`.  `groups` (1, 2 or 4) splits the planes
 // of a block; mx receives [B, ceil(Wp / (1024 / groups))] partial maxima.
+// mprev: [B] offsets to subtract from S as it is loaded (zeros for none).
 extern "C" int fan_step_launch(const void* S, const void* TF, const void* CX,
-                               const void* pred, const void* ptf,
-                               const void* pcx, const void* pre,
-                               const void* lp, const void* tp, void* nS,
+                               const void* mprev, const void* pred,
+                               const void* ptf, const void* pcx,
+                               const void* pre, const void* lp,
+                               const void* tp, void* nS,
                                void* nTF, void* nCX, void* outf, void* esc,
                                void* etf, void* ecx, void* mx, long long ob,
                                long long orc, int B, int NRC, int Wm, int Wp,
                                int LP, int groups, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
 #define FAN_LAUNCH(G)                                                       \
-  return launch<G>(S, TF, CX, pred, ptf, pcx, pre, lp, tp, nS, nTF, nCX,    \
-                   outf, ob, orc, esc, etf, ecx, mx, B, NRC, Wm, Wp, LP, st)
+  return launch<G>(S, TF, CX, mprev, pred, ptf, pcx, pre, lp, tp, nS, nTF, \
+                   nCX, outf, ob, orc, esc, etf, ecx, mx, B, NRC, Wm, Wp,  \
+                   LP, st)
   switch (groups) {
     case 1: FAN_LAUNCH(1);
     case 2: FAN_LAUNCH(2);

@@ -25,6 +25,9 @@ kernel reads and the flat unbatched tables.  `chain_group_step` launches
 `csrc/chain.cu` once for CUDA tensors and runs `chain_group_ref`
 (`chain_step_ref` over each bucket's views) only for CPU tensors.  `tp`,
 `fm`, `nv` and `fd_idx` are shared by the batch and must be unbatched.
+The grouped step takes `m_prev` [B], the previous frame's
+renormalization that the scan defers to this load: every score of the
+carry less `m_prev[b]` before the step (optional; none by default).
 """
 
 from __future__ import annotations
@@ -257,13 +260,15 @@ class ChainGroup:
             VAR=torch.zeros(B * self.n_var, dtype=torch.int32, device=dev))
 
 
-def chain_group_ref(grp, S, TF, CTX, VAR, g, pip):
+def chain_group_ref(grp, S, TF, CTX, VAR, g, pip, m_prev=None):
     """Plain torch version of the grouped chain step: `chain_step_ref`
-    over each bucket's views.  Same arguments and results as
-    `chain_group_step`."""
+    over each bucket's views (less `m_prev`, when given).  Same arguments
+    and results as `chain_group_step`."""
     B, N = g.shape[0], grp.NST
     dev = g.device
     sv, tfv, cxv = grp.planes(S, B), grp.planes(TF, B), grp.planes(CTX, B)
+    if m_prev is not None:
+        sv = [s - m_prev[:, None, None, None] for s in sv]
     varv = iter(grp.var_planes(VAR, B))
     flat = ([], [], [], [])
     exits = ([[], [], []], [[], [], []])
@@ -298,7 +303,7 @@ def chain_group_ref(grp, S, TF, CTX, VAR, g, pip):
               for x, dt in zip(grp_x, (f32, i32, i32))))
 
 
-def _check_group(grp, S, TF, CTX, VAR, g):
+def _check_group(grp, S, TF, CTX, VAR, g, m_prev):
     if g.dim() != 2:
         raise ValueError(f"g must be [B, g_width], got {tuple(g.shape)}")
     B = g.shape[0]
@@ -307,6 +312,8 @@ def _check_group(grp, S, TF, CTX, VAR, g):
             "CTX": (CTX, torch.int32, (B * grp.n_carry,)),
             "VAR": (VAR, torch.int32, (B * grp.n_var,)),
             "g": (g, torch.float32, (B, grp.g_width))}
+    if m_prev is not None:
+        want["m_prev"] = (m_prev, torch.float32, (B,))
     dev = grp.tab.device
     for name, (x, dt, shape) in want.items():
         if tuple(x.shape) != shape:
@@ -320,23 +327,25 @@ def _check_group(grp, S, TF, CTX, VAR, g):
             raise ValueError(f"{name}: not contiguous")
 
 
-def chain_group_step(grp, S, TF, CTX, VAR, g, pip):
+def chain_group_step(grp, S, TF, CTX, VAR, g, pip, m_prev=None):
     """The chain step of every bucket of `grp` (a `ChainGroup`) on the
     tensors' device: one launch of the CUDA kernel for CUDA tensors,
     `chain_group_ref` for CPU tensors.
 
     S/TF/CTX [B * grp.n_carry] f32/i32/i32 flat carry; VAR
     [B * grp.n_var] i32 (None when the group has no variant bucket);
-    g [B, grp.g_width] f32 this frame's pre and prevd costs; pip float.
+    g [B, grp.g_width] f32 this frame's pre and prevd costs; pip float;
+    m_prev: None, or [B] f32 offsets subtracted from S before the step
+    (the kernel subtracts each as it loads the score).
     Returns (newS, newTF, newCTX, newVAR flat,
              exit score, TF, CTX [B, n_exit[0]] of the variant buckets,
              exit score, TF, CTX [B, n_exit[1]] of the others)."""
     global launches
     if VAR is None:
         VAR = torch.zeros(0, dtype=torch.int32, device=S.device)
-    _check_group(grp, S, TF, CTX, VAR, g)
+    _check_group(grp, S, TF, CTX, VAR, g, m_prev)
     if S.device.type == "cpu":
-        return chain_group_ref(grp, S, TF, CTX, VAR, g, pip)
+        return chain_group_ref(grp, S, TF, CTX, VAR, g, pip, m_prev)
     if S.device.type != "cuda":
         raise ValueError(f"chain_group_step: unsupported device {S.device}")
     lib = _lib()
@@ -349,13 +358,16 @@ def chain_group_step(grp, S, TF, CTX, VAR, g, pip):
     # score bits, TF and CTX of a group's exits in one int32 buffer
     x0 = torch.empty((3, B, n0), dtype=torch.int32, device=dev)
     x1 = torch.empty((3, B, n1), dtype=torch.int32, device=dev)
+    if m_prev is None:                       # the kernel always reads [B]
+        m_prev = torch.zeros(B, dtype=torch.float32, device=dev)
     if B and grp.n_blocks:
         # the launch goes to the current device: make it the tensors'
         with torch.cuda.device(dev):
             err = lib.chain_group_launch(
                 grp.tab.data_ptr(), grp.n_buckets, grp.n_blocks, grp.NST, B,
                 S.data_ptr(), TF.data_ptr(), CTX.data_ptr(), VAR.data_ptr(),
-                g.data_ptr(), g.stride(0), grp.tp.data_ptr(),
+                m_prev.data_ptr(), g.data_ptr(), g.stride(0),
+                grp.tp.data_ptr(),
                 grp.fm.data_ptr(), grp.nv.data_ptr(), grp.fd_idx.data_ptr(),
                 float(pip), nS.data_ptr(), nTF.data_ptr(), nCX.data_ptr(),
                 nVAR.data_ptr(), x0.data_ptr(), n0, x1.data_ptr(), n1,
@@ -375,7 +387,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.chain_group_launch.argtypes = (
-            [p] + [i] * 4 + [p] * 5 + [ctypes.c_longlong] + [p] * 4
+            [p] + [i] * 4 + [p] * 6 + [ctypes.c_longlong] + [p] * 4
             + [ctypes.c_float] + [p] * 4 + [p, i, p, i, p])
         lib.chain_group_launch.restype = ctypes.c_int
         lib.chain_error_string.argtypes = [ctypes.c_int]

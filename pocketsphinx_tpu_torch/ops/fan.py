@@ -4,6 +4,9 @@ Port of `pocketsphinx_tpu.ops.pallas_fan` (the Pallas `_kernel` reached
 through `fan_step`).  One step of the fused n-gram scan's finals block,
 batched over B utterances:
 
+  * subtract `m_prev [B]`, the previous frame's renormalization that the
+    scan defers to this load, from every score of the carry it reads
+    (optional; none by default);
   * expand the per-final-diphone senone costs `pre [B, 3, NRC, LP]` to
     words by `lp[w]`;
   * run the 3-state Viterbi update with TF/CX token metadata under the
@@ -64,18 +67,22 @@ def padded_width(w: int) -> int:
     return -(-w // PAD) * PAD
 
 
-def fan_step_ref(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None):
+def fan_step_ref(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
+                 m_prev=None):
     """Plain torch version of the fan step (see module docstring).
 
     S/TF/CX [B, 3, NRC, Wp] f32/i32/i32; pred/ptf/pcx [B, Wm];
     pre [B, 3, NRC, LP] f32; lp [Wp] int; tp [12, Wp] f32 rows j*4+k;
     out_f: None, or a [B, NRC, Wm] float32 view to write the exit plane
-    into (any strides).
+    into (any strides); m_prev: None, or [B] f32 offsets subtracted from
+    S before the step (S - m_prev, then the step without it).
     Returns (newS, newTF, newCX [B, 3, NRC, Wp], out_f [B, NRC, Wm],
              esc, etf, ecx [B, Wm], mx [B, 1]): mx's max over its
     columns is the max of newS over the real words."""
     Wm = pred.shape[-1]
     Wp = S.shape[-1]
+    if m_prev is not None:
+        S = S - m_prev[:, None, None, None]
     S, TF, CX = S[..., :Wm], TF[..., :Wm], CX[..., :Wm]
     sen = -pre[..., lp[:Wm].long()]                  # [B, 3, NRC, Wm]
     s0, s1, s2 = (S[:, j] + sen[:, j] for j in range(3))
@@ -130,7 +137,7 @@ def fan_step_ref(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None):
     return nS, nTF, nCX, out_f, esc, etf, ecx, mx
 
 
-def _check(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f):
+def _check(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f, m_prev):
     if S.dim() != 4 or S.shape[1] != 3 or S.shape[2] < 1:
         raise ValueError(f"S must be [B, 3, NRC, Wp], got {tuple(S.shape)}")
     if pred.dim() != 2:
@@ -154,6 +161,8 @@ def _check(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f):
     want["pre"] = (pre, torch.float32, tuple(pre.shape))
     if out_f is not None:
         want["out_f"] = (out_f, torch.float32, (B, NRC, Wm))
+    if m_prev is not None:
+        want["m_prev"] = (m_prev, torch.float32, (B,))
     for name, (x, dt, shape) in want.items():
         if tuple(x.shape) != shape:
             # lp/tp are shared by the batch: a batched lp/tp is refused
@@ -185,18 +194,20 @@ def _groups(B, Wp, LP, n_sm):
 
 
 def fan_step(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
-             groups=None):
+             groups=None, m_prev=None):
     """Fan step on the tensors' device: the CUDA kernel for CUDA
     tensors, `fan_step_ref` for CPU tensors.  Same arguments and results
-    as `fan_step_ref`, except that on CUDA mx holds one partial maximum
+    as `fan_step_ref` (the kernel subtracts `m_prev` from each score as
+    it loads it), except that on CUDA mx holds one partial maximum
     per block of the kernel, and `groups` (one of `GROUPS`; default:
     chosen from the shapes) sets the kernel's plane groups per block."""
     global launches
-    _check(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f)
+    _check(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f, m_prev)
     if groups is not None and groups not in GROUPS:
         raise ValueError(f"fan_step: groups {groups} not in {GROUPS}")
     if S.device.type == "cpu":
-        return fan_step_ref(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f)
+        return fan_step_ref(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f,
+                            m_prev)
     if S.device.type != "cuda":
         raise ValueError(f"fan_step: unsupported device {S.device}")
     B, _, NRC, Wp = S.shape
@@ -216,6 +227,8 @@ def fan_step(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
     nCX = torch.empty_like(CX)
     if out_f is None:
         out_f = torch.empty((B, NRC, Wm), dtype=torch.float32, device=dev)
+    if m_prev is None:                       # the kernel always reads [B]
+        m_prev = torch.zeros(B, dtype=torch.float32, device=dev)
     esc = torch.empty((B, Wm), dtype=torch.float32, device=dev)
     etf = torch.empty((B, Wm), dtype=torch.int32, device=dev)
     ecx = torch.empty((B, Wm), dtype=torch.int32, device=dev)
@@ -225,9 +238,10 @@ def fan_step(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             err = lib.fan_step_launch(
-                *(x.data_ptr() for x in (S, TF, CX, pred, ptf, pcx, pre, lp,
-                                         tp, nS, nTF, nCX, out_f, esc, etf,
-                                         ecx, mx)),
+                S.data_ptr(), TF.data_ptr(), CX.data_ptr(), m_prev.data_ptr(),
+                *(x.data_ptr() for x in (pred, ptf, pcx, pre, lp, tp, nS,
+                                         nTF, nCX, out_f, esc, etf, ecx,
+                                         mx)),
                 out_f.stride(0), out_f.stride(1), B, NRC, Wm, Wp, LP,
                 groups, stream)
         if err:
@@ -242,7 +256,7 @@ def _lib():
     lib = _build.load("fan")
     if not getattr(lib, "_typed", False):
         lib.fan_step_launch.argtypes = (
-            [ctypes.c_void_p] * 17 + [ctypes.c_longlong] * 2
+            [ctypes.c_void_p] * 18 + [ctypes.c_longlong] * 2
             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.fan_step_launch.restype = ctypes.c_int
         lib.fan_error_string.argtypes = [ctypes.c_int]

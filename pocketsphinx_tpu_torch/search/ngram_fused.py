@@ -38,6 +38,21 @@ descending sort (ties to the lower index, like top_k); argmax is
 first-max.  Given the same cost matrix the records are bit-equal to the
 JAX package's (tests/test_torch_ngram_fused.py).
 
+The renormalization (each frame's best score `m`, subtracted from every
+score of the carry) is deferred for the carries the kernels read: the
+chain carry, and the fan carry where the fan kernel steps it.  The step
+leaves `m` pending in the carry (`carry["m_prev"]` [B]) and the next
+frame's chain and fan kernels subtract it from each score as they load
+it: the same float32 subtraction before the same additions, so every
+score is bit-equal to subtracting it in a pass over the carry, which
+the step then no longer makes.  The single-phone columns, and the fan
+carry of other topologies, still take the subtraction in the step.  A
+carry that leaves the scan (`with_carry`) has its pending offset
+subtracted, one pass per call, so callers see the carry as the JAX
+scan keeps it.  Counters: "scan.renorm_folded" (frames whose chain and
+fan carries took the offset in the kernels' load) and
+"scan.renorm_passes" (those folds at a carry's exit).
+
 The scan runs in chunks of CHUNK frames, each with its senone
 pre-gather (`_steps`).  On a CUDA decoder one chunk is captured once per
 (B, records, mask) as a CUDA graph over static buffers and replayed for
@@ -1150,6 +1165,8 @@ class NgramFusedDecoder:
         Wf = padded_width(self.n_multi) if NST == 3 else self.n_multi
         c["fin"] = planes(n_rc, Wf) if self.n_multi else None
         c["sp"] = planes(n_rc, self.SP) if self.SP else None
+        # the renormalization not yet subtracted from the chain and fan S
+        c["m_prev"] = torch.zeros(B, dtype=torch.float32, device=dev)
         self._enter_start(c)
         return c
 
@@ -1168,12 +1185,13 @@ class NgramFusedDecoder:
     @staticmethod
     def _carry_fields(c):
         """(name, tensor) of every field of carry `c`: the flat chain
-        fields, then the fan's and the single-phone columns'."""
+        fields, then the fan's and the single-phone columns', then the
+        pending renormalization."""
         out = list(c["chain"].items())
         for name in ("fin", "sp"):
             if c[name] is not None:
                 out += list(c[name].items())
-        return out
+        return out + [("m_prev", c["m_prev"])]
 
     def _reset_carry(self, c):
         """Carry `c` set to `init_carry`'s values, in place."""
@@ -1194,7 +1212,27 @@ class NgramFusedDecoder:
         for name in ("fin", "sp"):
             out[name] = (None if c[name] is None else
                          {k: v.clone() for k, v in c[name].items()})
+        out["m_prev"] = c["m_prev"].clone()
         return out
+
+    @property
+    def _fan_folds(self):
+        """Whether the fan kernel steps the fan carry (3 states), and so
+        takes the pending renormalization in its load."""
+        return self.NST == 3
+
+    def _fold_renorm(self, c, B):
+        """The pending renormalization of the B-utterance carry `c`
+        subtracted from the scores that defer it (the chain carry, and
+        the fan carry where the fan kernel steps it), in place, and reset
+        to 0: one pass, for a carry that leaves the scan."""
+        m = c["m_prev"][:, None, None, None]
+        for v in self.tables["chain"].planes(c["chain"]["S"], B):
+            v.sub_(m)
+        if c["fin"] is not None and self._fan_folds:
+            c["fin"]["S"].sub_(m)
+        c["m_prev"] = torch.zeros_like(c["m_prev"])
+        profile.count("scan.renorm_passes")
 
     def _chain_views(self, flat, B):
         """Per-bucket views of the flat chain carry `flat` (S/TF/CTX/VAR):
@@ -1210,7 +1248,8 @@ class NgramFusedDecoder:
         return views[:n_ch], views[n_ch:]
 
     def _mask_carry(self, new, old, valid):
-        """`new` where `valid` [B], else `old`, for every carry field.  The
+        """`new` where `valid` [B], else `old`, for every carry field (the
+        pending renormalization too, which goes with its scores).  The
         flat chain fields are not batch-major (the buckets' [B, ...]
         blocks lie end to end), so they are masked through their
         per-bucket views, in place on the step's fresh buffers."""
@@ -1227,6 +1266,7 @@ class NgramFusedDecoder:
                 m = valid.view(B, 1, 1, 1)
                 new[name] = {k: torch.where(m, v, old[name][k])
                              for k, v in new[name].items()}
+        new["m_prev"] = torch.where(valid, new["m_prev"], old["m_prev"])
         return new
 
     def _transitions(self, kv, ki, ctx_k, fb_k, svk, wpen):
@@ -1320,12 +1360,13 @@ class NgramFusedDecoder:
         g_fin, g_sp = g.get("fin"), g.get("sp")
 
         # ---------- chain buckets (multi first + interior phones) and CI
-        # chains: one grouped step ----------
-        cc = carry["chain"]
+        # chains: one grouped step; it and the fan kernel subtract the
+        # last frame's renormalization as they load the scores ----------
+        cc, m_prev = carry["chain"], carry["m_prev"]
         (nS, nTF, nCX, nVAR, cl_s, cl_tf, cl_cx,
          esc_c, etf_c, ecx_c) = chain_group_step(
             tb["chain"], cc["S"], cc["TF"], cc["CTX"], cc["VAR"], g["chain"],
-            pip)
+            pip, m_prev=m_prev)
         newc = {"chain": dict(S=nS, TF=nTF, CTX=nCX, VAR=nVAR)}
         newc["ch"], newc["ci"] = self._chain_views(newc["chain"], B)
         # the right-context exit planes of every word [B, n_rc, W]: the
@@ -1338,7 +1379,8 @@ class NgramFusedDecoder:
             pred = cl_s + pip                                  # [B, Wm]
             nSf, nTFf, nCXf, _, esc_m, etf_m, ecx_m, fin_mx = fan_step(
                 e["S"], e["TF"], e["CTX"], pred, cl_tf, cl_cx, g_fin,
-                tb["lp_idx"], tb["tp_fin12"], out_f=sv[:, :, :n_multi])
+                tb["lp_idx"], tb["tp_fin12"], out_f=sv[:, :, :n_multi],
+                m_prev=m_prev)
             fin_new = dict(S=nSf, TF=nTFf, CTX=nCXf)
         elif n_multi:
             fin_new, sv_m, esc_m, etf_m, ecx_m = self._finals_step(
@@ -1479,8 +1521,13 @@ class NgramFusedDecoder:
         m = torch.cat(cols + ([fin_mx] if fin_mx is not None else []),
                       1).amax(dim=1)
         m = torch.clamp(m, min=NEG_INF)
-        for x in groups:
-            x["S"].sub_(m[:, None, None, None])
+        # the chain kernel and the fan kernel subtract m from the carries
+        # they read as they load them on the next frame; the single-phone
+        # columns and a fan carry of `_finals_step` take it here
+        for x in (sp_new, None if self._fan_folds else fin_new):
+            if x is not None:
+                x["S"].sub_(m[:, None, None, None])
+        newc["m_prev"] = m
         if mask:
             newc = self._mask_carry(newc, carry, valid)
 
@@ -1595,8 +1642,8 @@ class NgramFusedDecoder:
               graph=None, keep_carry=True):
         """The scan in chunks: through the chunk's graph (`graph`, None:
         the decoder's) or eagerly.  Returns (records [B, Tp, ...], the
-        carry after the last frame, or None when not `keep_carry` on the
-        graph path)."""
+        carry after the last frame with its pending renormalization
+        folded in, or None when not `keep_carry`)."""
         B, T, n_sen = costs.shape
         CH = self.CHUNK
         Tp = -(-T // CH) * CH
@@ -1611,6 +1658,7 @@ class NgramFusedDecoder:
             carry = self.init_carry(B)
         recs = None
         for c0 in range(0, Tp, CH):
+            self._count_folded()
             for i, carry, rec in self._steps(
                     carry, costs[:, c0:c0 + CH], valid[:, c0:c0 + CH],
                     t0 + c0, minimal, mask):
@@ -1618,7 +1666,16 @@ class NgramFusedDecoder:
                     recs = _records_like(rec, Tp)
                 for buf, r in zip(recs, rec):
                     buf[:, c0 + i] = r
+        if not keep_carry:
+            return recs, None
+        self._fold_renorm(carry, B)
         return recs, carry
+
+    def _count_folded(self):
+        """Count a chunk's frames in "scan.renorm_folded" when every
+        carry a kernel reads takes the renormalization in its load."""
+        if self._fan_folds or not self.n_multi:
+            profile.count("scan.renorm_folded", self.CHUNK)
 
     def _scan_graph(self, costs, valid, minimal, carry, t0, mask,
                     keep_carry):
@@ -1633,6 +1690,7 @@ class NgramFusedDecoder:
             self._copy_carry(run.io.carry, carry)
         recs = None
         for c0 in range(0, Tp, CH):
+            self._count_folded()
             with profile.span("ps.scan.chunk"):
                 rc = run.run(self, costs[:, c0:c0 + CH],
                              valid[:, c0:c0 + CH], t0 + c0)
@@ -1640,8 +1698,11 @@ class NgramFusedDecoder:
                     recs = _records_like([r[:, 0] for r in rc], Tp)
                 for buf, r in zip(recs, rc):
                     buf[:, c0:c0 + CH] = r
-        return recs, (self._clone_carry(run.io.carry, B) if keep_carry
-                      else None)
+        if not keep_carry:
+            return recs, None
+        carry = self._clone_carry(run.io.carry, B)
+        self._fold_renorm(carry, B)
+        return recs, carry
 
     def _graph_for(self, B, n_sen, minimal, mask):
         """The `_ScanGraph` of these shapes on this decoder's tables,

@@ -6,7 +6,9 @@ equals the JAX scan's one-hot expansion of the variant planes.  The
 grouped step over a mixed bucket list (`chain_group_step`, one launch per
 frame on the card) equals the Pallas kernel run bucket by bucket, and the
 bucket table that the kernel reads puts every bucket's planes, tables and
-exit rows where the plain version and the decoder put them."""
+exit rows where the plain version and the decoder put them.  The grouped
+step with offsets `m_prev` (the scan's deferred renormalization) is the
+step on the carry less `m_prev`."""
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from pocketsphinx_tpu_torch.testing import synth
 from _torch_jax_helpers import torch_one_thread  # noqa: F401
 
 B = 3
+NEG_INF = -1e30
 
 
 def _mk(rng, NST, D, W, RF, NFD):
@@ -156,6 +159,33 @@ def test_chain_group_matches_pallas_per_bucket(NST, ties):
         for i, (a, g) in enumerate(zip(ref, got)):
             np.testing.assert_array_equal(np.asarray(g), a,
                                           err_msg=f"bucket {k} output {i}")
+
+
+@pytest.mark.parametrize("offsets", ["zero", "large", "mixed"])
+@pytest.mark.parametrize("NST", [3, 5])
+def test_chain_group_m_prev_is_the_subtraction_first(NST, offsets):
+    """The grouped step with `m_prev` (the scan's deferred
+    renormalization) is every bucket's `S - m_prev` followed by the step
+    without it, bit for bit, over variant and CI buckets whose carry
+    holds dead (NEG_INF) scores and the <s> entry's 0.0; an offset of 0
+    gives the step without one."""
+    per = [chip_smoke.chain_inputs(np.random.default_rng(30 + NST), 4, *bk,
+                                   True) for bk in GROUPS[NST]]
+    for p in per:
+        p["S"][:, :, 0, ::3] = NEG_INF
+    per[-1]["S"][:, 0, 1, 2] = 0.0               # <s> at its first node
+    grp, args = chip_smoke.chain_group_args(per, "cpu")
+    m = torch.as_tensor(chip_smoke.m_prev_inputs(np.random.default_rng(6),
+                                                 4, offsets))
+    got = chain.chain_group_step(grp, **args, m_prev=m)
+    S = args["S"].clone()
+    for v in grp.planes(S, 4):
+        v.sub_(m[:, None, None, None])
+    want = chain.chain_group_step(grp, **dict(args, S=S))
+    for x, y in zip(got, want, strict=True):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    plain = chain.chain_group_step(grp, **args)
+    assert torch.equal(got[0], plain[0]) == (offsets == "zero")
 
 
 def test_chain_group_table_puts_buckets_at_their_offsets():

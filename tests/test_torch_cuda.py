@@ -85,6 +85,61 @@ def test_chain_group_kernel_bit_equal(cuda, NST, with_ci, B):
                        "chain group")
 
 
+@pytest.mark.parametrize("offsets", ["zero", "large", "mixed"])
+@pytest.mark.parametrize("shape", [(3, 11, 257, 37), (8, 41, 20035, 601),
+                                   (8, 41, 125973, 601)],
+                         ids=["ragged", "20k", "126k"])
+def test_fan_kernel_m_prev_bit_equal(cuda, shape, offsets):
+    """With offsets `m_prev` (the scan's deferred renormalization), every
+    output of the kernel at every choice of its plane groups equals the
+    plain version's, on a carry with dead scores and a 0.0 score."""
+    B, NRC, W, LP = shape
+    rng = np.random.default_rng(4)
+    a = chip_smoke.fan_inputs(rng, B, NRC, W, LP, True)
+    a["S"][:, 1, :, W - 1] = 0.0
+    a["m_prev"] = chip_smoke.m_prev_inputs(rng, B, offsets)
+    a = chip_smoke.to_device(a, cuda)
+    bufs = [torch.full((B, NRC, W + 5), 7.0, device=cuda) for _ in range(2)]
+    refs = fan.fan_step_ref(**a, out_f=bufs[1][:, :, 2:W + 2])
+    for groups in (None,) + fan.GROUPS:
+        bufs[0].fill_(7.0)
+        outs = fan.fan_step(**a, out_f=bufs[0][:, :, 2:W + 2], groups=groups)
+        torch.cuda.synchronize()
+        chip_smoke.compare(outs[:7] + (outs[7].amax(1), bufs[0]),
+                           refs[:7] + (refs[7].amax(1), bufs[1]),
+                           f"fan m_prev={offsets} groups={groups}")
+
+
+@pytest.mark.parametrize("offsets", ["zero", "large", "mixed"])
+@pytest.mark.parametrize("NST", [3, 5])
+@pytest.mark.parametrize("kinds", ["variants", "variants_ci", "ci"])
+def test_chain_group_kernel_m_prev_bit_equal(cuda, kinds, NST, offsets):
+    """With offsets `m_prev`, one launch over variant buckets, variant
+    and CI buckets, or a CI bucket alone equals the grouped plain
+    version, at B=11 (past a block's 8 rows), on carries with dead
+    scores and the <s> entry's 0.0."""
+    buckets = []
+    if kinds != "ci":
+        buckets += [(NST, 5, 70, 4, 9, True), (NST, 16, 40, 3, 7, True),
+                    (NST, 2, 300, 2, 5, True)]
+    if kinds != "variants":
+        buckets.append((NST, 4, 9, 0, 0, False))
+    rng = np.random.default_rng(5)
+    per = [chip_smoke.chain_inputs(rng, 11, *bk, True) for bk in buckets]
+    for p in per:
+        p["S"][:, :, 0, ::3] = chip_smoke.NEG_INF
+    per[-1]["S"][:, 0, 1, 2] = 0.0
+    grp, args = chip_smoke.chain_group_args(per, cuda)
+    args["m_prev"] = torch.as_tensor(
+        chip_smoke.m_prev_inputs(rng, 11, offsets), device=cuda)
+    n = chain.launches
+    outs = chain.chain_group_step(grp, **args)
+    assert chain.launches == n + 1
+    torch.cuda.synchronize()
+    chip_smoke.compare(outs, chain.chain_group_ref(grp, **args),
+                       f"chain group m_prev={offsets}")
+
+
 #: the word-transition kernel's cases: (LM mode, dictionary words, topk,
 #: FAT_CAP or None, trigram rows in the 2-D tg2c table, trigrams per
 #: context at most, extra CI phones); 40 words give E = 108 columns (one

@@ -4,7 +4,9 @@ Pallas fan kernel run in interpret mode on the same padded fan carry
 (`fan_step(..., n_real=Wm)`); batched inputs share lp/tp; the new carry's
 pads are NEG_INF/0, the partial maxima give the max of the new scores
 over the real words, and the exit plane goes into a strided view.  The
-decoder keeps a padded fan carry with records equal to the JAX scan's."""
+step with offsets `m_prev` (the scan's deferred renormalization) is the
+step on `S - m_prev`.  The decoder keeps a padded fan carry with records
+equal to the JAX scan's."""
 
 import numpy as np
 import pytest
@@ -98,6 +100,38 @@ def test_fan_step_out_f_view(shape):
     assert bool((buf[:, :, 3 + W:] == 2.5).all())
     for x, y in zip(got, want):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("offsets", ["zero", "large", "mixed"])
+@pytest.mark.parametrize("shape", [(11, 257, 37), (41, 515, 601), (3, 7, 5)])
+def test_fan_step_m_prev_is_the_subtraction_first(shape, offsets):
+    """The step with `m_prev` (the scan's deferred renormalization) is
+    `S - m_prev` followed by the step without it, bit for bit, on a
+    carry with dead (NEG_INF) scores, a 0.0 score and random pads; an
+    offset of 0 gives the step without one."""
+    NRC, W, LP = shape
+    a = _torch(_mk(13, 4, NRC, W, LP, ties=True))
+    a["S"][:, 1, :, W - 1] = 0.0
+    assert bool((a["S"][:, 0, :, :W // 7] == NEG_INF).all())
+    m = torch.as_tensor(chip_smoke.m_prev_inputs(np.random.default_rng(5),
+                                                 4, offsets))
+    got = fan.fan_step(**a, m_prev=m)
+    want = fan.fan_step(**dict(a, S=a["S"] - m[:, None, None, None]))
+    for x, y in zip(got, want, strict=True):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    if offsets == "zero":
+        for x, y in zip(got, fan.fan_step(**a), strict=True):
+            assert torch.equal(x, y)
+    else:
+        assert not torch.equal(got[0], fan.fan_step(**a)[0])
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype"])
+def test_fan_step_refuses_bad_m_prev(bad):
+    a = _torch(_mk(2, 2, 5, 40, 7, ties=False))
+    m = torch.zeros(3) if bad == "shape" else torch.zeros(2, dtype=torch.int32)
+    with pytest.raises((ValueError, TypeError), match="m_prev"):
+        fan.fan_step(**a, m_prev=m)
 
 
 def test_fan_step_batched_shared_lp_tp():

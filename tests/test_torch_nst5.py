@@ -84,3 +84,70 @@ def test_minimal_batch_equal(decoders):
     rp = pt.scan(torch.as_tensor(costs), torch.as_tensor(valid),
                  minimal=True)
     assert_records_equal(rp, rj, MINIMAL)
+
+
+def test_step_subtracts_the_fan_carry(decoders, monkeypatch):
+    """The finals of a 5-state model are torch ops, not the fan kernel:
+    the step subtracts the frame's renormalization from the fan carry
+    itself, while the chain carry it returns is the chain kernel's new
+    scores with the offset pending for the next launch (`m_prev`)."""
+    _, pt = decoders
+    assert not pt._fan_folds
+    fins, chains, fold = [], [], port_fused.chain_group_step
+    finals = pt._finals_step
+
+    def spy_finals(*a, **k):
+        out = finals(*a, **k)
+        fins.append(out[0]["S"].clone())
+        return out
+
+    def spy_chain(*a, **k):
+        chains.append(k["m_prev"].clone())
+        out = fold(*a, **k)
+        chains.append(out[0])
+        return out
+
+    monkeypatch.setattr(pt, "_finals_step", spy_finals)
+    monkeypatch.setattr(port_fused, "chain_group_step", spy_chain)
+    costs = torch.as_tensor(tie_costs(pt.am.n_sen, pt.CHUNK, seed=21))
+    valid = torch.ones((1, pt.CHUNK), dtype=torch.bool)
+    prev = torch.zeros(1)
+    for i, c, rec in pt._steps(pt.init_carry(1), costs[None], valid, 0,
+                               False, False):
+        m = rec[8]
+        assert torch.equal(c["fin"]["S"], fins[i] - m[:, None, None, None])
+        assert torch.equal(chains[2 * i], prev)
+        assert torch.equal(c["chain"]["S"], chains[2 * i + 1])
+        assert torch.equal(c["m_prev"], m)
+        prev = m
+
+
+def test_with_carry_resumed_equals_jax(decoders):
+    """Two masked blocks, the second resumed at frame 37 with a padded
+    tail: records equal the JAX `with_carry`'s, and the carry after the
+    second block equals the JAX carry (the chain carry's pending offset
+    folded in as it leaves the scan, the fan carry renormalized in
+    the step)."""
+    jx, pt = decoders
+    costs = tie_costs(pt.am.n_sen, 80, seed=22)
+    jscan = jx._make_scan(mask_carry=True)
+    carry = jcarry = None
+    for t0, n in ((0, 37), (37, 43)):
+        valid = np.arange(n) < (n if t0 == 0 else n - 6)
+        c = costs[t0:t0 + n]
+        recs, carry = pt.with_carry(torch.as_tensor(c)[None],
+                                    torch.as_tensor(valid)[None], carry, t0)
+        jrecs, jcarry = jscan.with_carry(jnp.asarray(c), jnp.asarray(valid),
+                                         jcarry, t0)
+        assert_records_equal([r[0, :n] for r in recs],
+                             [np.asarray(r)[:n] for r in jrecs], FULL)
+    ch, ci = pt._chain_views(carry["chain"], 1)
+    pairs = [(e[k][0], je[k]) for e, je in zip(
+        ch + ci, jcarry["ch"] + jcarry["ci"], strict=True) for k in e]
+    pairs += [(carry[n][k][0], jcarry[n][k]) for n in ("fin", "sp")
+              for k in ("S", "TF", "CTX")]
+    for i, (a, b) in enumerate(pairs):
+        if isinstance(b, (tuple, list)):          # one array per state
+            b = np.stack([np.asarray(x) for x in b])
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=str(i))

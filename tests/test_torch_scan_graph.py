@@ -161,6 +161,124 @@ def test_with_carry_resumed_at_t0_equals_jax_and_eager(decoders):
     _assert_carry_equal(pt, carry, carry_e)
 
 
+def _jax_carry_equal(pt, carry, jcarry):
+    """A B=1 port carry that left the scan equals the JAX scan's carry:
+    every chain and CI bucket field, the fan's real columns (the port
+    pads its fan carry, the JAX decoder keeps its own width) and the
+    single-phone columns; nothing of the renormalization is pending."""
+    ch, ci = pt._chain_views(carry["chain"], 1)
+    pairs = [(e[k][0], je[k]) for e, je in zip(ch + ci,
+                                               jcarry["ch"] + jcarry["ci"],
+                                               strict=True) for k in e]
+    W = pt.n_multi
+    pairs += [(carry["fin"][k][0, ..., :W], jcarry["fin"][k])
+              for k in ("S", "TF", "CTX")]
+    pairs += [(carry["sp"][k][0], jcarry["sp"][k]) for k in ("S", "TF",
+                                                             "CTX")]
+    for i, (a, b) in enumerate(pairs):
+        if isinstance(b, (tuple, list)):          # one array per state
+            b = np.stack([np.asarray(x) for x in b])
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=str(i))
+    assert not carry["m_prev"].any()
+
+
+@pytest.mark.parametrize("minimal", [True, False], ids=["minimal", "full"])
+@pytest.mark.parametrize("graph", [True, False], ids=["graph", "eager"])
+def test_carry_leaving_the_scan_equals_jax(decoders, graph, minimal):
+    """Blocks of 37 and 43 frames through the masked scan, the second
+    resumed at t0 = 37 with its last 6 frames padded: records, and the
+    carry after each block (the pending renormalization folded in as it
+    leaves), equal the JAX `with_carry`'s, through the runner and
+    eagerly, with minimal and full records."""
+    jx, pt = decoders
+    costs = _costs(pt.am.n_sen, 80, seed=45)
+    jscan = jx._make_scan(minimal=minimal, mask_carry=True)
+    carry = jcarry = None
+    for t0, n in ((0, T0), (T0, 80 - T0)):
+        valid = np.arange(n) < (n if t0 == 0 else n - 6)
+        c = costs[t0:t0 + n]
+        recs, carry = pt._scan(torch.as_tensor(c)[None],
+                               torch.as_tensor(valid)[None], minimal, carry,
+                               t0, mask=True, graph=graph)
+        jrecs, jcarry = jscan.with_carry(jnp.asarray(c), jnp.asarray(valid),
+                                         jcarry, t0)
+        for i, (a, b) in enumerate(zip(recs, jrecs, strict=True)):
+            np.testing.assert_array_equal(a[0, :n].numpy(),
+                                          np.asarray(b)[:n], err_msg=str(i))
+        _jax_carry_equal(pt, carry, jcarry)
+
+
+def _capture(monkeypatch, module, name):
+    """Spy on `module.name`: a list receiving each call's results."""
+    seen, fn = [], getattr(module, name)
+
+    def spy(*a, **k):
+        seen.append(fn(*a, **k))
+        return seen[-1]
+    monkeypatch.setattr(module, name, spy)
+    return seen
+
+
+def test_step_leaves_the_renormalization_pending(decoders, monkeypatch):
+    """A 3-state decoder's step: the chain and fan carries it returns
+    are the kernels' new scores as they wrote them, the frame's `m` is
+    pending (`m_prev`) and the kernels of the next frame take it; the
+    single-phone columns are renormalized in the step (their best
+    score, where it is the frame's, reads 0)."""
+    from pocketsphinx_tpu_torch.search import ngram_fused
+    _, pt = decoders
+    assert pt.NST == 3 and pt._fan_folds
+    costs = torch.as_tensor(_costs(pt.am.n_sen, 2 * pt.CHUNK, seed=46))
+    valid = torch.ones((1, pt.CHUNK), dtype=torch.bool)
+    fans = _capture(monkeypatch, ngram_fused, "fan_step")
+    chains = _capture(monkeypatch, ngram_fused, "chain_group_step")
+    args = []
+    for mod, name in ((ngram_fused, "fan_step"),
+                      (ngram_fused, "chain_group_step")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, **k: (
+            args.append(k["m_prev"].clone()), _f(*a, **k))[1])
+    carry = pt.init_carry(1)
+    steps = list(pt._steps(carry, costs[None, :pt.CHUNK], valid, 0, False,
+                           False))
+    assert len(fans) == len(chains) == pt.CHUNK
+    prev = torch.zeros(1)
+    for i, c, rec in steps:
+        m = rec[8]
+        assert torch.equal(c["m_prev"], m)
+        assert torch.equal(fans[i][0], c["fin"]["S"])
+        assert torch.equal(chains[i][0], c["chain"]["S"])
+        assert torch.equal(args[2 * i], prev)
+        assert torch.equal(args[2 * i + 1], prev)
+        prev = m
+    assert bool((c["sp"]["S"] <= 0).all())
+
+
+def test_masked_tail_keeps_the_pending_offset(decoders):
+    """Frames whose valid is false leave a row's whole carry as it was,
+    its pending renormalization too, while the other row steps on."""
+    _, pt = decoders
+    c = torch.as_tensor(_costs(pt.am.n_sen, 21 + pt.CHUNK, seed=47))
+    c = c[None].expand(2, -1, -1)
+    _, carry = pt.with_carry(c[:, :21], torch.ones((2, 21), dtype=torch.bool))
+    valid = torch.ones((2, pt.CHUNK), dtype=torch.bool)
+    valid[1, 9:] = False
+    steps = list(pt._steps(carry, c[:, 21:], valid, 21, False, True))
+    held = steps[8][1]
+    assert held["m_prev"][1] != 0
+    for i, k, rec in steps[9:]:
+        assert torch.equal(k["m_prev"][0], rec[8][0])
+        assert k["m_prev"][1] == held["m_prev"][1] != rec[8][1]
+    ch, hh = (pt._chain_views(x["chain"], 2) for x in (k, held))
+    for e, f in zip(ch[0] + ch[1], hh[0] + hh[1], strict=True):
+        for key in e:
+            assert torch.equal(e[key][1], f[key][1])
+    for name in ("fin", "sp"):
+        for key in ("S", "TF", "CTX"):
+            assert torch.equal(k[name][key][1], held[name][key][1])
+
+
 def test_with_carry_returns_the_callers_carry(decoders):
     """A carry `with_carry` returned lies in buffers of its own: neither
     the runner's static carry nor a later call (another input, from no

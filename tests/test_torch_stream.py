@@ -146,6 +146,40 @@ def test_with_carry_blocks_equal_whole_scan_and_jax(decoders):
         assert torch.equal(a[0, 0], b[0, T])
 
 
+def test_with_carry_block_carries_equal_jax(decoders):
+    """The carry after each 32-frame block (the streaming facade's
+    blocks, the last one padded and masked) equals the JAX `with_carry`
+    carry: the renormalization the port's kernels take on their next
+    load is folded into the carry as it leaves the scan."""
+    jx, pt = decoders
+    T, BL = 75, 32
+    costs = np.random.default_rng(9).uniform(
+        0, 400, (T, pt.am.n_sen)).astype(np.float32)
+    jscan = jx._make_scan(mask_carry=True)
+    carry = jcarry = None
+    for b0 in range(0, T, BL):
+        n = min(BL, T - b0)
+        blk = np.zeros((BL, costs.shape[1]), np.float32)
+        blk[:n] = costs[b0:b0 + n]
+        valid = np.arange(BL) < n
+        _, carry = pt.with_carry(torch.as_tensor(blk)[None],
+                                 torch.as_tensor(valid)[None], carry, b0)
+        _, jcarry = jscan.with_carry(jnp.asarray(blk), jnp.asarray(valid),
+                                     jcarry, b0)
+        ch, ci = pt._chain_views(carry["chain"], 1)
+        pairs = [(e[k][0], je[k]) for e, je in zip(
+            ch + ci, jcarry["ch"] + jcarry["ci"], strict=True) for k in e]
+        pairs += [(carry[f][k][0, ..., :pt.n_multi if f == "fin" else None],
+                   jcarry[f][k]) for f in ("fin", "sp")
+                  for k in ("S", "TF", "CTX")]
+        for i, (a, b) in enumerate(pairs):
+            if isinstance(b, (tuple, list)):      # one array per state
+                b = np.stack([np.asarray(x) for x in b])
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f"block {b0} field {i}")
+        assert not carry["m_prev"].any()
+
+
 def _row_carry(pt, carry, B, b):
     """Row b of a B-utterance carry: every field of every chain bucket
     (through the flat carry's per-bucket views) and of the finals."""

@@ -10,7 +10,9 @@ on the CPU, at a small synthetic task:
     results (the frame counts, one per segment step of the walk and one
     to end it, five copies of the backtrace's outputs);
   * results and stage timers do not depend on the profiler or on the
-    `timings` dict, and without either a span opens no profiler range.
+    `timings` dict, and without either a span opens no profiler range;
+  * the scan counts the frames whose renormalization the kernels took in
+    their load, and the folds of a carry that leaves it.
 
 No JAX: the port against itself."""
 
@@ -142,6 +144,73 @@ def test_counters_are_the_batches(task):
     assert got["scan.real_frames"] < got["scan.lane_frames"]
     assert "capture_s" not in after or after["capture_s"] == before.get(
         "capture_s")
+
+
+def _renorm_counts(fn):
+    """The increase of the renormalization counters over `fn()`."""
+    before = profile.counters()
+    fn()
+    after = profile.counters()
+    return [after.get(k, 0) - before.get(k, 0)
+            for k in ("scan.renorm_folded", "scan.renorm_passes")]
+
+
+@pytest.mark.parametrize("graph", [True, False], ids=["graph", "eager"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_renorm_counters(task, B, graph):
+    """A scan of T frames counts its frames padded to whole chunks as
+    folded (the kernels took the renormalization in their load) whatever
+    B is, and no pass; a `with_carry` call counts one pass (its carry's
+    fold as it leaves the scan)."""
+    search = task[0].replicas[0]
+    T = 37
+    Tp = -(-T // CHUNK) * CHUNK
+    costs = torch.as_tensor(np.random.default_rng(B).uniform(
+        0, 400, (B, T, search.am.n_sen)).astype(np.float32))
+    valid = torch.ones((B, T), dtype=torch.bool)
+    assert _renorm_counts(lambda: search.scan(costs, valid, True,
+                                              graph=graph)) == [Tp, 0]
+    assert _renorm_counts(lambda: search.with_carry(costs, valid,
+                                                    graph=graph)) == [Tp, 1]
+
+
+def test_corpus_folds_every_frame(task):
+    """Over a `decode_corpus` call every frame the scan steps takes the
+    renormalization in the kernels' load, and no carry is folded (the
+    corpus path keeps none)."""
+    pipe, _ = task
+    search = pipe.replicas[0]
+    seen, decode = [], search.decode_batch
+
+    def spy(feats, n_frames, **kw):
+        seen.append(feats.shape[1])
+        return decode(feats, n_frames, **kw)
+    search.decode_batch = spy
+    try:
+        got = _renorm_counts(lambda: _decode(task))
+    finally:
+        del search.decode_batch
+    assert len(seen) == 3
+    assert got == [sum(-(-T // CHUNK) * CHUNK for T in seen), 0]
+
+
+def test_renorm_counters_five_states(tmp_path):
+    """A 5-state decoder's fan carry is renormalized in the step (its
+    finals are torch ops, not the fan kernel): no frame counts as
+    folded."""
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=30, n_single=3, seed=16)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=17)
+    spec = synth.make_model([dic], seed=18, n_sen=210 + 400, n_density=8,
+                            n_state=5)
+    dec = synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=8,
+                              device="cpu")
+    assert dec.NST == 5 and dec.n_multi
+    costs = torch.as_tensor(np.random.default_rng(7).uniform(
+        0, 400, (2, 20, dec.am.n_sen)).astype(np.float32))
+    valid = torch.ones((2, 20), dtype=torch.bool)
+    assert _renorm_counts(lambda: dec.scan(costs, valid)) == [0, 0]
+    assert _renorm_counts(lambda: dec.with_carry(costs, valid)) == [0, 1]
 
 
 @pytest.mark.parametrize("traced", [False, True], ids=["off", "profiled"])
