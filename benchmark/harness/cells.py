@@ -1,20 +1,25 @@
 """A cell, resolved by name: its entry in `BENCHMARK.json`, its
 configuration file, its traffic mix (`traffic/<mix>.json`, which also
 holds the limits of the check) and the metrics it reports.  Everything
-that belongs to one configuration, mix or per-layer metric is a file of
-its own, found by its name; adding a cell adds files and entries and
-edits none."""
+that belongs to one configuration, mix, per-layer metric, model type or
+feature type is a file of its own, found by its name: a metric's reader
+`metrics/<name>.py`, the weights of the configuration's
+`model.model_type` in `inputs/models/<model_type>.py`, the reference's
+features of its `feat` in `reference/feat/<feat>.py`.  Adding a cell adds
+files and entries and edits none."""
 
 from __future__ import annotations
 
 import hashlib
 import importlib.util
 import json
+import re
 from dataclasses import dataclass, field
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
 
 
 @dataclass
@@ -75,11 +80,37 @@ def check_data(conf: dict, root: Path):
                              f"configuration {conf['name']}")
 
 
-def metric_reader(name: str):
-    """The `read(ctx)` function of `metrics/<name>.py`."""
-    path = BENCH / "metrics" / f"{name}.py"
+def by_name(folder: str, name, key: str):
+    """The module `<folder>/<name>.py` under the benchmark's folder,
+    loaded from its file.  A name with no file fails, by the key that
+    gave it: nothing falls back to another file."""
+    path = BENCH / folder / f"{name}.py"
+    if not (isinstance(name, str) and NAME.fullmatch(name)
+            and path.is_file()):
+        raise ValueError(f"{key} = {name!r}: no file "
+                         f"benchmark/{folder}/{name}.py")
     spec = importlib.util.spec_from_file_location(
-        f"benchmark.metrics.{name.replace('.', '_')}", path)
+        f"benchmark.{folder.replace('/', '.')}.{name.replace('.', '_')}",
+        path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def metric_reader(name: str):
+    """The `read(ctx)` function of `metrics/<name>.py`."""
+    return by_name("metrics", name, "per_layer name").read
+
+
+def model_type(conf: dict):
+    """The module of the configuration's `model.model_type`
+    (`inputs/models/<model_type>.py`): its `make_weights`."""
+    return by_name("inputs/models", conf["model"]["model_type"],
+                   "model.model_type")
+
+
+def feat_type(conf: dict):
+    """The module of the configuration's `feat`
+    (`reference/feat/<feat>.py`): the reference's `features` and the
+    streams' widths `FEATLEN`."""
+    return by_name("reference/feat", conf["feat"], "feat")

@@ -3,14 +3,16 @@ card, called back to back by one caller (a closed loop).
 
 Set-up builds the pipeline as a user does (`examples/torch_batch.py`,
 with the fused n-gram search) and warms it with one call of the mix,
-whose shapes every later call repeats.  The window times whole calls;
-the rate is the audio of the calls over the time they took.  The mesh
-has one data row per card the cell asks for.  The check decodes one
+whose shapes every later call repeats.  The window times whole
+calls; the rate is the audio of the calls over the time they took.  The
+mesh has one data row per card the cell asks for.  The check decodes one
 call, drawn from the seed, again through the reference in the batches
 the pipeline makes of it, and compares every utterance's hypothesis and
 segments, every path score of the call, and the features and senone
 costs of each card's first batch, which the window keeps as the timed
-path makes them."""
+path makes them.  The reference computes the features of the
+configuration's `feat` (`reference/feat/<feat>.py`), so a program that
+makes another type fails `feat_gap`."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from contextlib import contextmanager, nullcontext
 import numpy as np
 
 from . import traffic
+from .cells import feat_type
 from .task import prepare
 from .trace import traced
 
@@ -57,8 +60,14 @@ class Corpus:
         self.dp = cell.chips
 
     def inputs(self) -> dict:
-        """The model files and the calls, from the seed; their seconds."""
-        self.task = prepare(self.cell.config, self.seed, self.workdir)
+        """The model files and the calls, from the seed; their seconds.
+        `cmn_batch` has to be "batch", the CMN of the program's batch
+        path."""
+        conf = self.cell.config
+        if conf.get("cmn_batch", "batch") != "batch":
+            raise ValueError(f"cmn_batch = {conf['cmn_batch']!r}: the batch "
+                             f"path takes 'batch'")
+        self.task = prepare(conf, self.seed, self.workdir)
         t0 = time.perf_counter()
         self.calls = traffic.corpus_calls(self.cell.mix, self.seed)
         #: the call the check decodes again, drawn from the seed
@@ -239,11 +248,10 @@ class Corpus:
         batches: its results in input order, each row's path scores batch
         by batch and its first batch's features and senone costs, the
         frames each part of a batch steps, and the step's counts at the
-        configuration's shapes."""
+        configuration's shapes (with the shapes they took)."""
         import torch
         from ..counts.kernels import step_counts, step_shapes
         from ..reference.psref.fileio.dictionary import Dictionary
-        from ..reference.psref.frontend.feat import compute_feats
         from ..reference.psref.frontend.mfcc import MelFrontend
         from ..reference.psref.lm.ngram import read_lm
         from ..reference.psref.models.acoustic import (AcousticModel,
@@ -263,6 +271,7 @@ class Corpus:
             raise ValueError(f"LM mode {dec.lm_mode} != the configuration's "
                              f"{conf['lm_mode']}")
         fe = MelFrontend(**conf["frontend"])
+        features = feat_type(conf).features
         pcms = self.calls[self.checked]
         results = [None] * len(pcms)
         scores = [[] for _ in range(self.dp)]
@@ -280,7 +289,7 @@ class Corpus:
                         pcm[k, :len(pcms[i])] = pcms[i]
                     ns = np.array([len(pcms[i]) for i in rows], np.int32)
                     cep, nfr = fe.process_batch(pcm, ns, device=self.device)
-                    feats = compute_feats(cep, nfr, cmn="batch")
+                    feats = features(cep, nfr, "batch")
                     if front[r] is None:
                         costs = senone_scores(dec.scoring(), feats,
                                               time_chunk=16)
@@ -294,11 +303,11 @@ class Corpus:
                     scores[r].append(list(dec.hyp_scores))
         finally:
             torch.backends.cuda.matmul.allow_tf32 = prev
-        m = dict(conf["model"], n_cb=dec.am.mdef.n_ciphone)
         rows = max(self.B // self.dp, 1)
+        shapes = step_shapes(dec)
         return dict(results=results, scores=scores, front=front,
-                    frames=frames,
-                    counts=step_counts(step_shapes(dec), rows, m))
+                    frames=frames, shapes=shapes,
+                    counts=step_counts(shapes, rows))
 
     def port_outputs(self) -> dict:
         """What the window's last run of the checked call produced."""

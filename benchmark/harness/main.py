@@ -8,7 +8,9 @@ The last line of standard output is one JSON object (`correct`,
 `attempted`, `failed`, `metrics`, `device`, with `--trace 1` also
 `breakdown`, and last `checks`: each number compared with its limit);
 an earlier line gives the set-up's parts.  The last lines of standard
-error repeat the numbers compared beside their limits.  The run fails,
+error repeat the numbers compared beside their limits; before them come
+the model files' SHA-256 and, for a corpus cell, the step's counts and
+the shapes they took (`counts/kernels.py`).  The run fails,
 and prints no result, without as many CUDA cards as the cell asks for,
 or when JAX or the JAX package is loaded once the window has closed."""
 
@@ -23,6 +25,7 @@ import time
 
 from .cells import ROOT, load_cell, metric_reader
 from .guard import forbidden_modules
+from .task import model_sha256
 
 
 def _entry_points():
@@ -126,6 +129,10 @@ def _run(cell, args, device, work, t_start, out, err) -> int:
     if found:
         print(f"forbidden modules loaded: {', '.join(found)}", file=err)
         return 3
+    print(f"model files sha256 {model_sha256(drv.task['hmm'])}", file=err)
+    if "counts" in ref:
+        print("counts " + json.dumps(dict(shapes=ref["shapes"],
+                                          counts=ref["counts"])), file=err)
     print(f"check: {check_s:.1f} s, {'correct' if correct else 'NOT correct'}",
           file=err)
     for k, c in checks.items():

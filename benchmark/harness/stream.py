@@ -62,6 +62,13 @@ def _utterance(dec, pcm, cmn0, step: int, every: int, span=nullcontext):
 
 class Stream:
     def __init__(self, cell, seed: int, device, workdir: str):
+        conf = cell.config
+        if (conf["model"]["model_type"], conf["feat"]) != ("ptm",
+                                                          "1s_c_d_dd"):
+            raise ValueError(
+                f"the stream entry point takes model.model_type 'ptm' and "
+                f"feat '1s_c_d_dd' (the facade's streamed blocks), not "
+                f"{conf['model']['model_type']!r} and {conf['feat']!r}")
         self.cell, self.seed, self.device = cell, seed, device
         self.workdir = workdir
         mix = cell.mix

@@ -1,5 +1,7 @@
 """A configuration's files: its dictionary, the seeded model directory
-and its LM, as both the port and the reference load them.
+and its LM, as both the port and the reference load them.  The weights
+are those of the configuration's `model.model_type`
+(`inputs/models/<model_type>.py`).
 
 What depends on the configuration alone (the dictionary over an LM's
 vocabulary, the text mdef) is kept in `build/bench_cache/<config>/` in
@@ -13,7 +15,7 @@ import os
 import time
 
 from ..inputs import synth
-from .cells import ROOT
+from .cells import ROOT, feat_type, model_type
 
 
 def cache_dir(conf: dict):
@@ -45,9 +47,13 @@ def dictionary(conf: dict) -> str:
 
 def prepare(conf: dict, seed: int, workdir: str) -> dict:
     """The task's files for `seed`: {"hmm", "dict", "lm", "noisedict",
-    "seconds"}."""
+    "seconds"}.  The streams the model type writes have to be those the
+    configuration declares (`model.featlen`, or `model.n_feat` x
+    `model.dim`) and the widths of its `feat`; nothing is written
+    otherwise."""
     t0 = time.perf_counter()
-    m = conf["model"]
+    m, weights = conf["model"], model_type(conf).make_weights
+    widths = feat_type(conf).FEATLEN
     dic = dictionary(conf)
     key = hashlib.sha256(open(dic, "rb").read()
                          + f"{m['n_sen']},{m['n_state']}".encode())
@@ -55,11 +61,26 @@ def prepare(conf: dict, seed: int, workdir: str) -> dict:
     if not mdef_path.exists():
         _atomic_write(mdef_path, synth.make_mdef([dic], m["n_sen"],
                                                  m["n_state"]))
-    spec = synth.make_weights(mdef_path.read_text(),
-                              seed=int(seed) % (1 << 63), n_sen=m["n_sen"],
-                              n_density=m["n_density"], n_feat=m["n_feat"],
-                              dim=m["dim"], n_state=m["n_state"])
+    spec = weights(mdef_path.read_text(), int(seed) % (1 << 63), m,
+                   conf["feat"])
+    declared = list(m.get("featlen") or [m["dim"]] * m["n_feat"])
+    if not spec.streams == declared == widths:
+        raise ValueError(
+            f"model streams {spec.streams} (written by model.model_type = "
+            f"{m['model_type']!r}; declared {declared}) are not the widths "
+            f"{widths} of feat = {conf['feat']!r}")
     hmm = spec.write_model_dir(os.path.join(workdir, "hmm"))
     return dict(hmm=hmm, dict=dic, lm=str(ROOT / conf["lm"]),
                 noisedict=os.path.join(hmm, "noisedict"),
                 seconds=time.perf_counter() - t0)
+
+
+def model_sha256(hmm: str) -> str:
+    """One SHA-256 over the model directory's files: each file's name and
+    its own SHA-256, in name order."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(hmm)):
+        with open(os.path.join(hmm, name), "rb") as f:
+            h.update(f"{name} {hashlib.sha256(f.read()).hexdigest()}\n"
+                     .encode())
+    return h.hexdigest()

@@ -10,7 +10,12 @@ changes, neither of which changes a byte of what is written:
 which depends on the dictionaries alone) and `make_weights` (the seeded
 arrays), so that a run can keep the first in its cache; and
 `dictionary_for_lm` reads the LM's vocabulary through the reference's
-reader (`benchmark.reference.psref`), not the port's.
+reader (`benchmark.reference.psref`), not the port's.  Since then, so
+that other model types (`inputs/models/<model_type>.py`) write through
+the same code, `write_model_dir` also writes streams of unequal widths
+(`SynthModel.featlen`) and another feature type's `feat.params`
+(`feat_params`), and the transitions are drawn by `make_tmat`; the PTM
+model's files are the same bytes as before.
 
 The model is the structure of pocketsphinx's en-us PTM model: 42 CI
 phones (the 39 CMUdict phones, SIL, +NSN+, +SPN+), 3 emitting states,
@@ -81,6 +86,16 @@ class SynthModel:
     var: np.ndarray            # [42, F, D, L] f32
     mixw: np.ndarray           # [F, D, n_sen] uint8 costs
     tmat: np.ndarray           # [42, N, N+1] uint8 costs (255 = impossible)
+    #: each stream's width where they differ (None: all L); the lanes of
+    #: `means` and `var` past a stream's width are not written
+    featlen: list | None = None
+    feat_params: str = FEAT_PARAMS
+
+    @property
+    def streams(self) -> list:
+        """Each stream's width, as written."""
+        return list(self.featlen or [self.means.shape[-1]]
+                    * self.means.shape[1])
 
     def write_model_dir(self, directory: str) -> str:
         """Write the model directory; returns `directory`."""
@@ -91,10 +106,15 @@ class SynthModel:
         with open(os.path.join(directory, "noisedict"), "w") as f:
             f.write(NOISEDICT)
         with open(os.path.join(directory, "feat.params"), "w") as f:
-            f.write(FEAT_PARAMS)
-        dims = [n_cb, n_feat, n_den] + [dim] * n_feat
+            f.write(self.feat_params)
+        featlen = self.streams
         for name, x in (("means", self.means), ("variances", self.var)):
-            _write_s3(os.path.join(directory, name), dims, x)
+            if featlen != [dim] * n_feat:     # on disk [cb][f][d][featlen[f]]
+                x = np.concatenate([x[c, j, :, :L].reshape(-1)
+                                    for c in range(n_cb)
+                                    for j, L in enumerate(featlen)])
+            _write_s3(os.path.join(directory, name),
+                      [n_cb, n_feat, n_den] + featlen, x)
         # mixture weights [n_sen, n_feat, n_den] and transitions
         # [n_tmat, N, N+1] as probabilities (cost 255 = impossible)
         mixw = np.exp(-self.mixw.astype(np.float64) * _UNIT_NATS)
@@ -201,14 +221,33 @@ def make_weights(mdef_text: str, seed: int = 0,
     hot = rng.integers(0, n_density, (n_feat, 8, n_sen))
     np.put_along_axis(mixw, hot, rng.integers(0, 30, hot.shape)
                       .astype(np.uint8), axis=1)
+    return SynthModel(mdef_text=mdef_text, means=means, var=var, mixw=mixw,
+                      tmat=make_tmat(rng, n_ci, N))
+
+
+def make_tmat(rng, n_ci: int, N: int) -> np.ndarray:
+    """Transition costs [n_ci, N, N+1] (255 = impossible): left to right
+    with self-loops, and rare skips (j -> j+2) from state 0 at 3 states,
+    from every state that has one at 5."""
     tmat = np.full((n_ci, N, N + 1), 255, np.uint8)
     for j in range(N):
         tmat[:, j, j] = rng.integers(1, 12, n_ci)
         tmat[:, j, j + 1] = rng.integers(1, 12, n_ci)
-    for j in range(1 if N == 3 else N - 1):           # rare skips
+    for j in range(1 if N == 3 else N - 1):
         tmat[:, j, j + 2] = rng.integers(20, 60, n_ci)
-    return SynthModel(mdef_text=mdef_text, means=means, var=var, mixw=mixw,
-                      tmat=tmat)
+    return tmat
+
+
+def feat_params(feat: str, model_type: str) -> str:
+    """en-us's `feat.params` with the feature type and model type given
+    (`FEAT_PARAMS` itself for a PTM model over 1s_c_d_dd); the stream
+    split (`-svspec`) is en-us's for 1s_c_d_dd, and absent for another
+    feature type, which has streams of its own."""
+    text = (FEAT_PARAMS.replace("-feat 1s_c_d_dd\n", f"-feat {feat}\n")
+            .replace("-model ptm\n", f"-model {model_type}\n"))
+    if feat != "1s_c_d_dd":
+        text = text.replace("-svspec 0-12/13-25/26-38\n", "")
+    return text
 
 
 def make_model(dict_paths, seed: int = 0, n_sen: int = EN_US["n_sen"],

@@ -16,6 +16,9 @@ if str(ROOT) not in sys.path:
 #: the test cells: the tiny configuration under each mix
 TINY_CELLS = {"tiny.batch": "batch", "tiny.stream": "stream",
               "tiny.quick": "quick"}
+#: a semi-continuous model with 5-state HMMs over the tiny task, under
+#: the quick mix: another model type and topology by files and entries
+SEMI5_CELL = "tiny-semi5.quick"
 
 
 #: the stream entry point's metrics, which no cell of BENCHMARK.json
@@ -35,7 +38,7 @@ STREAM_METRICS = {
 
 @pytest.fixture
 def spec_path(tmp_path):
-    """A temporary copy of BENCHMARK.json with one configuration, three
+    """A temporary copy of BENCHMARK.json with two configurations, four
     cells and the stream's metrics added, and each batch metric's cell
     list extended to the tiny batch cells: nothing else is edited."""
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -43,13 +46,20 @@ def spec_path(tmp_path):
         "name": "tiny", "source": "test only",
         "file": "benchmark/tests/data/tiny.json", "reduced": [],
         "why": "a 43-word task over a small synthetic model"})
+    spec["configs"].append({
+        "name": "tiny-semi5", "source": "test only",
+        "file": "benchmark/tests/data/tiny-semi5.json", "reduced": [],
+        "why": "the tiny task over one codebook and 5-state HMMs"})
     for name, mix in TINY_CELLS.items():
         spec["workloads"].append({"name": name, "config": "tiny",
                                   "traffic": mix, "chips": 1,
                                   "why": "test only"})
+    spec["workloads"].append({"name": SEMI5_CELL, "config": "tiny-semi5",
+                              "traffic": "quick", "chips": 1,
+                              "why": "test only"})
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "workloads" in m:
-            m["workloads"] += ["tiny.batch", "tiny.quick"]
+            m["workloads"] += ["tiny.batch", "tiny.quick", SEMI5_CELL]
     for key, metrics in STREAM_METRICS.items():
         spec[key] += [dict(m, workloads=["tiny.stream"]) for m in metrics]
     path = tmp_path / "BENCHMARK.json"

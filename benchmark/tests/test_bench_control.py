@@ -6,11 +6,11 @@ import pytest
 
 from benchmark import control as ctl
 from benchmark.harness.cells import load_cell
-from conftest import DATA
+from conftest import DATA, SEMI5_CELL
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["tiny.quick", "tiny.stream"])
+@pytest.mark.parametrize("cell", ["tiny.quick", "tiny.stream", SEMI5_CELL])
 def test_control_fails(spec_path, cuda_card, tmp_path, cell):
     c = load_cell(cell, spec_path, DATA / "traffic")
     fails = [ctl.control(c, seed, cuda_card, str(tmp_path))["fails"]
