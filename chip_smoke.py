@@ -97,9 +97,9 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    synthetic model over bench-20k.dic and
    bench-20k.lm.bin: the chain kernel at NST=5 against its plain version
    at that decoder's bucket list (ties on and off, timed as in phase 3),
-   one 2 s utterance through `decode_raw` with fan launches 0 and chain
-   launches equal to the frames stepped, and its records held equal to
-   the CPU's;
+   one 2 s utterance through `decode_raw` with fan and chain launches
+   each equal to the frames stepped, and its records held equal to the
+   CPU's;
 9. the reference scale and the corpus path: (a) the 126k-word task,
    bench-135k.lm.bin (V=126,032) over `synth.dictionary_for_lm` of its
    vocabulary with bench-20k.dic's pronunciations and a synthetic
@@ -107,7 +107,8 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    the LM read and decoder build seconds, W, E, the chain buckets, the
    fat rows and SB, and the three kernels held bit-equal to their plain
    versions at this decoder's shapes (ties on and off; the transition
-   kernel in LM mode C) and timed as in phases 2-3; (b) `BatchDecodePipeline.decode_corpus` on one card of 16
+   kernel in LM mode C; the fan kernel at 3 and at 5 states) and timed
+   as in phases 2-3; (b) `BatchDecodePipeline.decode_corpus` on one card of 16
    seeded utterances of 2-5 s (two B=8 batches), three times: audio-s/s (the
    median), stage seconds, peak memory, the guard count, fan and chain
    launches equal to the frames stepped; then one B=8 batch of short
@@ -126,7 +127,12 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    WAV files (`-adcin yes`), at `-batchsize 8` and 1, identical `-hyp`
    and `-hypseg` files; (e') `rows_transitions`: the word-transition
    kernel in LM mode rows, on a decoder of bench-1.7k.dic and
-   bench-1.7k.lm.bin, as in phase 3;
+   bench-1.7k.lm.bin, as in phase 3; (f) `semi_scale`: (a)'s task over a
+   seeded 5-state Sphinx-II semi-continuous s2_4x model (one codebook of
+   256, 5,000 senones), (b)'s utterances through `decode_corpus` with
+   the s2_4x features its feat.params names, twice after a warm call,
+   the fan, chain and transition launches each equal to the frames
+   stepped, both results equal, and `TwoStagePipeline` equal to them;
 10. the command-line program, the compat API and the flat search:
    (a) `cli_20k`: `cli.main` in-process on phase 7's model directory
    with bench-20k.dic and bench-20k.lm.bin, `single` on a seeded 2 s WAV
@@ -200,7 +206,9 @@ frame on each part of a "model" group).  Prints the kernels' JSON line
 phase 11(a)'s (`tp_launches`), phase 7's (`facade_launches`) and phase
 10(a)'s (`cli_launches`), the transition kernel's LM-mode-rows check as
 `rows_*` and its 70-phone check as `phones_*`; then at the 126k shapes,
-`*_126k`, with phase 9(b)'s and phase 11(b)-(d)'s; then the
+`*_126k`, with phase 9(b)'s and phase 11(b)-(d)'s; the fan kernel at
+5 states and the 126k shapes, `fan5_126k`, with phase 9(f)'s launches
+and phase 8(e)'s as `nst5_launches`; then the
 noise-removal kernel, `denoise`, with phase 5's launches and phase
 12(b)'s as `example_launches`), each phase's seconds, the card's name and
 power limit, then as its last line
@@ -256,16 +264,16 @@ NEG_INF = -1e30
 # helpers (importable without CUDA)
 # ---------------------------------------------------------------------------
 
-def fan_inputs(rng, B, NRC, W, LP, ties):
+def fan_inputs(rng, B, NRC, W, LP, ties, NST=3):
     """Random fan-step inputs in the style of tests/test_pallas_fan.py for
-    W multi-phone words: the carry, lp and tp padded to the fan carry's
-    width (`fan.padded_width`), with pads (lp's out of range) that no
-    result may read."""
+    W multi-phone words of NST-state HMMs: the carry, lp and tp padded to
+    the fan carry's width (`fan.padded_width`), with pads (lp's out of
+    range) that no result may read."""
     from pocketsphinx_tpu_torch.ops.fan import padded_width
     Wp = padded_width(W)
-    S = rng.uniform(-50, 0, (B, 3, NRC, Wp)).astype(np.float32)
+    S = rng.uniform(-50, 0, (B, NST, NRC, Wp)).astype(np.float32)
     pred = rng.uniform(-50, 0, (B, W)).astype(np.float32)
-    tp = rng.uniform(-12, 0, (12, Wp)).astype(np.float32)
+    tp = rng.uniform(-12, 0, (NST * (NST + 1), Wp)).astype(np.float32)
     if ties:
         S, pred, tp = np.round(S), np.round(pred), np.round(tp)
     S[:, 0, :, : W // 7] = NEG_INF
@@ -274,11 +282,11 @@ def fan_inputs(rng, B, NRC, W, LP, ties):
     lp = rng.integers(0, LP, Wp).astype(np.int32)
     lp[W:] = LP + 7
     return dict(
-        S=S, TF=rng.integers(0, 400, (B, 3, NRC, Wp)).astype(np.int32),
-        CX=rng.integers(0, 1 << 20, (B, 3, NRC, Wp)).astype(np.int32),
+        S=S, TF=rng.integers(0, 400, (B, NST, NRC, Wp)).astype(np.int32),
+        CX=rng.integers(0, 1 << 20, (B, NST, NRC, Wp)).astype(np.int32),
         pred=pred, ptf=rng.integers(0, 400, (B, W)).astype(np.int32),
         pcx=rng.integers(0, 1 << 20, (B, W)).astype(np.int32),
-        pre=rng.uniform(0, 60, (B, 3, NRC, LP)).astype(np.float32),
+        pre=rng.uniform(0, 60, (B, NST, NRC, LP)).astype(np.float32),
         lp=lp, tp=tp)
 
 
@@ -1373,9 +1381,9 @@ def modes(work, device, log=print, hmm=None, dic=None, lmfile=None,
     T = dec5.n_frames
     frames = -(-T // s5.CHUNK) * s5.CHUNK
     launches = counts()
-    if cuda and launches != {"fan": 0, "chain": frames,
+    if cuda and launches != {"fan": frames, "chain": frames,
                              "transitions": frames}:
-        raise AssertionError(f"5-state launches {launches} != fan 0, chain "
+        raise AssertionError(f"5-state launches {launches} != fan, chain "
                              f"and transitions {frames} (frames stepped)")
     st = {k: t.t_elapsed for k, t in dec5.stage_timers.items()}
     res["nst5"] = dict(frames=T, hyp=h.hypstr, launches=launches,
@@ -1506,14 +1514,17 @@ def _results(out):
 
 
 def reference_decoder(work, device, lmfile=None, base_dic=None, n_sen=None,
-                      n_density=None):
+                      n_density=None, semi=False):
     """Phase 9's task: `lmfile` (default bench-135k.lm.bin) over
     `synth.dictionary_for_lm` of its vocabulary with `base_dic`'s
     pronunciations (default bench-20k.dic) and a synthetic en-us-shaped
-    model over that dictionary, on `device`.  Returns (decoder, the
-    seconds of the model, the LM read and the decoder build)."""
+    model over that dictionary (with `semi`, a 5-state semi-continuous
+    s2_4x model directory, `synth.make_semi_model`, read by
+    `AcousticModel.load`), on `device`.  Returns (decoder, the seconds
+    of the model, the LM read and the decoder build)."""
     from pocketsphinx_tpu_torch.fileio.dictionary import Dictionary
     from pocketsphinx_tpu_torch.lm.ngram import read_lm
+    from pocketsphinx_tpu_torch.models.acoustic import AcousticModel
     from pocketsphinx_tpu_torch.models.dict2pid import Dict2Pid
     from pocketsphinx_tpu_torch.search.ngram_fused import NgramFusedDecoder
     from pocketsphinx_tpu_torch.testing import synth
@@ -1526,8 +1537,13 @@ def reference_decoder(work, device, lmfile=None, base_dic=None, n_sen=None,
     t0 = time.perf_counter()
     dic = synth.dictionary_for_lm(lmfile, base_dic,
                                   os.path.join(work, "lm_vocab.dic"))
-    am, noise = synth.make_model([dic], seed=0, **kw).load(
-        os.path.join(work, "model_lm_vocab"))
+    if semi:
+        hmm = synth.make_semi_model([dic], seed=0, **kw).write_model_dir(
+            os.path.join(work, "model_semi"))
+        am, noise = AcousticModel.load(hmm), os.path.join(hmm, "noisedict")
+    else:
+        am, noise = synth.make_model([dic], seed=0, **kw).load(
+            os.path.join(work, "model_lm_vocab"))
     d2p = Dict2Pid(am.mdef, Dictionary(am.mdef, dic, noise))
     res["model_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1591,6 +1607,9 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
     if cuda:
         res["fan"] = check_fan(batch, dec.n_rcp, dec.n_multi,
                                dec.senid_fin_d.shape[-1], log, m_prev=True)
+        res["fan5"] = check_fan(batch, dec.n_rcp, dec.n_multi,
+                                dec.senid_fin_d.shape[-1], log, m_prev=True,
+                                NST=5)
         res["chain"] = check_chain(batch, buckets_of(dec), log, m_prev=True)
         res["transitions"] = check_transitions(dec, fe, log, batch=batch)
         if profile:
@@ -1680,6 +1699,75 @@ def reference_scale(work, device, log=print, lmfile=None, base_dic=None,
         hold.update(decoder=dec, pcms=pcms, first=first,
                     guard=runs[0]["guard_violations"],
                     scan_ms_per_frame=med["scan_ms_per_frame"])
+    return res
+
+
+def semi_scale(work, device, log=print, lmfile=None, base_dic=None,
+               n_sen=5000, n_density=256, batch=8, repeats=2):
+    """Phase 9(f): phase 9's task over a seeded 5-state Sphinx-II
+    semi-continuous model (one codebook of `n_density` codewords, the
+    s2_4x streams 12, 24, 3 and 12, `n_sen` senones) on `device`:
+    `BatchDecodePipeline.decode_corpus` of phase 9(b)'s utterances, once
+    to warm up, then `repeats` times with the kernels' counts reset just
+    before: the features s2_4x as the model directory says, every fan,
+    chain and transition launch one per frame stepped (the word-final
+    block through the fan kernel at 5 states), every repeat's result
+    equal, audio-s/s, peak memory; then `TwoStagePipeline` equal to it.
+    Returns what it measured."""
+    from pocketsphinx_tpu_torch.frontend import feat as port_feat
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
+    from pocketsphinx_tpu_torch.parallel.pipeline import TwoStagePipeline
+
+    cuda = __import__("torch").device(device).type == "cuda"
+    dec, res = reference_decoder(work, device, lmfile, base_dic, n_sen,
+                                 n_density, semi=True)
+    if (dec.NST, dec.am.model_type, dec.am.feat_params["feat"]) != (
+            5, "semi", "s2_4x"):
+        raise AssertionError(f"semi model: NST={dec.NST}, type "
+                             f"{dec.am.model_type}, feat "
+                             f"{dec.am.feat_params['feat']}")
+    res["shape"] = dict(W=dec.W, n_multi=dec.n_multi, n_rc=dec.n_rcp,
+                        NST=dec.NST, LP=int(dec.senid_fin_d.shape[-1]),
+                        lm_mode=dec.lm_mode)
+    fe = en_us_frontend()
+    pcms = reference_utterances(batch)
+    audio_s = sum(len(p) for p in pcms) / fe.samprate
+    lens = sorted(len(p) for p in pcms)
+    ch = dec.CHUNK
+    frames = sum(-(-fe.n_frames(max(lens[i:i + batch])) // ch) * ch
+                 for i in range(0, len(lens), batch))
+    pipe = BatchDecodePipeline(dec, fe, mesh=make_mesh(1, device=dec.device))
+    if pipe.features is not port_feat.compute_feats_s2_4x:
+        raise AssertionError(f"semi model features: {pipe.features}")
+    first = _results(pipe.decode_corpus(pcms, batch_size=batch))
+    reset_counts()
+    _reset_peak(device)
+    runs = []
+    for _ in range(repeats):
+        t0 = _sync(device)
+        out = _results(pipe.decode_corpus(pcms, batch_size=batch))
+        runs.append(audio_s / (_sync(device) - t0))
+        if out != first:
+            raise AssertionError("semi model: repeated decode_corpus "
+                                 "changed its result")
+    launches = counts()
+    if cuda and launches != dict.fromkeys(KERNELS, frames * repeats):
+        raise AssertionError(f"semi model launches {launches} != frames "
+                             f"stepped {frames * repeats}")
+    res["corpus"] = dict(utts=len(pcms), audio_s=audio_s,
+                         frames_per_run=frames, launches=launches,
+                         audio_s_per_s=sorted(runs)[len(runs) // 2],
+                         runs=runs, hyps=[h for h, _ in first][:4],
+                         peak_mem_bytes=_peak(device))
+    t0 = _sync(device)
+    two = _results(TwoStagePipeline(dec, fe).decode_corpus(
+        pcms, micro_batch=batch))
+    res["two_stage_s"] = _sync(device) - t0
+    if two != first:
+        raise AssertionError("semi model: TwoStagePipeline differs from "
+                             "decode_corpus")
+    log("phase 9(f) semi-continuous 5-state s2_4x: "
+        + json.dumps(res, default=float))
     return res
 
 
@@ -2795,16 +2883,17 @@ def examples_1k7(work, hmm, log=print, dic=None, lmfile=None,
     return res
 
 
-def fan_bytes(B, NRC, W, LP, m_prev=False):
-    """Bytes a fan step over W words must move, counted without the
-    carry's pads: the S/TF/CX planes read and written, the exit plane,
-    pred/ptf/pcx, the exits, pre, lp, tp and the [B] maximum (and the
-    [B] offsets `m_prev`)."""
-    return 4 * (18 * B * NRC * W + B * NRC * W + 6 * B * W
-                + 3 * B * NRC * LP + 13 * W + B + (B if m_prev else 0))
+def fan_bytes(B, NRC, W, LP, m_prev=False, NST=3):
+    """Bytes a fan step over W words of NST-state HMMs must move, counted
+    without the carry's pads: the S/TF/CX planes read and written, the
+    exit plane, pred/ptf/pcx, the exits, pre, lp, tp and the [B] maximum
+    (and the [B] offsets `m_prev`)."""
+    return 4 * (6 * NST * B * NRC * W + B * NRC * W + 6 * B * W
+                + NST * B * NRC * LP + (1 + NST * (NST + 1)) * W + B
+                + (B if m_prev else 0))
 
 
-def check_fan(B, NRC, W, LP, log, m_prev=False):
+def check_fan(B, NRC, W, LP, log, m_prev=False, NST=3):
     """The fan kernel against its plain version on `fan_inputs`, ties off
     and on: every output bit-equal, the exit plane written into columns
     [0, W) of a [B, NRC, W + 13] buffer (the 20k scan's exit planes have
@@ -2813,13 +2902,13 @@ def check_fan(B, NRC, W, LP, log, m_prev=False):
     both timed, and the kernel's device time at each choice of its plane
     groups (`fan.GROUPS`; the wrapper's choice is `groups`).  With
     `m_prev`, every call takes "mixed" `m_prev_inputs` offsets, as the
-    scan's fan step does."""
+    scan's fan step does; NST: the HMM's states (`fan.NSTS`)."""
     import torch
     from pocketsphinx_tpu_torch.ops import fan
     rng = np.random.default_rng(0)
     err = 0.0
     for ties in (False, True):
-        a = fan_inputs(rng, B, NRC, W, LP, ties)
+        a = fan_inputs(rng, B, NRC, W, LP, ties, NST)
         if m_prev:
             a["m_prev"] = m_prev_inputs(rng, B, "mixed")
         dev = to_device(a, "cuda")
@@ -2838,10 +2927,13 @@ def check_fan(B, NRC, W, LP, log, m_prev=False):
     by_groups = {g: time_ms(lambda: fan.fan_step(**dev, out_f=view,
                                                  groups=g), graph=True)
                  for g in fan.GROUPS}
+    # (a tree whose kernel takes 3 states alone has no NST argument)
     groups = fan._groups(B, dev["S"].shape[-1], LP, torch.cuda.
-                         get_device_properties(0).multi_processor_count)
-    bms, by = bound_ms(fan_bytes(B, NRC, W, LP, m_prev), 18 * B * NRC * W)
-    log(f"fan B={B} NRC={NRC} W={W} LP={LP}"
+                         get_device_properties(0).multi_processor_count,
+                         **({"NST": NST} if NST != 3 else {}))
+    bms, by = bound_ms(fan_bytes(B, NRC, W, LP, m_prev, NST),
+                       6 * NST * B * NRC * W)
+    log(f"fan NST={NST} B={B} NRC={NRC} W={W} LP={LP}"
         f"{' with m_prev' if m_prev else ''}: bit-equal (exit plane into a "
         f"strided view, partial maxima); device time: kernel {ms:.4f} ms "
         f"({groups} plane groups; by groups "
@@ -3203,6 +3295,10 @@ for key, W in (("fan_20k", dec.n_multi), ("fan_126k", 125973)):
     r = ab.check_fan(8, dec.n_rcp, W, dec.senid_fin_d.shape[-1], quiet,
                      m_prev=mp)
     out[key] = [r["ms"], r["wrapper_ms"]]
+if 5 in getattr(fan, "NSTS", ()):
+    r = ab.check_fan(8, dec.n_rcp, 125973, dec.senid_fin_d.shape[-1], quiet,
+                     m_prev=mp, NST=5)
+    out["fan5_126k"] = [r["ms"], r["wrapper_ms"]]
 r = ab.check_chain(8, ab.buckets_of(dec), quiet, m_prev=mp)
 out["chain_20k"] = [r["ms"], r["wrapper_ms"]]
 # the word-transition kernel at the 20k, 1.7k and 126k shapes (device ms,
@@ -3240,7 +3336,8 @@ def ab(trees, log):
     records: wall ms per frame, device ms per frame, busy share, device and host launches per frame, peak
     memory, through the graph and stepped eagerly, or the tree's one
     path); the fan kernel's device and through-Python ms at the 20k and
-    126k shapes and the chain kernel's at the 20k and 126k buckets (this
+    126k shapes (at 5 states too where the tree's kernel takes them) and
+    the chain kernel's at the 20k and 126k buckets (this
     script's `check_fan` and `check_chain`, with `m_prev` where the tree
     takes it) and the word-transition kernel's at the 20k, 1.7k and 126k
     shapes (`check_transitions`)."""
@@ -3259,8 +3356,8 @@ def ab(trees, log):
         log(f"{tree} kernels (device ms, through Python ms; m_prev "
             f"{res.get('m_prev', False)}): "
             + ", ".join(f"{k} {res[k][0]:.4f} / {res[k][1]:.4f}"
-                        for k in ("fan_20k", "fan_126k", "chain_20k",
-                                  "chain_126k") if k in res))
+                        for k in ("fan_20k", "fan_126k", "fan5_126k",
+                                  "chain_20k", "chain_126k") if k in res))
         for width in ("20k", "20k_b1", "126k", "126k_b1"):
             for mode, m in res.get(f"scan_{width}", {}).items():
                 log(f"{tree} {width} {mode}: wall "
@@ -3407,6 +3504,12 @@ def main(argv):
         log(f"phase 11(b-d) ({time.perf_counter() - t1:.1f} s); phase 11 "
             f"{t11:.1f} s on {smi}")
         t9 += time.perf_counter() - t1
+        # phase 9(f), the 5-state semi-continuous model at 126k, after
+        # phase 9's decoder is freed
+        t0 = time.perf_counter()
+        semi = semi_scale(work, "cuda", log=log)
+        log(f"phase 9(f) ({time.perf_counter() - t0:.1f} s) on {smi}")
+        t9 += time.perf_counter() - t0
         t0 = time.perf_counter()
         batch_cli(work, "cuda", log=log)
         rows_res = rows_transitions(work, log=log)
@@ -3484,6 +3587,13 @@ def main(argv):
         for key in [x for x in k
                     if x.startswith(("nst5", "rows_", "phones_"))]:
             del kernels[-1][key]
+    # the fan kernel at 5 states, the 126k shapes: phase 9(f)'s launches
+    # (the semi-continuous model's decode_corpus) and phase 8(e)'s
+    # (`nst5_launches`, the 5-state decode_raw at 20k)
+    kernels.append(dict(
+        kernels[3], name="fan5_126k", launches=semi["corpus"]["launches"]
+        ["fan"], tp_launches=0, nst5_launches=mres["nst5"]["launches"]
+        ["fan"], **ref["fan5"]))
     # the frontend's gains kernel: its launches on the main path (phase 5)
     # and in `torch_batch.py` (phase 12(b))
     kernels.append(dict(name="denoise", route="cuda",

@@ -1,8 +1,11 @@
-// Word-final right-context fan step for Hopper (sm_90a).
+// Word-final right-context fan step for Hopper (sm_90a), for HMMs of
+// NST = 3 or 5 emitting states.
 //
 // Replaces the Pallas TPU kernel `_kernel` of
 // pocketsphinx_tpu/ops/pallas_fan.py (called through `fan_step`), the
-// finals block of the fused n-gram scan (search/ngram_fused.py).
+// finals block of the fused n-gram scan (search/ngram_fused.py); the JAX
+// package runs its Pallas kernel at 3 states and the same block as XLA
+// ops at 5, which this kernel also takes.
 //
 // For every batch element b and multi-phone word w < Wm, over every
 // right-context plane rc:
@@ -10,8 +13,10 @@
 //   s_j     = (S[b, j, rc, w] - mprev[b]) + sen_j
 //             (the previous frame's renormalization, deferred by the scan
 //             to this load, then the emission on the source)
-//   exit    = max(s1 + tp[1->3], s2 + tp[2->3]) with ties to state 1
-//   state 2 = best of from(1) > self > skip(0); state 1 = from(0) > self;
+//   exit    = max(s_{N-2} + tp[N-2->N], s_{N-1} + tp[N-1->N]) with ties
+//             to state N-2 (N = NST)
+//   state j >= 2 = best of from(j-1) > self > skip(j-2);
+//   state 1 = from(0) > self;
 //   state 0 = self loop, then the chain-last entry pred[b, w] merged in
 //             on a strict '>' (ops/hmm.py hmm_step_sm tie rules)
 // and writes the exit plane out_f[b, rc, w] (a strided view: the scan
@@ -20,16 +25,18 @@
 // block the max of the new S over its real words (the scan's
 // renormalization folds these partial maxima into its max).
 //
-// Layout: the fan carry S/TF/CX [B, 3, NRC, Wp] is padded to Wp, a
-// multiple of 4 columns, as are lp [Wp] and tp [12, Wp]; pred/ptf/pcx
-// and the exits are [B, Wm].  The pads of the new carry are written as
-// NEG_INF scores and 0 payloads and reach no other output.
+// Layout: the fan carry S/TF/CX [B, NST, NRC, Wp] is padded to Wp, a
+// multiple of 4 columns, as are lp [Wp] and tp [NST (NST + 1), Wp] (row
+// j (NST + 1) + k: j -> k); pred/ptf/pcx and the exits are [B, Wm].  The
+// pads of the new carry are written as NEG_INF scores and 0 payloads and
+// reach no other output.
 //
 // What bounds it on an H100: bytes.  Each launch reads and writes the
-// S/TF/CX planes (9 planes of [NRC, Wm] words per batch element) and
-// writes out_f: 19 words per (b, rc, w), about 500 MB at B = 8, NRC = 41,
-// Wm = 20,035, so at least about 0.15 ms at 3.35 TB/s.  The arithmetic is
-// a dozen adds and compares per element, far below the float32 rate.
+// S/TF/CX planes (3 NST planes of [NRC, Wm] words per batch element) and
+// writes out_f: 6 NST + 1 words per (b, rc, w), about 3.2 GB at 3 states
+// and 5.2 GB at 5 with B = 8, NRC = 41, Wm = 125,973, so at least about
+// 0.95 and 1.54 ms at 3.35 TB/s.  The arithmetic is a few adds and
+// compares per element, far below the float32 rate.
 //
 // What the design does about it:
 //   * 16-byte accesses: a thread owns 4 adjacent words and moves S/TF/CX
@@ -42,14 +49,23 @@
 //     in shared memory in rc order, so the first maximal rc still wins;
 //     the wrapper picks G (1, 2 or 4) so that the grid fills the card;
 //   * the diphone costs in shared memory: for each step, every group's
-//     rows pre[b, 0:3, rc, 0:LP] are copied into shared memory with
+//     rows pre[b, 0:NST, rc, 0:LP] are copied into shared memory with
 //     cp.async, double-buffered, while the step's planes are in flight;
 //     each word then reads its cost there (a scattered gather through
 //     L1 otherwise);
-//   * registers: a thread keeps its words' tp columns, chain-last
-//     entries and running exits in registers (about 165: one block of
-//     256 threads per SM); capped at 128 for two blocks per SM it spilled
-//     and ran slower;
+//   * the transition rows: a word reads 3 NST - 1 of its NST (NST + 1)
+//     rows (8 at 3 states, 14 at 5).  At 3 states a thread keeps its
+//     words' 8 rows in registers (about 157 in all: one block of 256
+//     threads per SM; capped at 128 for two blocks per SM it spilled and
+//     ran slower).  At 5 states 14 rows x 4 words would add 24 registers
+//     to a thread that also holds 15 vector loads in flight, so the block
+//     stages its words' 14 rows in shared memory once and each state
+//     reads its three rows there as float4 when it is updated (about 184
+//     registers, no spills);
+//   * the states are updated top down, one at a time over the thread's 4
+//     words, and each state's new planes are stored as soon as they are
+//     made, so the pre-update scores and payloads a state no longer
+//     needs die early;
 //   * no passes around the kernel: the exit plane is written into the
 //     scan's exit buffer, the renormalization's max is reduced here, and
 //     its subtraction is applied here on the next frame's load (mprev),
@@ -66,10 +82,44 @@ namespace {
 
 constexpr int TPB = 256;            // threads per block
 constexpr float NEG_INF = -1e30f;   // a dead score (ops/hmm.py NEG_INF)
-// tp rows read per word: tp[j * 4 + k] = tp[j -> k]
-constexpr int TP00 = 0, TP01 = 1, TP02 = 2, TP11 = 3, TP12 = 4, TP13 = 5,
-              TP22 = 6, TP23 = 7;
-__constant__ int TP_ROW[8] = {0, 1, 2, 5, 6, 7, 10, 11};
+
+// The transition rows a word reads, numbered 0 .. 3 NST - 2: 0 -> 0,
+// 0 -> 1, 1 -> 1, then for each state j >= 2 (j-1 -> j, j -> j,
+// j-2 -> j), then the exits NST-2 -> NST, NST-1 -> NST.
+template <int NST>
+__host__ __device__ constexpr int n_rows() { return 3 * NST - 1; }
+
+template <int NST>
+__host__ __device__ constexpr int slot(int from, int to) {
+  if (to == NST) return 3 * NST - 3 + (from - (NST - 2));
+  if (to <= 1) return from + to;                   // 0->0: 0, 0->1: 1, 1->1: 2
+  return 3 + 3 * (to - 2) + (from == to - 1 ? 0 : from == to ? 1 : 2);
+}
+
+// tp's row of the r-th transition a word reads
+template <int NST>
+__host__ __device__ constexpr int tp_row(int r) {
+  for (int to = 0; to <= NST; ++to)
+    for (int from = 0; from < NST; ++from) {
+      const bool arc = to == NST ? from >= NST - 2
+                       : to <= 1 ? from <= to
+                                 : from >= to - 2 && from <= to;
+      if (arc && slot<NST>(from, to) == r) return from * (NST + 1) + to;
+    }
+  return -1;
+}
+
+// the floats of dynamic shared memory before the transition rows: the
+// double-buffered diphone costs, or after the walk the groups' exits
+__host__ __device__ constexpr size_t stage_floats(int NST, int G, int LP) {
+  const size_t stage = (size_t)2 * G * NST * LP;
+  const size_t exits = (size_t)3 * 4 * TPB;
+  return ((stage > exits ? stage : exits) + 3) / 4 * 4;   // 16-byte end
+}
+
+// whether a block keeps its words' transition rows in shared memory
+template <int NST>
+__host__ __device__ constexpr bool tp_shared() { return NST > 3; }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -95,7 +145,7 @@ __device__ __forceinline__ void unpack(const int4 v, int32_t* x) {
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
 
-template <int G>
+template <int NST, int G>
 __global__ void __launch_bounds__(TPB)
 fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
            const int32_t* __restrict__ CX, const float* __restrict__ mprev,
@@ -110,7 +160,10 @@ fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
            int Wm, int Wp, int LP) {
   constexpr int TW = TPB / G;      // threads across a block's words
   constexpr int WB = 4 * TW;       // words per block
-  // [2][G][3][LP] diphone costs; after the walk, the groups' exits
+  constexpr int NT = n_rows<NST>();
+  constexpr bool TP_SHARED = tp_shared<NST>();
+  // [2][G][NST][LP] diphone costs (after the walk, the groups' exits),
+  // then with TP_SHARED the block's transition rows [NT][WB]
   extern __shared__ __align__(16) float smem[];
   __shared__ float wmax[TPB / 32];
 
@@ -121,17 +174,25 @@ fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
   const bool live = w0 < Wp;
   const int r0 = g * NRC / G, r1 = (g + 1) * NRC / G;   // group's planes
   const int steps = (NRC + G - 1) / G;
+  float* const tps = smem + stage_floats(NST, G, LP);
 
-  float tq[8][4];
+  float tq[TP_SHARED ? 1 : NT][4];
   int32_t lpw[4];
   float pw[4];
   int32_t ptfw[4], pcxw[4];
   bool real[4];
   if (live) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r)
-      unpack(*reinterpret_cast<const float4*>(tp + (size_t)TP_ROW[r] * Wp
-                                              + w0), tq[r]);
+    for (int r = 0; r < NT; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          tp + (size_t)tp_row<NST>(r) * Wp + w0);
+      if constexpr (TP_SHARED) {
+        if (g == 0)     // the groups share the block's words
+          *reinterpret_cast<float4*>(tps + r * WB + 4 * tx) = v;
+      } else {
+        unpack(v, tq[r]);
+      }
+    }
     unpack(*reinterpret_cast<const int4*>(lp + w0), lpw);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -143,17 +204,27 @@ fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
       pcxw[k] = real[k] ? pcx[i] : 0;
     }
   }
+  // row r of the thread's 4 words (the first step's barrier orders the
+  // staging before any read)
+  auto row = [&](int r, float* x) {
+    if constexpr (TP_SHARED) {
+      unpack(*reinterpret_cast<const float4*>(tps + r * WB + 4 * tx), x);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[k] = tq[r][k];
+    }
+  };
 
   const size_t plane = (size_t)NRC * Wp;            // one state's [NRC, Wp]
-  const size_t base = (size_t)b * 3 * plane + w0;
-  const float* preb = pre + (size_t)b * 3 * NRC * LP;
+  const size_t base = (size_t)b * NST * plane + w0;
+  const float* preb = pre + (size_t)b * NST * NRC * LP;
   // copy step i's rows of this group into buffer s; one commit group
   auto stage = [&](int i, int s) {
     const int rc = r0 + i;
     if (rc < r1) {
-      float* dst = smem + (size_t)(s * G + g) * 3 * LP;
+      float* dst = smem + (size_t)(s * G + g) * NST * LP;
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
+      for (int j = 0; j < NST; ++j) {
         const float* src = preb + ((size_t)j * NRC + rc) * LP;
         for (int l = tx; l < LP; l += TW)
           cp_async4(dst + j * LP + l, src + l);
@@ -169,13 +240,12 @@ fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
   for (int i = 0; i < steps; ++i) {
     const int rc = r0 + i;
     const bool on = live && rc < r1;
-    const size_t i0 = base + (size_t)rc * Wp, i1 = i0 + plane,
-                 i2 = i1 + plane;
-    float4 s4[3];
-    int4 f4[3], c4[3];
+    const size_t i0 = base + (size_t)rc * Wp;
+    float4 s4[NST];
+    int4 f4[NST], c4[NST];
     if (on) {                   // the step's planes go out before the wait
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
+      for (int j = 0; j < NST; ++j) {
         s4[j] = *reinterpret_cast<const float4*>(S + i0 + j * plane);
         f4[j] = *reinterpret_cast<const int4*>(TF + i0 + j * plane);
         c4[j] = *reinterpret_cast<const int4*>(CX + i0 + j * plane);
@@ -188,102 +258,95 @@ fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
     cp_async_wait_prev();
     __syncthreads();
     if (on) {
-      const float* cost = smem + (size_t)((i & 1) * G + g) * 3 * LP;
-      float S0[4], S1[4], S2[4];
-      int32_t m0tf[4], m1tf[4], m2tf[4], m0cx[4], m1cx[4], m2cx[4];
-      unpack(s4[0], S0); unpack(s4[1], S1); unpack(s4[2], S2);
+      const float* cost = smem + (size_t)((i & 1) * G + g) * NST * LP;
+      float s[NST][4];
+      int32_t tf[NST][4], cx[NST][4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {       // the deferred renormalization
-        S0[k] = S0[k] - mp;
-        S1[k] = S1[k] - mp;
-        S2[k] = S2[k] - mp;
+      for (int j = 0; j < NST; ++j) {
+        unpack(s4[j], s[j]);
+        unpack(f4[j], tf[j]);
+        unpack(c4[j], cx[j]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s[j][k] = s[j][k] - mp;           // the deferred renormalization
+          s[j][k] = s[j][k] + (-cost[j * LP + lpw[k]]);
+        }
       }
-      unpack(f4[0], m0tf); unpack(f4[1], m1tf); unpack(f4[2], m2tf);
-      unpack(c4[0], m0cx); unpack(c4[1], m1cx); unpack(c4[2], m2cx);
-      float o0[4], o1[4], o2[4];
-      int32_t t0[4], t1[4], t2[4], x0[4], x1[4], x2[4];
+
+      // non-emitting exit from pre-update values (priority NST-2)
+      float tlo[4], thi[4];
+      row(slot<NST>(NST - 2, NST), tlo);
+      row(slot<NST>(NST - 1, NST), thi);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const int l = lpw[k];
-        const float s0 = S0[k] + (-cost[l]);
-        const float s1 = S1[k] + (-cost[LP + l]);
-        const float s2 = S2[k] + (-cost[2 * LP + l]);
-
-        // non-emitting exit from pre-update values (priority 1 over 2)
-        const float lo = s1 + tq[TP13][k];
-        const float hi = s2 + tq[TP23][k];
+        const float lo = s[NST - 2][k] + tlo[k];
+        const float hi = s[NST - 1][k] + thi[k];
         const bool hi_wins = hi > lo;
         const float out = hi_wins ? hi : lo;
-        const int32_t otf = hi_wins ? m2tf[k] : m1tf[k];
-        const int32_t ocx = hi_wins ? m2cx[k] : m1cx[k];
-
-        // state 2: from(1) > self > skip(0)
-        const float prev2 = s1 + tq[TP12][k];
-        const float self2 = s2 + tq[TP22][k];
-        const float skip2 = s0 + tq[TP02][k];
-        const bool take_self2 = self2 > prev2;
-        const float best2 = take_self2 ? self2 : prev2;
-        const bool take_skip2 = skip2 > best2;
-        const float n2 = take_skip2 ? skip2 : best2;
-        const int32_t n2tf = take_skip2 ? m0tf[k]
-                                        : (take_self2 ? m2tf[k] : m1tf[k]);
-        const int32_t n2cx = take_skip2 ? m0cx[k]
-                                        : (take_self2 ? m2cx[k] : m1cx[k]);
-
-        // state 1: from(0) > self
-        const float prev1 = s0 + tq[TP01][k];
-        const float self1 = s1 + tq[TP11][k];
-        const bool take_self1 = self1 > prev1;
-        const float n1 = take_self1 ? self1 : prev1;
-        const int32_t n1tf = take_self1 ? m1tf[k] : m0tf[k];
-        const int32_t n1cx = take_self1 ? m1cx[k] : m0cx[k];
-
-        // state 0: self loop, then the chain-last entry (strict >)
-        float n0 = s0 + tq[TP00][k];
-        const bool win = pw[k] > n0;
-        n0 = win ? pw[k] : n0;
-        const int32_t n0tf = win ? ptfw[k] : m0tf[k];
-        const int32_t n0cx = win ? pcxw[k] : m0cx[k];
-
         if (real[k]) {
           outf[(size_t)b * ob + (size_t)rc * orc + w0 + k] = out;
-          m = n0 > m ? n0 : m;
-          m = n1 > m ? n1 : m;
-          m = n2 > m ? n2 : m;
           if (i == 0 || out > best[k]) {   // first maximal rc
             best[k] = out;
-            btf[k] = otf;
-            bcx[k] = ocx;
+            btf[k] = hi_wins ? tf[NST - 1][k] : tf[NST - 2][k];
+            bcx[k] = hi_wins ? cx[NST - 1][k] : cx[NST - 2][k];
           }
         }
-        o0[k] = real[k] ? n0 : NEG_INF;
-        o1[k] = real[k] ? n1 : NEG_INF;
-        o2[k] = real[k] ? n2 : NEG_INF;
-        t0[k] = real[k] ? n0tf : 0;
-        t1[k] = real[k] ? n1tf : 0;
-        t2[k] = real[k] ? n2tf : 0;
-        x0[k] = real[k] ? n0cx : 0;
-        x1[k] = real[k] ? n1cx : 0;
-        x2[k] = real[k] ? n2cx : 0;
       }
-      *reinterpret_cast<float4*>(nS + i0) =
-          make_float4(o0[0], o0[1], o0[2], o0[3]);
-      *reinterpret_cast<float4*>(nS + i1) =
-          make_float4(o1[0], o1[1], o1[2], o1[3]);
-      *reinterpret_cast<float4*>(nS + i2) =
-          make_float4(o2[0], o2[1], o2[2], o2[3]);
-      *reinterpret_cast<int4*>(nTF + i0) =
-          make_int4(t0[0], t0[1], t0[2], t0[3]);
-      *reinterpret_cast<int4*>(nTF + i1) =
-          make_int4(t1[0], t1[1], t1[2], t1[3]);
-      *reinterpret_cast<int4*>(nTF + i2) =
-          make_int4(t2[0], t2[1], t2[2], t2[3]);
-      *reinterpret_cast<int4*>(nCX + i0) =
-          make_int4(x0[0], x0[1], x0[2], x0[3]);
-      *reinterpret_cast<int4*>(nCX + i1) =
-          make_int4(x1[0], x1[1], x1[2], x1[3]);
-      *reinterpret_cast<int4*>(nCX + i2) =
-          make_int4(x2[0], x2[1], x2[2], x2[3]);
+
+      // the states top down, each stored as soon as it is made
+#pragma unroll
+      for (int j = NST - 1; j >= 0; --j) {
+        float o[4];
+        int32_t t[4], x[4];
+        if (j >= 1) {                       // from(j-1) > self > skip(j-2)
+          float tprev[4], tself[4], tskip[4];
+          row(slot<NST>(j - 1, j), tprev);
+          row(slot<NST>(j, j), tself);
+          if (j >= 2) row(slot<NST>(j - 2, j), tskip);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float prev = s[j - 1][k] + tprev[k];
+            const float self = s[j][k] + tself[k];
+            const bool take_self = self > prev;
+            float n = take_self ? self : prev;
+            int32_t nt = take_self ? tf[j][k] : tf[j - 1][k];
+            int32_t nc = take_self ? cx[j][k] : cx[j - 1][k];
+            if (j >= 2) {
+              const float skip = s[j - 2][k] + tskip[k];
+              const bool take_skip = skip > n;
+              n = take_skip ? skip : n;
+              nt = take_skip ? tf[j - 2][k] : nt;
+              nc = take_skip ? cx[j - 2][k] : nc;
+            }
+            o[k] = n; t[k] = nt; x[k] = nc;
+          }
+        } else {                            // self loop, then the entry
+          float tself[4];
+          row(slot<NST>(0, 0), tself);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float n = s[0][k] + tself[k];
+            const bool win = pw[k] > n;
+            o[k] = win ? pw[k] : n;
+            t[k] = win ? ptfw[k] : tf[0][k];
+            x[k] = win ? pcxw[k] : cx[0][k];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (real[k]) m = o[k] > m ? o[k] : m;
+          o[k] = real[k] ? o[k] : NEG_INF;
+          t[k] = real[k] ? t[k] : 0;
+          x[k] = real[k] ? x[k] : 0;
+        }
+        const size_t ij = i0 + j * plane;
+        *reinterpret_cast<float4*>(nS + ij) = make_float4(o[0], o[1], o[2],
+                                                          o[3]);
+        *reinterpret_cast<int4*>(nTF + ij) = make_int4(t[0], t[1], t[2],
+                                                       t[3]);
+        *reinterpret_cast<int4*>(nCX + ij) = make_int4(x[0], x[1], x[2],
+                                                       x[3]);
+      }
     }
     __syncthreads();            // buffer i & 1 is refilled at step i + 2
   }
@@ -338,14 +401,15 @@ fan_kernel(const float* __restrict__ S, const int32_t* __restrict__ TF,
   }
 }
 
-// the dynamic shared memory a block of kernel<G> takes
-size_t smem_bytes(int G, int LP) {
-  const size_t stage = (size_t)2 * G * 3 * LP * sizeof(float);
-  const size_t exits = (size_t)3 * 4 * TPB * sizeof(float);
-  return stage > exits ? stage : exits;
+// the dynamic shared memory a block of fan_kernel<NST, G> takes
+template <int NST, int G>
+size_t smem_bytes(int LP) {
+  const size_t rows =
+      tp_shared<NST>() ? (size_t)n_rows<NST>() * 4 * (TPB / G) : 0;
+  return (stage_floats(NST, G, LP) + rows) * sizeof(float);
 }
 
-template <int G>
+template <int NST, int G>
 int launch(const void* S, const void* TF, const void* CX, const void* mprev,
            const void* pred, const void* ptf, const void* pcx,
            const void* pre, const void* lp, const void* tp, void* nS,
@@ -362,9 +426,10 @@ int launch(const void* S, const void* TF, const void* CX, const void* mprev,
     cudaFuncAttributes fa;
     cudaError_t err = cudaDeviceGetAttribute(
         &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, fan_kernel<G>);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(fan_kernel<G>,
+      err = cudaFuncGetAttributes(&fa, fan_kernel<NST, G>);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(fan_kernel<NST, G>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  most - (int)fa.sharedSizeBytes);
     if (err != cudaSuccess) return (int)err;
@@ -372,7 +437,7 @@ int launch(const void* S, const void* TF, const void* CX, const void* mprev,
   }
   constexpr int WB = 4 * (TPB / G);
   dim3 grid((Wp + WB - 1) / WB, B);
-  fan_kernel<G><<<grid, TPB, smem_bytes(G, LP), stream>>>(
+  fan_kernel<NST, G><<<grid, TPB, smem_bytes<NST, G>(LP), stream>>>(
       (const float*)S, (const int32_t*)TF, (const int32_t*)CX,
       (const float*)mprev, (const float*)pred, (const int32_t*)ptf,
       (const int32_t*)pcx, (const float*)pre, (const int32_t*)lp,
@@ -384,9 +449,10 @@ int launch(const void* S, const void* TF, const void* CX, const void* mprev,
 
 }  // namespace
 
-// One fan step on `stream`.  `groups` (1, 2 or 4) splits the planes
-// of a block; mx receives [B, ceil(Wp / (1024 / groups))] partial maxima.
-// mprev: [B] offsets to subtract from S as it is loaded (zeros for none).
+// One fan step on `stream` for NST (3 or 5) states.  `groups` (1, 2 or 4)
+// splits the planes of a block; mx receives [B, ceil(Wp / (1024 /
+// groups))] partial maxima.  mprev: [B] offsets to subtract from S as it
+// is loaded (zeros for none).
 extern "C" int fan_step_launch(const void* S, const void* TF, const void* CX,
                                const void* mprev, const void* pred,
                                const void* ptf, const void* pcx,
@@ -395,18 +461,25 @@ extern "C" int fan_step_launch(const void* S, const void* TF, const void* CX,
                                void* nTF, void* nCX, void* outf, void* esc,
                                void* etf, void* ecx, void* mx, long long ob,
                                long long orc, int B, int NRC, int Wm, int Wp,
-                               int LP, int groups, void* stream) {
+                               int LP, int nst, int groups, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define FAN_LAUNCH(G)                                                       \
-  return launch<G>(S, TF, CX, mprev, pred, ptf, pcx, pre, lp, tp, nS, nTF, \
-                   nCX, outf, ob, orc, esc, etf, ecx, mx, B, NRC, Wm, Wp,  \
-                   LP, st)
-  switch (groups) {
-    case 1: FAN_LAUNCH(1);
-    case 2: FAN_LAUNCH(2);
-    case 4: FAN_LAUNCH(4);
+#define FAN_LAUNCH(N, G)                                                    \
+  return launch<N, G>(S, TF, CX, mprev, pred, ptf, pcx, pre, lp, tp, nS,   \
+                      nTF, nCX, outf, ob, orc, esc, etf, ecx, mx, B, NRC,  \
+                      Wm, Wp, LP, st)
+#define FAN_GROUPS(N)                     \
+  switch (groups) {                       \
+    case 1: FAN_LAUNCH(N, 1);             \
+    case 2: FAN_LAUNCH(N, 2);             \
+    case 4: FAN_LAUNCH(N, 4);             \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+  switch (nst) {
+    case 3: FAN_GROUPS(3);
+    case 5: FAN_GROUPS(5);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FAN_GROUPS
 #undef FAN_LAUNCH
 }
 

@@ -10,7 +10,9 @@ halves, with these names (JAX package -> port):
     `parse_subvecs` keep their names; `compute_feats` ->
     `compute_feats_host`;
   * the batched device half: `compute_feats_jax` -> `compute_feats`
-    (torch; CMN 'batch' or 'none').
+    (torch; CMN 'batch' or 'none'), and the port's own
+    `compute_feats_s2_4x` (Sphinx-II's four streams, batched), chosen by
+    a model's feature type through `batch_features`.
 
 Feature definition for "1s_c_d_dd" (the en-us model type):
     win = 3 (FEAT_DCEP_WIN + 1)
@@ -29,6 +31,8 @@ import torch
 
 FEAT_DCEP_WIN = 2
 WIN = FEAT_DCEP_WIN + 1  # feat_window_size for 1s_c_d_dd
+#: en-us's split of the 39-dim 1s_c_d_dd vector into the streams c, d, dd
+EN_US_SVSPEC = "0-12/13-25/26-38"
 
 
 # ---------------------------------------------------------------------------
@@ -306,18 +310,14 @@ def parse_subvecs(spec: str) -> list[np.ndarray]:
 # Batched device half
 # ---------------------------------------------------------------------------
 
-def compute_feats(cep, n_frames=None, cmn: str = "batch"):
-    """Batched dynamic features.
-
-    cep: [B, T, 13] float32 (padded); n_frames: [B] int valid frame
-    counts (None = all T valid).  Returns [B, T, 3, 13]; frames >=
-    n_frames hold edge-replicated values and must be masked downstream.
-    """
+def _batch_cmn(cep, n_frames, cmn: str):
+    """cep [B, T, C] less each utterance's mean over its frames (< its
+    n_frames) whose c0 >= 0 (CMN 'batch'), or as it is ('none'); and the
+    clamped gather `at(off)` [B, T, C] of frame t + off, the index held
+    to [0, n_frames - 1]: the reference's first/last-frame padding for
+    any per-utterance length."""
     B, T, C = cep.shape
     dev = cep.device
-    if n_frames is None:
-        n_frames = torch.full((B,), T, dtype=torch.int32, device=dev)
-    n_frames = torch.as_tensor(n_frames, device=dev)
     t_idx = torch.arange(T, device=dev)[None, :]
     valid = t_idx < n_frames[:, None]                         # [B, T]
     if cmn == "batch":
@@ -328,16 +328,77 @@ def compute_feats(cep, n_frames=None, cmn: str = "batch"):
     elif cmn != "none":
         raise NotImplementedError(f"cmn={cmn!r}: only 'batch' and 'none' "
                                   f"are ported")
-    # replicated-edge gather: clamping the index to [0, n_frames-1] is the
-    # reference's first/last-frame padding for any per-utterance length
     last = (n_frames - 1)[:, None]
 
     def at(off):
         idx = torch.minimum(torch.clamp(t_idx + off, min=0), last)
         idx = idx.clamp(min=0).expand(B, T).long()
         return torch.gather(cep, 1, idx[..., None].expand(B, T, C))
+    return at
 
+
+def _frames(cep, n_frames):
+    B, T, _ = cep.shape
+    if n_frames is None:
+        return torch.full((B,), T, dtype=torch.int32, device=cep.device)
+    return torch.as_tensor(n_frames, device=cep.device)
+
+
+def compute_feats(cep, n_frames=None, cmn: str = "batch"):
+    """Batched dynamic features.
+
+    cep: [B, T, 13] float32 (padded); n_frames: [B] int valid frame
+    counts (None = all T valid).  Returns [B, T, 3, 13]; frames >=
+    n_frames hold edge-replicated values and must be masked downstream.
+    """
+    at = _batch_cmn(cep, _frames(cep, n_frames), cmn)
     c = at(0)
     d = at(2) - at(-2)
     dd = (at(3) - at(-1)) - (at(1) - at(-3))
     return torch.stack([c, d, dd], dim=2)
+
+
+def compute_feats_s2_4x(cep, n_frames=None, cmn: str = "batch"):
+    """Batched Sphinx-II features (`compute_feats_typed`'s "s2_4x",
+    feat_s2_4x_cep2feat, src/feat/feat.c:425): the four streams
+
+        0 (12): c1-12
+        1 (24): d1-12 = c(t+2) - c(t-2), then the long d1-12 =
+                c(t+4) - c(t-4)
+        2 (3):  c0, d0, dd0
+        3 (12): dd1-12 = (c(t+3) - c(t-1)) - (c(t+1) - c(t-3))
+
+    after CMN, each utterance's first and last frames repeated past its
+    ends.  cep: [B, T, 13] float32 (padded); n_frames: [B] (None = all
+    T valid).  Returns [B, T, 4, 24], the lanes past a stream's width
+    zero; frames >= n_frames hold edge-replicated values."""
+    B, T, C = cep.shape
+    if C != 13:
+        raise ValueError(f"s2_4x features take 13 cepstra, not {C}")
+    at = _batch_cmn(cep, _frames(cep, n_frames), cmn)
+    c = at(0)
+    d = at(2) - at(-2)
+    d_long = at(4) - at(-4)
+    dd = (at(3) - at(-1)) - (at(1) - at(-3))
+    out = cep.new_zeros((B, T, 4, 24))
+    out[:, :, 0, :12] = c[..., 1:]
+    out[:, :, 1, :12] = d[..., 1:]
+    out[:, :, 1, 12:] = d_long[..., 1:]
+    out[:, :, 2, :3] = torch.stack([c[..., 0], d[..., 0], dd[..., 0]], -1)
+    out[:, :, 3, :12] = dd[..., 1:]
+    return out
+
+
+def batch_features(feat_type: str = "1s_c_d_dd", svspec: str | None = None):
+    """The batched feature function `(cep, n_frames, cmn) -> [B, T, F,
+    L]` of a model's feature type and stream split (its `feat.params`'
+    `-feat` and `-svspec`): `compute_feats` for en-us's 1s_c_d_dd split
+    into c, d and dd (`EN_US_SVSPEC`, or no split given),
+    `compute_feats_s2_4x` for s2_4x.  Any other type fails by name."""
+    if feat_type == "1s_c_d_dd" and svspec in (None, EN_US_SVSPEC):
+        return compute_feats
+    if feat_type == "s2_4x" and svspec is None:
+        return compute_feats_s2_4x
+    raise ValueError(f"the batched features take 1s_c_d_dd (-svspec "
+                     f"{EN_US_SVSPEC}) or s2_4x, not -feat {feat_type} "
+                     f"-svspec {svspec}")

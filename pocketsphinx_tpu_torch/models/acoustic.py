@@ -18,18 +18,22 @@ from __future__ import annotations
 
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cached_property
 
 import numpy as np
 import torch
 
 from .. import on_device
+from ..config import PARAMS, parse_args_file
 from ..fileio import (read_bin_mdef, read_gauden, read_sendump,
                       read_mixw_quantized, read_tmat, BinMdef, Gauden,
                       MixtureWeights, Tmat)
 from ..logmath import SENSCR_SHIFT
 
+#: the `feat.params` settings the features of a model take (with the
+#: configuration's defaults where its directory gives none)
+FEAT_KEYS = ("feat", "svspec", "cmn")
 LN_BASE = math.log(1.0001)
 # one shifted score unit, in nats
 UNIT_NATS = LN_BASE * (1 << SENSCR_SHIFT)
@@ -44,13 +48,20 @@ class AcousticModel:
     mixw: MixtureWeights
     tmat: Tmat
     model_type: str  # "ptm" | "cont" | "semi"
+    #: the feature settings of the model directory's `feat.params`
+    #: (`FEAT_KEYS`: -feat, -svspec, -cmn), the defaults for a key it
+    #: lacks; the batch path computes the features `feat` and `svspec`
+    #: name (`frontend.feat.batch_features`)
+    feat_params: dict = field(default_factory=lambda: {
+        k: PARAMS[k][1] for k in FEAT_KEYS})
 
     @classmethod
     def load(cls, hmm_dir: str, varfloor: float = 1e-4,
              mixwfloor: float = 1e-7, tmatfloor: float = 1e-4,
              sendump: str | None = None) -> "AcousticModel":
         """Load from a model directory (mdef/means/variances/
-        transition_matrices + sendump or mixture_weights)."""
+        transition_matrices + sendump or mixture_weights, and the
+        feature settings of its feat.params)."""
         p = lambda f: os.path.join(hmm_dir, f)  # noqa: E731
         mdef = read_bin_mdef(p("mdef"))
         g = read_gauden(p("means"), p("variances"), varfloor)
@@ -72,8 +83,12 @@ class AcousticModel:
         else:
             mixw = read_mixw_quantized(p("mixture_weights"), mixwfloor)
         tmat = read_tmat(p("transition_matrices"), tmatfloor)
+        params = (dict(parse_args_file(p("feat.params")))
+                  if os.path.isfile(p("feat.params")) else {})
         return cls(mdef=mdef, gauden=g, mixw=mixw, tmat=tmat,
-                   model_type=mtype)
+                   model_type=mtype,
+                   feat_params={k: params.get(k, PARAMS[k][1])
+                                for k in FEAT_KEYS})
 
     # -- derived arrays ------------------------------------------------------
 

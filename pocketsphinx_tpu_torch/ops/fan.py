@@ -1,15 +1,17 @@
 """Word-final right-context fan step: CUDA kernel + plain torch version.
 
 Port of `pocketsphinx_tpu.ops.pallas_fan` (the Pallas `_kernel` reached
-through `fan_step`).  One step of the fused n-gram scan's finals block,
+through `fan_step`) and of the JAX scan's XLA finals block, which the
+JAX package runs for 5-state models.  One step of the fused n-gram
+scan's finals block for HMMs of NST (`NSTS`: 3 or 5) emitting states,
 batched over B utterances:
 
   * subtract `m_prev [B]`, the previous frame's renormalization that the
     scan defers to this load, from every score of the carry it reads
     (optional; none by default);
-  * expand the per-final-diphone senone costs `pre [B, 3, NRC, LP]` to
-    words by `lp[w]`;
-  * run the 3-state Viterbi update with TF/CX token metadata under the
+  * expand the per-final-diphone senone costs `pre [B, NST, NRC, LP]`
+    to words by `lp[w]`;
+  * run the NST-state Viterbi update with TF/CX token metadata under the
     `ops.hmm.hmm_step_sm` tie rules;
   * merge the chain-last entry `pred/ptf/pcx [B, Wm]` into state 0 on a
     strict '>';
@@ -19,12 +21,13 @@ batched over B utterances:
     renormalization term.
 
 The fan carry is padded, as the JAX scan keeps it padded for its Pallas
-kernel (`fan_step(..., n_real=...)`): S/TF/CX [B, 3, NRC, Wp] hold
+kernel (`fan_step(..., n_real=...)`): S/TF/CX [B, NST, NRC, Wp] hold
 Wp = `padded_width(Wm)` columns, so that every plane row is 16-byte
-aligned for the kernel, and `lp` [Wp] and `tp` [12, Wp] are padded
-alike (the decoder pads them once, in its device tables).  Only the Wm
-real words are computed: the new carry's pads are NEG_INF scores and 0
-payloads, and no pad reaches the exits, the exit plane or the maxima.
+aligned for the kernel, and `lp` [Wp] and `tp` [NST (NST + 1), Wp] (row
+j (NST + 1) + k: the transition j -> k) are padded alike (the decoder
+pads them once, in its device tables).  Only the Wm real words are
+computed: the new carry's pads are NEG_INF scores and 0 payloads, and no
+pad reaches the exits, the exit plane or the maxima.
 
 `fan_step` launches `csrc/fan.cu` for CUDA tensors and runs
 `fan_step_ref` only for CPU tensors.  `lp` and `tp` are shared by the
@@ -38,7 +41,7 @@ import ctypes
 import torch
 
 from . import _build
-from .hmm import NEG_INF
+from .hmm import NEG_INF, hmm_step_sm
 
 #: launches of the CUDA kernel since the last reset (plain int); a
 #: replay of the scan's CUDA graph adds the launches its capture made,
@@ -48,6 +51,8 @@ launches = 0
 
 #: the fan carry's width is a multiple of PAD columns (16 bytes)
 PAD = 4
+#: the HMM topologies (emitting states) the kernel is built for
+NSTS = (3, 5)
 #: the kernel's choices of plane groups per block (`fan_step(groups=)`)
 GROUPS = (1, 2, 4)
 #: threads per block of the kernel (TPB in csrc/fan.cu); at its
@@ -71,51 +76,30 @@ def fan_step_ref(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
                  m_prev=None):
     """Plain torch version of the fan step (see module docstring).
 
-    S/TF/CX [B, 3, NRC, Wp] f32/i32/i32; pred/ptf/pcx [B, Wm];
-    pre [B, 3, NRC, LP] f32; lp [Wp] int; tp [12, Wp] f32 rows j*4+k;
-    out_f: None, or a [B, NRC, Wm] float32 view to write the exit plane
-    into (any strides); m_prev: None, or [B] f32 offsets subtracted from
-    S before the step (S - m_prev, then the step without it).
-    Returns (newS, newTF, newCX [B, 3, NRC, Wp], out_f [B, NRC, Wm],
+    S/TF/CX [B, NST, NRC, Wp] f32/i32/i32; pred/ptf/pcx [B, Wm];
+    pre [B, NST, NRC, LP] f32; lp [Wp] int; tp [NST (NST + 1), Wp] f32
+    rows j (NST + 1) + k; out_f: None, or a [B, NRC, Wm] float32 view to
+    write the exit plane into (any strides); m_prev: None, or [B] f32
+    offsets subtracted from S before the step (S - m_prev, then the step
+    without it).
+    Returns (newS, newTF, newCX [B, NST, NRC, Wp], out_f [B, NRC, Wm],
              esc, etf, ecx [B, Wm], mx [B, 1]): mx's max over its
     columns is the max of newS over the real words."""
+    B, NST, NRC, Wp = S.shape
     Wm = pred.shape[-1]
-    Wp = S.shape[-1]
     if m_prev is not None:
         S = S - m_prev[:, None, None, None]
     S, TF, CX = S[..., :Wm], TF[..., :Wm], CX[..., :Wm]
-    sen = -pre[..., lp[:Wm].long()]                  # [B, 3, NRC, Wm]
-    s0, s1, s2 = (S[:, j] + sen[:, j] for j in range(3))
-    m0tf, m1tf, m2tf = TF[:, 0], TF[:, 1], TF[:, 2]
-    m0cx, m1cx, m2cx = CX[:, 0], CX[:, 1], CX[:, 2]
-    T = lambda r: tp[r, :Wm][None, None, :]          # noqa: E731
-
-    lo = s1 + T(7)
-    hi = s2 + T(11)
-    hi_wins = hi > lo
-    out = torch.where(hi_wins, hi, lo)
-    otf = torch.where(hi_wins, m2tf, m1tf)
-    ocx = torch.where(hi_wins, m2cx, m1cx)
-
-    prev2, self2, skip2 = s1 + T(6), s2 + T(10), s0 + T(2)
-    best2 = torch.maximum(prev2, self2)
-    take_self2 = self2 > prev2
-    take_skip2 = skip2 > best2
-    n2 = torch.where(take_skip2, skip2, best2)
-    n2tf = torch.where(take_skip2, m0tf, torch.where(take_self2, m2tf, m1tf))
-    n2cx = torch.where(take_skip2, m0cx, torch.where(take_self2, m2cx, m1cx))
-
-    prev1, self1 = s0 + T(1), s1 + T(5)
-    n1 = torch.maximum(prev1, self1)
-    take_self1 = self1 > prev1
-    n1tf = torch.where(take_self1, m1tf, m0tf)
-    n1cx = torch.where(take_self1, m1cx, m0cx)
-
-    n0 = s0 + T(0)
-    win = pred[:, None, :] > n0
-    n0 = torch.where(win, pred[:, None, :], n0)
-    n0tf = torch.where(win, ptf[:, None, :], m0tf)
-    n0cx = torch.where(win, pcx[:, None, :], m0cx)
+    sen = -pre[..., lp[:Wm].long()]                  # [B, NST, NRC, Wm]
+    tpw = tp[:, :Wm].T.reshape(Wm, NST, NST + 1)     # [Wm, j, k]: j -> k
+    ns, (nf, nc), out, _, (otf, ocx) = hmm_step_sm(
+        tuple(S.unbind(1)), tuple(sen.unbind(1)), tpw,
+        metas=(tuple(TF.unbind(1)), tuple(CX.unbind(1))))
+    # state 0: the chain-last entry on a strict '>'
+    win = pred[:, None, :] > ns[0]
+    n0 = (torch.where(win, pred[:, None, :], ns[0]),
+          torch.where(win, ptf[:, None, :], nf[0]),
+          torch.where(win, pcx[:, None, :], nc[0]))
 
     esc, am = torch.max(out, dim=1)                  # first maximal rc
     etf = torch.gather(otf, 1, am[:, None]).squeeze(1)
@@ -124,12 +108,12 @@ def fan_step_ref(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
         out_f = out
     else:
         out_f.copy_(out)
-    shape = S.shape[:3] + (Wp,)
+    shape = (B, NST, NRC, Wp)
     nS = torch.full(shape, NEG_INF, dtype=torch.float32, device=S.device)
     nTF = torch.zeros(shape, dtype=torch.int32, device=S.device)
     nCX = torch.zeros(shape, dtype=torch.int32, device=S.device)
-    for j, (s, f, c) in enumerate(((n0, n0tf, n0cx), (n1, n1tf, n1cx),
-                                   (n2, n2tf, n2cx))):
+    states = [n0] + list(zip(ns[1:], nf[1:], nc[1:]))
+    for j, (s, f, c) in enumerate(states):
         nS[:, j, :, :Wm] = s
         nTF[:, j, :, :Wm] = f
         nCX[:, j, :, :Wm] = c
@@ -138,25 +122,26 @@ def fan_step_ref(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
 
 
 def _check(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f, m_prev):
-    if S.dim() != 4 or S.shape[1] != 3 or S.shape[2] < 1:
-        raise ValueError(f"S must be [B, 3, NRC, Wp], got {tuple(S.shape)}")
+    if S.dim() != 4 or S.shape[1] not in NSTS or S.shape[2] < 1:
+        raise ValueError(f"S must be [B, NST, NRC, Wp] with NST in {NSTS}, "
+                         f"got {tuple(S.shape)}")
     if pred.dim() != 2:
         raise ValueError(f"pred must be [B, Wm], got {tuple(pred.shape)}")
-    B, _, NRC, Wp = S.shape
+    B, NST, NRC, Wp = S.shape
     Wm = pred.shape[1]
     if Wp != padded_width(Wm):
         raise ValueError(f"S: width {Wp} != padded_width({Wm}) = "
                          f"{padded_width(Wm)}")
-    want = {"S": (S, torch.float32, (B, 3, NRC, Wp)),
-            "TF": (TF, torch.int32, (B, 3, NRC, Wp)),
-            "CX": (CX, torch.int32, (B, 3, NRC, Wp)),
+    want = {"S": (S, torch.float32, (B, NST, NRC, Wp)),
+            "TF": (TF, torch.int32, (B, NST, NRC, Wp)),
+            "CX": (CX, torch.int32, (B, NST, NRC, Wp)),
             "pred": (pred, torch.float32, (B, Wm)),
             "ptf": (ptf, torch.int32, (B, Wm)),
             "pcx": (pcx, torch.int32, (B, Wm)),
             "lp": (lp, torch.int32, (Wp,)),
-            "tp": (tp, torch.float32, (12, Wp))}
-    if pre.dim() != 4 or tuple(pre.shape[:3]) != (B, 3, NRC):
-        raise ValueError(f"pre must be [B, 3, NRC, LP], got "
+            "tp": (tp, torch.float32, (NST * (NST + 1), Wp))}
+    if pre.dim() != 4 or tuple(pre.shape[:3]) != (B, NST, NRC):
+        raise ValueError(f"pre must be [B, {NST}, NRC, LP], got "
                          f"{tuple(pre.shape)}")
     want["pre"] = (pre, torch.float32, tuple(pre.shape))
     if out_f is not None:
@@ -179,14 +164,24 @@ def _check(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f, m_prev):
             raise ValueError(f"{name}: not contiguous")
 
 
-def _groups(B, Wp, LP, n_sm):
+def _smem_bytes(NST, G, LP):
+    """The dynamic shared memory a block of the kernel takes
+    (`smem_bytes` in csrc/fan.cu): the double-buffered diphone costs (at
+    least the groups' exits), and at 5 states the block's transition
+    rows."""
+    stage = -(-max(2 * G * NST * LP, 3 * 4 * _TPB) // 4) * 4
+    rows = (3 * NST - 1) * 4 * (_TPB // G) if NST > 3 else 0
+    return 4 * (stage + rows)
+
+
+def _groups(B, Wp, LP, n_sm, NST=3):
     """The fewest plane groups whose grid has twice the threads that
     `n_sm` multiprocessors hold at once (one block each), else the most,
     within the shared memory a block may take."""
-    fits = [g for g in GROUPS if 2 * g * 3 * LP * 4 <= _SMEM_BYTES]
+    fits = [g for g in GROUPS if _smem_bytes(NST, g, LP) <= _SMEM_BYTES]
     if not fits:
-        raise ValueError(f"fan_step: LP = {LP} diphone costs do not fit in "
-                         f"shared memory")
+        raise ValueError(f"fan_step: LP = {LP} diphone costs of {NST} "
+                         f"states do not fit in shared memory")
     for g in fits:
         if B * (Wp // PAD) * g >= 2 * n_sm * _TPB:
             return g
@@ -210,12 +205,12 @@ def fan_step(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
                             m_prev)
     if S.device.type != "cuda":
         raise ValueError(f"fan_step: unsupported device {S.device}")
-    B, _, NRC, Wp = S.shape
+    B, NST, NRC, Wp = S.shape
     Wm = pred.shape[1]
     LP = pre.shape[-1]
     if groups is None:
         groups = _groups(B, Wp, LP, torch.cuda.get_device_properties(
-            S.device).multi_processor_count)
+            S.device).multi_processor_count, NST)
     for name, x in (("S", S), ("TF", TF), ("CX", CX), ("lp", lp),
                     ("tp", tp)):
         if x.data_ptr() % 16:
@@ -242,7 +237,7 @@ def fan_step(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
                 *(x.data_ptr() for x in (pred, ptf, pcx, pre, lp, tp, nS,
                                          nTF, nCX, out_f, esc, etf, ecx,
                                          mx)),
-                out_f.stride(0), out_f.stride(1), B, NRC, Wm, Wp, LP,
+                out_f.stride(0), out_f.stride(1), B, NRC, Wm, Wp, LP, NST,
                 groups, stream)
         if err:
             raise RuntimeError("fan_step_launch: "
@@ -257,7 +252,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.fan_step_launch.argtypes = (
             [ctypes.c_void_p] * 18 + [ctypes.c_longlong] * 2
-            + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.fan_step_launch.restype = ctypes.c_int
         lib.fan_error_string.argtypes = [ctypes.c_int]
         lib.fan_error_string.restype = ctypes.c_char_p

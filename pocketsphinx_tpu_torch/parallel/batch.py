@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import on_device, profile, resolve_device
+from ..frontend.feat import batch_features
 
 def _rank_count():
     import torch.distributed as dist
@@ -154,6 +155,10 @@ class BatchDecodePipeline:
         self.fe = frontend
         self.mesh = mesh or make_mesh(device=decoder_search.device)
         self.cmn = cmn
+        #: the batched features of the model's `feat.params` (-feat,
+        #: -svspec); CMN is `cmn` ("batch": each utterance's mean)
+        fp = decoder_search.am.feat_params
+        self.features = batch_features(fp["feat"], fp["svspec"])
         self.replicas = replicas(decoder_search, self.mesh.devices)
         #: guard violations summed over the last `decode_corpus`
         self.guard_violations = 0
@@ -215,8 +220,8 @@ class BatchDecodePipeline:
 
     def _decode_rows(self, pcm_list, rows, search, timed: bool):
         """PCM -> (hyp, segs) of the utterances `rows` through `search`, on
-        its device -> (results, stage seconds or None)."""
-        from ..frontend.feat import compute_feats
+        its device -> (results, stage seconds or None).  The features are
+        those of the model's feature type (`batch_features`)."""
 
         dev = search.device
         st = {} if timed else None
@@ -232,7 +237,7 @@ class BatchDecodePipeline:
                 with profile.span("ps.frontend.mfcc"):
                     cep, nfr = self.fe.process_batch(pcm, ns, device=dev)
                 with profile.span("ps.frontend.features"):
-                    feats = compute_feats(cep, nfr, cmn=self.cmn)
+                    feats = self.features(cep, nfr, cmn=self.cmn)
             out = search.decode_batch(feats, nfr, keep_records=False,
                                       timings=st)
         return out, st

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..frontend.feat import batch_features
 from .batch import replicas
 
 
@@ -39,14 +40,15 @@ class TwoStagePipeline:
         self.dev_score = torch.device(dev_score or devs[0])
         self.dev_scan = torch.device(dev_scan or devs[min(1, len(devs) - 1)])
         self.cmn = cmn
+        fp = decoder_search.am.feat_params
+        self.features = batch_features(fp["feat"], fp["svspec"])
         self.scan_search = replicas(decoder_search, [[self.dev_scan]])[0]
 
     def _stage_score(self, pcm_batch, n_samps):
-        from ..frontend.feat import compute_feats
         from ..models.acoustic import senone_scores
         cep, nfr = self.fe.process_batch(pcm_batch, n_samps,
                                          device=self.dev_score)
-        feats = compute_feats(cep, nfr, cmn=self.cmn)
+        feats = self.features(cep, nfr, cmn=self.cmn)
         # in decode_batch's time chunks: the same GEMM shapes, so the same
         # costs as `BatchDecodePipeline`
         return senone_scores(self.search.am.scoring_tensors(self.dev_score),

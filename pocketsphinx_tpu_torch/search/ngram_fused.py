@@ -14,15 +14,16 @@ The network (see the JAX module's docstring for the design):
     of the chain kernel per frame (`ops/chain.py`, CUDA on the card) on a
     flat carry (the buckets' [B, NST, D, Wb] blocks end to end);
   * the word-final right-context fan [NST, n_rc, n_multi] -- stepped by
-    the fan kernel (`ops/fan.py`, CUDA on the card) for 3-state models,
-    on a carry padded to `fan.padded_width(n_multi)` columns (as the JAX
-    scan pads its fan carry to the Pallas tile), which writes its exit
-    plane into the step's [B, n_rc, W] exit planes and reduces the
-    renormalization's max over its planes; for other topologies by the
-    JAX scan's XLA finals block as torch ops on an unpadded carry (the
+    the fan kernel (`ops/fan.py`, CUDA on the card) for the topologies it
+    is built for (3- and 5-state models, `fan.NSTS`), on a carry padded
+    to `fan.padded_width(n_multi)` columns (as the JAX scan pads its fan
+    carry to the Pallas tile), which writes its exit plane into the
+    step's [B, n_rc, W] exit planes and reduces the renormalization's
+    max over its planes; for other topologies by the JAX scan's XLA
+    finals block as torch ops on an unpadded carry (`_finals_step`: the
     `lp` gather of the per-final-diphone costs, `hmm_step_sm`, the strict
     '>' chain-last entry, first-max exits; the JAX package runs its
-    Pallas fan only at 3 states too);
+    Pallas fan only at 3 states and that block at 5);
   * single-phone words as explicit left-context columns, CI/filler words
     as chains without variants (in the same chain launch);
   * top-K word exits per frame, exact trigram successor rows (LM mode
@@ -40,18 +41,21 @@ JAX package's (tests/test_torch_ngram_fused.py).
 
 The renormalization (each frame's best score `m`, subtracted from every
 score of the carry) is deferred for the carries the kernels read: the
-chain carry, and the fan carry where the fan kernel steps it.  The step
+chain carry, and the fan carry where the fan step takes it.  The step
 leaves `m` pending in the carry (`carry["m_prev"]` [B]) and the next
 frame's chain and fan kernels subtract it from each score as they load
 it: the same float32 subtraction before the same additions, so every
 score is bit-equal to subtracting it in a pass over the carry, which
 the step then no longer makes.  The single-phone columns, and the fan
-carry of other topologies, still take the subtraction in the step.  A
-carry that leaves the scan (`with_carry`) has its pending offset
-subtracted, one pass per call, so callers see the carry as the JAX
-scan keeps it.  Counters: "scan.renorm_folded" (frames whose chain and
-fan carries took the offset in the kernels' load) and
-"scan.renorm_passes" (those folds at a carry's exit).
+carry of a topology `_finals_step` steps, still take the subtraction in
+the step.  A carry that leaves the scan (`with_carry`) has its pending
+offset subtracted, one pass per call, so callers see the carry as the
+JAX scan keeps it.  Counters, counted on the host:
+"scan.renorm_folded" (frames whose chain and fan carries took the
+offset in the kernels' load), "scan.renorm_passes" (those folds at a
+carry's exit), and "scan.finals_kernel" / "scan.finals_plain" (frames
+whose word-final block the fan step, the kernel on the card, or the
+torch block `_finals_step` stepped).
 
 The scan runs in chunks of CHUNK frames, each with its senone
 pre-gather (`_steps`).  On a CUDA decoder one chunk is captured once per
@@ -94,7 +98,7 @@ from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..lm.ngram import NgramModel
 from ..ops import transitions as transitions_ops
 from ..ops.chain import ChainGroup, chain_group_step
-from ..ops.fan import fan_step, padded_width
+from ..ops.fan import NSTS, fan_step, padded_width
 from ..ops.hmm import hmm_step_sm
 from ..ops.transitions import LMLayout, transitions
 from .base import add_launches, capture_chunk
@@ -421,12 +425,12 @@ class NgramFusedDecoder:
                    for k, ch in enumerate(self.chains)]
         buckets += [dict(tp=out.pop(f"ci_tp{k}"), fm=out[f"ci_fm{k}"])
                     for k in range(len(self.ci_chains))]
-        if "tp_fin12" in out:
+        if "tp_fin_rows" in out:
             # the fan kernel's per-word tables, padded like its carry
             pad = padded_width(self.n_multi) - self.n_multi
             out["lp_idx"] = torch.nn.functional.pad(out["lp_idx"], (0, pad))
-            out["tp_fin12"] = torch.nn.functional.pad(
-                out["tp_fin12"], (0, pad), value=NEG_INF)
+            out["tp_fin_rows"] = torch.nn.functional.pad(
+                out["tp_fin_rows"], (0, pad), value=NEG_INF)
         grp = out["chain"] = ChainGroup(self.NST, buckets)
         sizes = [int(np.prod(s)) for s in self.seg_shapes.values()]
         seg = dict(zip(self.seg_shapes,
@@ -970,8 +974,9 @@ class NgramFusedDecoder:
         with every key it shares equal to the JAX `_dev_tables`, except
         that one-hot expansion tables are kept as indices (`fd_idx{b}`
         for `fd_oh{b}`, `lp_idx` for `lp_oh`, `f0p_E` for `f0_onehot`)
-        and 3-state finals use the fan kernel's layout (`tp_fin12`; other
-        topologies keep `tp_fin` [W, NST, NST+1]).  Also fixes the scan's
+        and the finals of a topology the fan kernel is built for use its
+        layout (`tp_fin_rows` [NST (NST+1), W]; other topologies keep
+        `tp_fin` [W, NST, NST+1]).  Also fixes the scan's
         static layout (K, LM mode, senone segments)."""
         NST = self.NST
         W, n_multi, SP = self.W, self.n_multi, self.SP
@@ -1132,10 +1137,10 @@ class NgramFusedDecoder:
             tabs[f"ci_fm{bi}"] = ch.firstmask
         if n_multi:
             tabs["lp_idx"] = self.lp_idx
-            if NST == 3:
-                tabs["tp_fin12"] = np.ascontiguousarray(
+            if NST in NSTS:
+                tabs["tp_fin_rows"] = np.ascontiguousarray(
                     self.tp_fin[:n_multi].transpose(1, 2, 0).reshape(
-                        12, n_multi))
+                        NST * (NST + 1), n_multi))
             else:
                 tabs["tp_fin"] = self.tp_fin[:n_multi]
         if SP:
@@ -1147,8 +1152,8 @@ class NgramFusedDecoder:
     def init_carry(self, B: int) -> dict:
         """The scan carry for B utterances at frame 0: every token dead
         except <s> entered at its first node (JAX `init_carry`).  The
-        fan carry of a 3-state model is padded to the fan kernel's width
-        (`fan.padded_width`)."""
+        fan carry of a topology the fan kernel is built for is padded to
+        its width (`fan.padded_width`)."""
         dev, NST, n_rc = self.device, self.NST, self.n_rcp
 
         def planes(*shape):
@@ -1162,7 +1167,7 @@ class NgramFusedDecoder:
 
         c = {"chain": self.tables["chain"].init_carry(B)}
         c["ch"], c["ci"] = self._chain_views(c["chain"], B)
-        Wf = padded_width(self.n_multi) if NST == 3 else self.n_multi
+        Wf = padded_width(self.n_multi) if self._fan_folds else self.n_multi
         c["fin"] = planes(n_rc, Wf) if self.n_multi else None
         c["sp"] = planes(n_rc, self.SP) if self.SP else None
         # the renormalization not yet subtracted from the chain and fan S
@@ -1217,9 +1222,11 @@ class NgramFusedDecoder:
 
     @property
     def _fan_folds(self):
-        """Whether the fan kernel steps the fan carry (3 states), and so
-        takes the pending renormalization in its load."""
-        return self.NST == 3
+        """Whether the fan step (`fan_step`: the kernel on the card)
+        steps the fan carry, as it does at every topology the kernel is
+        built for, and so takes the pending renormalization in its
+        load."""
+        return self.NST in NSTS
 
     def _fold_renorm(self, c, B):
         """The pending renormalization of the B-utterance carry `c`
@@ -1374,12 +1381,12 @@ class NgramFusedDecoder:
         sv = torch.empty((B, n_rc, W), device=dev)
         # ---------- finals fan ----------
         fin_mx = None           # the fan's partial maxima of its new S
-        if n_multi and NST == 3:
+        if n_multi and self._fan_folds:
             e = carry["fin"]
             pred = cl_s + pip                                  # [B, Wm]
             nSf, nTFf, nCXf, _, esc_m, etf_m, ecx_m, fin_mx = fan_step(
                 e["S"], e["TF"], e["CTX"], pred, cl_tf, cl_cx, g_fin,
-                tb["lp_idx"], tb["tp_fin12"], out_f=sv[:, :, :n_multi],
+                tb["lp_idx"], tb["tp_fin_rows"], out_f=sv[:, :, :n_multi],
                 m_prev=m_prev)
             fin_new = dict(S=nSf, TF=nTFf, CTX=nCXf)
         elif n_multi:
@@ -1658,7 +1665,7 @@ class NgramFusedDecoder:
             carry = self.init_carry(B)
         recs = None
         for c0 in range(0, Tp, CH):
-            self._count_folded()
+            self._count_chunk()
             for i, carry, rec in self._steps(
                     carry, costs[:, c0:c0 + CH], valid[:, c0:c0 + CH],
                     t0 + c0, minimal, mask):
@@ -1671,11 +1678,16 @@ class NgramFusedDecoder:
         self._fold_renorm(carry, B)
         return recs, carry
 
-    def _count_folded(self):
+    def _count_chunk(self):
         """Count a chunk's frames in "scan.renorm_folded" when every
-        carry a kernel reads takes the renormalization in its load."""
+        carry a kernel reads takes the renormalization in its load, and
+        in "scan.finals_kernel" or "scan.finals_plain" by what steps the
+        word-final block: the fan step, or `_finals_step`."""
         if self._fan_folds or not self.n_multi:
             profile.count("scan.renorm_folded", self.CHUNK)
+        if self.n_multi:
+            profile.count("scan.finals_kernel" if self._fan_folds
+                          else "scan.finals_plain", self.CHUNK)
 
     def _scan_graph(self, costs, valid, minimal, carry, t0, mask,
                     keep_carry):
@@ -1690,7 +1702,7 @@ class NgramFusedDecoder:
             self._copy_carry(run.io.carry, carry)
         recs = None
         for c0 in range(0, Tp, CH):
-            self._count_folded()
+            self._count_chunk()
             with profile.span("ps.scan.chunk"):
                 rc = run.run(self, costs[:, c0:c0 + CH],
                              valid[:, c0:c0 + CH], t0 + c0)

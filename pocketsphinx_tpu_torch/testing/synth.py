@@ -8,6 +8,9 @@ and 5,126 senones of which 126 are CI.  The text model definition covers
 every triphone that the given dictionaries need (word-begin, -internal,
 -end and single-phone contexts); its CD senones are tied per (base
 phone, state) so that every senone belongs to exactly one codebook.
+`make_semi_model` gives a Sphinx-II semi-continuous model over the same
+mdef instead: one codebook shared by every senone, over the s2_4x
+streams of 12, 24, 3 and 12 lanes.
 
 `SynthModel.write(directory)` writes the text mdef and the noise
 dictionary; `SynthModel.load(directory)` builds this port's
@@ -53,6 +56,8 @@ NOISEDICT = ("<s> SIL\n</s> SIL\n<sil> SIL\n[NOISE] +NSN+\n"
              "[SPEECH] +SPN+\n")
 #: en-us shapes (SURVEY.md: 5126 senones, 126 CI; PTM 42 x 3 x 128 x 13)
 EN_US = dict(n_sen=5126, n_density=128, n_feat=3, dim=13)
+#: the stream widths of Sphinx-II's s2_4x features
+S2_4X = (12, 24, 3, 12)
 #: en-us's feat.params (the front end and feature type the model was
 #: trained with; `-svspec` selects the three 13-dim streams)
 FEAT_PARAMS = ("-lowerf 130\n-upperf 6800\n-nfilt 25\n-transform dct\n"
@@ -97,6 +102,10 @@ class SynthModel:
     var: np.ndarray            # [42, F, D, L] f32
     mixw: np.ndarray           # [F, D, n_sen] uint8 costs
     tmat: np.ndarray           # [42, N, N+1] uint8 costs (255 = impossible)
+    #: each stream's width where they differ (None: all L); the lanes of
+    #: `means` and `var` past a stream's width are not written
+    featlen: list | None = None
+    feat_params: str = FEAT_PARAMS
 
     def write(self, directory: str) -> tuple[str, str]:
         """Write `mdef.txt` and `noisedict` into `directory`; returns
@@ -121,10 +130,15 @@ class SynthModel:
         with open(os.path.join(directory, "noisedict"), "w") as f:
             f.write(NOISEDICT)
         with open(os.path.join(directory, "feat.params"), "w") as f:
-            f.write(FEAT_PARAMS)
-        dims = [n_cb, n_feat, n_den] + [dim] * n_feat
+            f.write(self.feat_params)
+        featlen = list(self.featlen or [dim] * n_feat)
         for name, x in (("means", self.means), ("variances", self.var)):
-            _write_s3(os.path.join(directory, name), dims, x)
+            if featlen != [dim] * n_feat:     # on disk [cb][f][d][featlen[f]]
+                x = np.concatenate([x[c, j, :, :L].reshape(-1)
+                                    for c in range(n_cb)
+                                    for j, L in enumerate(featlen)])
+            _write_s3(os.path.join(directory, name),
+                      [n_cb, n_feat, n_den] + featlen, x)
         # mixture weights [n_sen, n_feat, n_den] and transitions
         # [n_tmat, N, N+1] as probabilities (cost 255 = impossible)
         mixw = np.exp(-self.mixw.astype(np.float64) * _UNIT_NATS)
@@ -257,6 +271,33 @@ def make_model(dict_paths, seed: int = 0, n_sen: int = EN_US["n_sen"],
         tmat[:, j, j + 2] = rng.integers(20, 60, n_ci)
     return SynthModel(mdef_text="\n".join(lines) + "\n", means=means,
                       var=var, mixw=mixw, tmat=tmat)
+
+
+def make_semi_model(dict_paths, seed: int = 0, n_sen: int = 210 + 400,
+                    n_density: int = 16, featlen=S2_4X, n_state: int = 5):
+    """A seeded Sphinx-II semi-continuous model over `make_model`'s mdef
+    and transitions: one codebook of `n_density` codewords shared by
+    every senone, over streams of the widths `featlen` (s2_4x's 12, 24,
+    3 and 12 by default), with a `feat.params` of en-us's front end and
+    `-feat s2_4x` (no `-svspec`: the type has streams of its own).  Write
+    it with `write_model_dir`; `AcousticModel.load` reads it as "semi"."""
+    featlen = list(featlen)
+    spec = make_model(dict_paths, seed=seed, n_sen=n_sen,
+                      n_density=n_density, n_feat=len(featlen),
+                      dim=max(featlen), n_state=n_state)
+    rng = np.random.default_rng(seed + 1)
+    F, L, D = len(featlen), max(featlen), n_density
+    lanes = np.arange(L) < np.array(featlen)[:, None, None]   # [F, 1, L]
+    spec.means = np.where(lanes, rng.standard_normal((1, F, D, L)),
+                          0).astype(np.float32)
+    spec.var = np.where(lanes, rng.uniform(0.3, 2.0, (1, F, D, L)),
+                        0).astype(np.float32)
+    spec.featlen = featlen
+    spec.feat_params = (FEAT_PARAMS.replace("-feat 1s_c_d_dd\n",
+                                            "-feat s2_4x\n")
+                        .replace("-svspec 0-12/13-25/26-38\n", "")
+                        .replace("-model ptm\n", "-model semi\n"))
+    return spec
 
 
 def make_pcm(seed: int, seconds: float, samprate: int = 16000) -> np.ndarray:

@@ -28,7 +28,8 @@ def cuda():
                                    (8, 41, 20035, 601), (8, 41, 125973, 601)],
                          ids=["ragged", "under_one_block", "20k", "126k"])
 @pytest.mark.parametrize("ties", [False, True])
-def test_fan_kernel_bit_equal(cuda, shape, ties):
+@pytest.mark.parametrize("NST", fan.NSTS)
+def test_fan_kernel_bit_equal(cuda, shape, ties, NST):
     """Every output of the kernel, at every choice of its plane groups,
     equals the plain version's: the padded carry (pads NEG_INF/0), the
     exit plane written into columns [2, 2 + W) of a wider buffer whose
@@ -36,7 +37,7 @@ def test_fan_kernel_bit_equal(cuda, shape, ties):
     partial maxima."""
     B, NRC, W, LP = shape
     a = chip_smoke.to_device(chip_smoke.fan_inputs(
-        np.random.default_rng(1), B, NRC, W, LP, ties), cuda)
+        np.random.default_rng(1), B, NRC, W, LP, ties, NST), cuda)
     bufs = [torch.full((B, NRC, W + 5), 7.0, device=cuda) for _ in range(2)]
     refs = fan.fan_step_ref(**a, out_f=bufs[1][:, :, 2:W + 2])
     for groups in (None,) + fan.GROUPS:
@@ -89,13 +90,14 @@ def test_chain_group_kernel_bit_equal(cuda, NST, with_ci, B):
 @pytest.mark.parametrize("shape", [(3, 11, 257, 37), (8, 41, 20035, 601),
                                    (8, 41, 125973, 601)],
                          ids=["ragged", "20k", "126k"])
-def test_fan_kernel_m_prev_bit_equal(cuda, shape, offsets):
+@pytest.mark.parametrize("NST", fan.NSTS)
+def test_fan_kernel_m_prev_bit_equal(cuda, shape, offsets, NST):
     """With offsets `m_prev` (the scan's deferred renormalization), every
     output of the kernel at every choice of its plane groups equals the
     plain version's, on a carry with dead scores and a 0.0 score."""
     B, NRC, W, LP = shape
     rng = np.random.default_rng(4)
-    a = chip_smoke.fan_inputs(rng, B, NRC, W, LP, True)
+    a = chip_smoke.fan_inputs(rng, B, NRC, W, LP, True, NST)
     a["S"][:, 1, :, W - 1] = 0.0
     a["m_prev"] = chip_smoke.m_prev_inputs(rng, B, offsets)
     a = chip_smoke.to_device(a, cuda)
@@ -321,6 +323,47 @@ def test_decode_corpus_cuda(cuda, tmp_path):
     assert got == want and any(h for h, _ in got)
     assert chip_smoke._results(TwoStagePipeline(dec, fe).decode_corpus(
         pcms)) == got
+
+
+def test_decode_corpus_semi5_cuda_equals_cpu(cuda, tmp_path):
+    """A Sphinx-II semi-continuous 5-state s2_4x model through
+    `decode_corpus` on the card (batched s2_4x features from its
+    feat.params, one shared codebook, the fan kernel at 5 states once
+    per frame) equals the same pipeline on the CPU: hypotheses and
+    segments, and the path scores to float32 rounding (the scoring's
+    products sum in another order on the card)."""
+    from pocketsphinx_tpu_torch.fileio.dictionary import Dictionary
+    from pocketsphinx_tpu_torch.lm.ngram import read_lm
+    from pocketsphinx_tpu_torch.models.acoustic import AcousticModel
+    from pocketsphinx_tpu_torch.models.dict2pid import Dict2Pid
+    from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline, make_mesh
+    from pocketsphinx_tpu_torch.search.ngram_fused import NgramFusedDecoder
+    dic = str(tmp_path / "small.dic")
+    words = synth.small_dictionary(dic, n_words=40, seed=1)
+    lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=2)
+    spec = synth.make_semi_model([dic], seed=3, n_sen=210 + 400,
+                                 n_density=16)
+    hmm = spec.write_model_dir(str(tmp_path / "hmm"))
+    fe = chip_smoke.en_us_frontend()
+    pcms = [synth.make_pcm(60 + i, s) for i, s in enumerate((1.2, 0.9, 1.1))]
+    out, scores = [], []
+    for device in (cuda, torch.device("cpu")):
+        am = AcousticModel.load(hmm)
+        dec = NgramFusedDecoder(
+            am, Dict2Pid(am.mdef, Dictionary(am.mdef, dic,
+                                             hmm + "/noisedict")),
+            read_lm(lmf, lw=6.5, wip=0.65), topk=16, device=device)
+        assert dec.NST == 5 and dec.am.model_type == "semi"
+        n = fan.launches
+        out.append(chip_smoke._results(BatchDecodePipeline(
+            dec, fe, mesh=make_mesh(n_data=1, device=device)).decode_corpus(
+                pcms, batch_size=4)))
+        scores.append(list(dec.hyp_scores))
+        if device.type == "cuda":
+            T = fe.n_frames(max(len(p) for p in pcms))
+            assert fan.launches - n == -(-T // dec.CHUNK) * dec.CHUNK
+    assert out[0] == out[1] and any(h for h, _ in out[0])
+    np.testing.assert_allclose(scores[0], scores[1], rtol=1e-5)
 
 
 def test_decode_corpus_cards(cuda, tmp_path):
@@ -737,9 +780,9 @@ def test_modes_cuda_equal_cpu(cuda, tmp_path, mode):
 
 
 def test_nst5_decode_cuda(cuda, tmp_path):
-    """A 5-state model through the facade on CUDA: the chain kernel
-    launches once per scanned frame, the fan kernel never, and the
-    records equal the CPU's."""
+    """A 5-state model through the facade on CUDA: the chain and fan
+    kernels launch once per scanned frame each, and the records equal
+    the CPU's (whose finals are the plain fan step)."""
     from pocketsphinx_tpu_torch import Decoder
     hmm, dic, lmf = synth.small_task(str(tmp_path), seed=9,
                                      n_sen=210 + 400, n_state=5)
@@ -750,8 +793,8 @@ def test_nst5_decode_cuda(cuda, tmp_path):
     dec.decode_senscr(costs)
     search = dec._searches["_default"]
     assert search.NST == 5
-    assert (fan.launches - nf, chain.launches - nc) == \
-        (0, -(-70 // search.CHUNK) * search.CHUNK)
+    frames = -(-70 // search.CHUNK) * search.CHUNK
+    assert (fan.launches - nf, chain.launches - nc) == (frames, frames)
     cpu = dec._to("cpu")
     cpu.decode_senscr(costs)
     for a, b in zip(search.raw_records, cpu._searches["_default"].raw_records):

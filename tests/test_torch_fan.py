@@ -225,11 +225,12 @@ def test_decoder_fan_carry_and_tables_padded(padded_task):
     assert c["S"].shape == (2, 3, pt.n_rcp, Wp)
     assert bool((c["S"] == NEG_INF).all()) and not c["TF"].any()
     tb = pt.tables
-    assert tb["lp_idx"].shape == (Wp,) and tb["tp_fin12"].shape == (12, Wp)
+    assert tb["lp_idx"].shape == (Wp,)
+    assert tb["tp_fin_rows"].shape == (12, Wp)
     np.testing.assert_array_equal(tb["lp_idx"][:Wm].numpy(),
                                   pt.host_tables["lp_idx"])
-    np.testing.assert_array_equal(tb["tp_fin12"][:, :Wm].numpy(),
-                                  pt.host_tables["tp_fin12"])
+    np.testing.assert_array_equal(tb["tp_fin_rows"][:, :Wm].numpy(),
+                                  pt.host_tables["tp_fin_rows"])
     assert pt.host_tables["lp_idx"].shape == (Wm,)
 
 

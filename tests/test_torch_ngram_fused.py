@@ -82,11 +82,11 @@ def test_host_tables_equal_jax(decoders):
                 v == 1)
         elif k == "tp_fin":
             np.testing.assert_array_equal(
-                ht["tp_fin12"], v.transpose(1, 2, 0).reshape(12, -1))
+                ht["tp_fin_rows"], v.transpose(1, 2, 0).reshape(12, -1))
         else:
             pytest.fail(f"JAX table {k} has no port counterpart")
     port_only = set(ht) - set(jt)
-    assert all(k.startswith(("fd_idx", "tp_fin12", "lp_idx", "f0p_E"))
+    assert all(k.startswith(("fd_idx", "tp_fin_rows", "lp_idx", "f0p_E"))
                for k in port_only), port_only
 
 

@@ -1,11 +1,12 @@
 """5-state models through the port's fused n-gram search, against the JAX
 package's: a seeded synthetic model with 5 emitting states per phone
 (left to right, self-loops, skips from every state), its host tables
-(the finals' `tp_fin` [W, 5, 6] in place of the fan kernel's 12 rows)
-equal, the 10 full-record arrays and the hypothesis bit-equal through a
-frame of forced ties, and the 7 minimal-record arrays at B=4 with
-unequal lengths.  The fan kernel is never reached: the finals block is
-the JAX scan's XLA block as torch ops."""
+(the finals' transitions as the fan kernel's 30 rows `tp_fin_rows` in
+place of the JAX `tp_fin` [W, 5, 6]) equal, the 10 full-record arrays
+and the hypothesis bit-equal through a frame of forced ties, and the 7
+minimal-record arrays at B=4 with unequal lengths.  The finals block is
+the fan step (`fan_step_ref` on the CPU, the kernel on the card) on a
+padded fan carry, where the JAX scan runs its XLA block."""
 
 import numpy as np
 import pytest
@@ -45,9 +46,12 @@ def test_host_tables_equal_jax(decoders):
     jx, pt = decoders
     jt = {k: np.asarray(v) for k, v in jx._dev_tables.items()}
     ht = pt.host_tables
-    assert "tp_fin12" not in ht and ht["tp_fin"].shape[1:] == (5, 6)
+    assert "tp_fin" not in ht
+    assert ht["tp_fin_rows"].shape == (30, pt.n_multi)
     for k, v in jt.items():
-        if k.startswith("fd_oh"):
+        if k == "tp_fin":
+            v, k = v.transpose(1, 2, 0).reshape(30, -1), "tp_fin_rows"
+        elif k.startswith("fd_oh"):
             v, k = np.argmax(v, axis=0), "fd_idx" + k[5:]
         elif k == "f0_onehot":
             v, k = np.argmax(v, axis=1), "f0p_E"
@@ -59,13 +63,17 @@ def test_host_tables_equal_jax(decoders):
 def test_decode_records_equal(decoders, monkeypatch):
     jx, pt = decoders
 
-    def no_fan(*a, **k):
-        raise AssertionError("the fan step ran on a 5-state model")
+    fan, calls = port_fused.fan_step, []
 
-    monkeypatch.setattr(port_fused, "fan_step", no_fan)
+    def spy_fan(*a, **k):
+        calls.append(a[0].shape)
+        return fan(*a, **k)
+
+    monkeypatch.setattr(port_fused, "fan_step", spy_fan)
     costs = tie_costs(pt.am.n_sen, 48, seed=19)
     hj, sj = jx.decode(None, costs=costs)
     hp, sp = pt.decode(None, costs=costs)
+    assert len(calls) == 48 and calls[0][1] == 5
     assert_records_equal(pt.raw_records, jx.raw_records, FULL)
     assert (hp, [(s.word, s.start, s.end) for s in sp]) == \
         (hj, [(s.word, s.start, s.end) for s in sj])
@@ -87,47 +95,48 @@ def test_minimal_batch_equal(decoders):
 
 
 def test_step_subtracts_the_fan_carry(decoders, monkeypatch):
-    """The finals of a 5-state model are torch ops, not the fan kernel:
-    the step subtracts the frame's renormalization from the fan carry
-    itself, while the chain carry it returns is the chain kernel's new
-    scores with the offset pending for the next launch (`m_prev`)."""
+    """The finals of a 5-state model are the fan step, as the chain
+    block is the chain kernel's: the fan and chain carries the step
+    returns are their steps' new scores as they made them, with the
+    frame's renormalization pending for the next frame's steps
+    (`m_prev`), which subtract it as they load the scores; only a carry
+    leaving the scan is folded."""
     _, pt = decoders
-    assert not pt._fan_folds
-    fins, chains, fold = [], [], port_fused.chain_group_step
-    finals = pt._finals_step
+    assert pt._fan_folds
+    fans, chains, args = [], [], []
+    for name, out in (("fan_step", fans), ("chain_group_step", chains)):
+        fn = getattr(port_fused, name)
 
-    def spy_finals(*a, **k):
-        out = finals(*a, **k)
-        fins.append(out[0]["S"].clone())
-        return out
-
-    def spy_chain(*a, **k):
-        chains.append(k["m_prev"].clone())
-        out = fold(*a, **k)
-        chains.append(out[0])
-        return out
-
-    monkeypatch.setattr(pt, "_finals_step", spy_finals)
-    monkeypatch.setattr(port_fused, "chain_group_step", spy_chain)
+        def spy(*a, _f=fn, _out=out, **k):
+            args.append(k["m_prev"].clone())
+            res = _f(*a, **k)
+            _out.append(res[0])
+            return res
+        monkeypatch.setattr(port_fused, name, spy)
     costs = torch.as_tensor(tie_costs(pt.am.n_sen, pt.CHUNK, seed=21))
     valid = torch.ones((1, pt.CHUNK), dtype=torch.bool)
     prev = torch.zeros(1)
-    for i, c, rec in pt._steps(pt.init_carry(1), costs[None], valid, 0,
-                               False, False):
+    steps = list(pt._steps(pt.init_carry(1), costs[None], valid, 0, False,
+                           False))
+    assert len(fans) == len(chains) == pt.CHUNK
+    for i, c, rec in steps:
         m = rec[8]
-        assert torch.equal(c["fin"]["S"], fins[i] - m[:, None, None, None])
-        assert torch.equal(chains[2 * i], prev)
-        assert torch.equal(c["chain"]["S"], chains[2 * i + 1])
+        assert torch.equal(c["fin"]["S"], fans[i])
+        assert torch.equal(c["chain"]["S"], chains[i])
+        assert torch.equal(args[2 * i], prev)            # the chain step's
+        assert torch.equal(args[2 * i + 1], prev)        # the fan step's
         assert torch.equal(c["m_prev"], m)
         prev = m
+    assert bool((c["fin"]["S"][..., pt.n_multi:] == port_fused.NEG_INF)
+                .all())
 
 
 def test_with_carry_resumed_equals_jax(decoders):
     """Two masked blocks, the second resumed at frame 37 with a padded
     tail: records equal the JAX `with_carry`'s, and the carry after the
-    second block equals the JAX carry (the chain carry's pending offset
-    folded in as it leaves the scan, the fan carry renormalized in
-    the step)."""
+    second block equals the JAX carry (the chain and fan carries'
+    pending offset folded in as it leaves the scan; the fan carry's real
+    columns)."""
     jx, pt = decoders
     costs = tie_costs(pt.am.n_sen, 80, seed=22)
     jscan = jx._make_scan(mask_carry=True)
@@ -144,8 +153,11 @@ def test_with_carry_resumed_equals_jax(decoders):
     ch, ci = pt._chain_views(carry["chain"], 1)
     pairs = [(e[k][0], je[k]) for e, je in zip(
         ch + ci, jcarry["ch"] + jcarry["ci"], strict=True) for k in e]
-    pairs += [(carry[n][k][0], jcarry[n][k]) for n in ("fin", "sp")
+    W = pt.n_multi              # the port pads its fan carry, JAX does not
+    pairs += [(carry["fin"][k][0, ..., :W], jcarry["fin"][k])
               for k in ("S", "TF", "CTX")]
+    pairs += [(carry["sp"][k][0], jcarry["sp"][k]) for k in ("S", "TF",
+                                                             "CTX")]
     for i, (a, b) in enumerate(pairs):
         if isinstance(b, (tuple, list)):          # one array per state
             b = np.stack([np.asarray(x) for x in b])

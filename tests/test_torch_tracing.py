@@ -194,10 +194,16 @@ def test_corpus_folds_every_frame(task):
     assert got == [sum(-(-T // CHUNK) * CHUNK for T in seen), 0]
 
 
-def test_renorm_counters_five_states(tmp_path):
-    """A 5-state decoder's fan carry is renormalized in the step (its
-    finals are torch ops, not the fan kernel): no frame counts as
-    folded."""
+def _counts(fn, keys):
+    """The increase of the counters `keys` over `fn()`."""
+    before = profile.counters()
+    fn()
+    after = profile.counters()
+    return [after.get(k, 0) - before.get(k, 0) for k in keys]
+
+
+def _five_states(tmp_path):
+    tmp_path.mkdir(parents=True, exist_ok=True)
     dic = str(tmp_path / "small.dic")
     words = synth.small_dictionary(dic, n_words=30, n_single=3, seed=16)
     lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=17)
@@ -205,12 +211,43 @@ def test_renorm_counters_five_states(tmp_path):
                             n_state=5)
     dec = synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=8,
                               device="cpu")
-    assert dec.NST == 5 and dec.n_multi
     costs = torch.as_tensor(np.random.default_rng(7).uniform(
         0, 400, (2, 20, dec.am.n_sen)).astype(np.float32))
-    valid = torch.ones((2, 20), dtype=torch.bool)
-    assert _renorm_counts(lambda: dec.scan(costs, valid)) == [0, 0]
-    assert _renorm_counts(lambda: dec.with_carry(costs, valid)) == [0, 1]
+    return dec, costs, torch.ones((2, 20), dtype=torch.bool)
+
+
+def test_renorm_counters_five_states(tmp_path):
+    """A 5-state decoder's fan carry is stepped by the fan step, which
+    takes the renormalization in its load as the chain kernel does:
+    every frame, padded to whole chunks, counts as folded, and a carry
+    leaving the scan counts one pass."""
+    dec, costs, valid = _five_states(tmp_path)
+    assert dec.NST == 5 and dec.n_multi and dec._fan_folds
+    assert _renorm_counts(lambda: dec.scan(costs, valid)) == [32, 0]
+    assert _renorm_counts(lambda: dec.with_carry(costs, valid)) == [32, 1]
+
+
+@pytest.mark.parametrize("kernel", [True, False],
+                         ids=["fan_step", "finals_block"])
+def test_finals_counters(tmp_path, monkeypatch, kernel):
+    """"scan.finals_kernel" counts the frames (padded to whole chunks)
+    whose word-final block the fan step stepped, "scan.finals_plain"
+    those of the torch block `_finals_step`, which a topology the
+    kernel is not built for takes (here a 5-state decoder built as if
+    the kernel took 3 states alone: an unpadded fan carry renormalized
+    in the step, no frame folded); both give the same records."""
+    if not kernel:
+        monkeypatch.setattr(ngram_fused, "NSTS", (3,))
+    dec, costs, valid = _five_states(tmp_path)
+    assert dec._fan_folds == kernel
+    keys = ("scan.finals_kernel", "scan.finals_plain", "scan.renorm_folded")
+    recs = []
+    got = _counts(lambda: recs.append(dec.scan(costs, valid)), keys)
+    assert got == ([32, 0, 32] if kernel else [0, 32, 0])
+    monkeypatch.undo()
+    want = _five_states(tmp_path / "other")[0].scan(costs, valid)
+    for a, b in zip(recs[0], want, strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("traced", [False, True], ids=["off", "profiled"])
