@@ -129,8 +129,10 @@ Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
    kernel in LM mode rows, on a decoder of bench-1.7k.dic and
    bench-1.7k.lm.bin, as in phase 3; (f) `semi_scale`: (a)'s task over a
    seeded 5-state Sphinx-II semi-continuous s2_4x model (one codebook of
-   256, 5,000 senones), (b)'s utterances through `decode_corpus` with
-   the s2_4x features its feat.params names, twice after a warm call,
+   256, 5,000 senones), the chain kernel at 5 states held bit-equal to
+   its plain version at its buckets (B=8) and timed, (b)'s utterances
+   through `decode_corpus` with the s2_4x features its feat.params
+   names, twice after a warm call,
    the fan, chain and transition launches each equal to the frames
    stepped, both results equal, and `TwoStagePipeline` equal to them;
 10. the command-line program, the compat API and the flat search:
@@ -207,7 +209,8 @@ phase 11(a)'s (`tp_launches`), phase 7's (`facade_launches`) and phase
 10(a)'s (`cli_launches`), the transition kernel's LM-mode-rows check as
 `rows_*` and its 70-phone check as `phones_*`; then at the 126k shapes,
 `*_126k`, with phase 9(b)'s and phase 11(b)-(d)'s; the fan kernel at
-5 states and the 126k shapes, `fan5_126k`, with phase 9(f)'s launches
+5 states and the 126k shapes, `fan5_126k`, and the chain kernel at phase
+9(f)'s 5-state buckets, `chain5_126k`, each with phase 9(f)'s launches
 and phase 8(e)'s as `nst5_launches`; then the
 noise-removal kernel, `denoise`, with phase 5's launches and phase
 12(b)'s as `example_launches`), each phase's seconds, the card's name and
@@ -306,43 +309,71 @@ def m_prev_inputs(rng, B, kind):
                      np.float32(1.5)])[np.arange(B) % 4]
 
 
-def chain_inputs(rng, B, NST, D, W, RF, NFD, has_var, ties):
+#: senones of the cost row `chain_inputs` draws ids into by default (the
+#: en-us model's)
+N_SEN = 5126
+
+
+def chain_costs(rng, B, n_sen=N_SEN):
+    """A frame's senone costs [B, n_sen] for `chain_inputs`."""
+    return (rng.random((B, n_sen)) * 80).astype(np.float32)
+
+
+def chain_inputs(rng, B, NST, D, W, RF, NFD, has_var, ties, costs=None):
     """Random chain-step inputs in the style of tests/test_pallas_chain.py
-    (RF/NFD unused without variants)."""
+    (RF/NFD unused without variants): the carry, tables and senone ids
+    (`senid` [NST, D, W], `senid_first_d` [NST, RF, NFD]) into the cost
+    row `costs` [B, n_sen] (None: a fresh `chain_costs` row), and the
+    costs they select (`pre`, `prevd`), as a pre-gather gives them."""
+    if costs is None:
+        costs = chain_costs(rng, B)
+    n_sen = costs.shape[1]
     S = (rng.standard_normal((B, NST, D, W)) * 30).astype(np.float32)
     tp = -(rng.random((NST * (NST + 1), D, W)) * 5).astype(np.float32)
     if ties:
         S, tp = np.round(S), np.round(tp)
     fd = rng.integers(0, D, W)
+    senid = rng.integers(0, n_sen, (NST, D, W)).astype(np.int32)
     out = dict(
         S=S, TF=rng.integers(0, 99, (B, NST, D, W)).astype(np.int32),
         CTX=rng.integers(0, 999, (B, NST, D, W)).astype(np.int32),
-        VAR=None, pre=(rng.random((B, NST, D, W)) * 80).astype(np.float32),
-        prevd=None, fd_idx=None, tp=tp,
+        VAR=None, pre=costs[:, senid], prevd=None, fd_idx=None, tp=tp,
         fm=np.arange(D)[:, None] == fd[None, :], nv=None,
-        pip=float(np.float32(-0.7)))
+        pip=float(np.float32(-0.7)), senid=senid, senid_first_d=None,
+        costs=costs)
     if has_var:
+        sfd = rng.integers(0, n_sen, (NST, RF, NFD)).astype(np.int32)
         out.update(
             VAR=rng.integers(0, RF, (B, NST, W)).astype(np.int32),
-            prevd=(rng.random((B, NST, RF, NFD)) * 80).astype(np.float32),
+            prevd=costs[:, sfd], senid_first_d=sfd,
             fd_idx=rng.integers(0, NFD, W).astype(np.int32),
             nv=rng.integers(1, RF + 1, W).astype(np.int32))
     return out
 
 
-def chain_group_args(per, device):
+def chain_group_args(per, device, frame=None):
     """A `ChainGroup` on `device` over the buckets of `per` (chain_inputs
     dicts, in layout order) and the grouped step's keyword arguments:
-    the flat carry, the g row and pip."""
+    the flat carry, the cost row and pip.  The buckets' distinct cost
+    rows are laid end to end, each bucket's ids offset to its row's
+    start.  frame (CH, i): the cost row is frame i of a [B, CH, n_sen]
+    chunk (the other frames NaN), a strided view as the scan passes it."""
     import torch
     from pocketsphinx_tpu_torch.ops.chain import ChainGroup
     t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
     B, NST = per[0]["S"].shape[:2]
+    rows, at = [], {}
+    for p in per:
+        if id(p["costs"]) not in at:
+            at[id(p["costs"])] = sum(c.shape[1] for c in rows)
+            rows.append(p["costs"])
     buckets = []
     for p in per:
-        b = dict(tp=t(p["tp"]), fm=t(p["fm"]))
+        o = at[id(p["costs"])]
+        b = dict(tp=t(p["tp"]), fm=t(p["fm"]), senid=t(p["senid"] + o))
         if p["VAR"] is not None:
             b.update(nv=t(p["nv"]), fd_idx=t(p["fd_idx"]),
+                     senid_first_d=t(p["senid_first_d"] + o),
                      RF=p["prevd"].shape[2], NFD=p["prevd"].shape[3])
         buckets.append(b)
     grp = ChainGroup(NST, buckets)
@@ -351,11 +382,17 @@ def chain_group_args(per, device):
         xs = [p[key].reshape(-1) for p in per if p[key] is not None]
         return t(np.concatenate(xs) if xs else np.zeros(0, np.int32))
 
-    g = grp.row([t(p["pre"]).reshape(B, -1) for p in per],
-                [t(p["prevd"]).reshape(B, -1) for p in per
-                 if p["prevd"] is not None])
-    return grp, dict(S=flat("S"), TF=flat("TF"), CTX=flat("CTX"),
-                     VAR=flat("VAR"), g=g, pip=per[0]["pip"])
+    args = dict(S=flat("S"), TF=flat("TF"), CTX=flat("CTX"),
+                VAR=flat("VAR"), pip=per[0]["pip"])
+    costs = np.concatenate(rows, 1)
+    if frame is not None:
+        CH, i = frame
+        chunk = np.full((B, CH, costs.shape[1]), np.nan, np.float32)
+        chunk[:, i] = costs
+        args["costs"] = t(chunk)[:, i]
+    else:
+        args["costs"] = t(costs)
+    return grp, args
 
 
 #: the n-gram scan's kernels, by their module in
@@ -1706,7 +1743,9 @@ def semi_scale(work, device, log=print, lmfile=None, base_dic=None,
                n_sen=5000, n_density=256, batch=8, repeats=2):
     """Phase 9(f): phase 9's task over a seeded 5-state Sphinx-II
     semi-continuous model (one codebook of `n_density` codewords, the
-    s2_4x streams 12, 24, 3 and 12, `n_sen` senones) on `device`:
+    s2_4x streams 12, 24, 3 and 12, `n_sen` senones) on `device`: on
+    CUDA the chain kernel at 5 states held to its plain version at this
+    decoder's buckets and timed (`check_chain`);
     `BatchDecodePipeline.decode_corpus` of phase 9(b)'s utterances, once
     to warm up, then `repeats` times with the kernels' counts reset just
     before: the features s2_4x as the model directory says, every fan,
@@ -1729,6 +1768,8 @@ def semi_scale(work, device, log=print, lmfile=None, base_dic=None,
     res["shape"] = dict(W=dec.W, n_multi=dec.n_multi, n_rc=dec.n_rcp,
                         NST=dec.NST, LP=int(dec.senid_fin_d.shape[-1]),
                         lm_mode=dec.lm_mode)
+    if cuda:
+        res["chain"] = check_chain(batch, buckets_of(dec), log, m_prev=True)
     fe = en_us_frontend()
     pcms = reference_utterances(batch)
     audio_s = sum(len(p) for p in pcms) / fe.samprate
@@ -2955,8 +2996,9 @@ def check_chain(B, buckets, log, m_prev=False):
     rng = np.random.default_rng(1)
     err = 0.0
     for ties in (False, True):
-        per = [chain_inputs(rng, B, *bk, ties) for bk in buckets]
-        grp, args = chain_group_args(per, "cuda")
+        costs = chain_costs(rng, B)
+        per = [chain_inputs(rng, B, *bk, ties, costs) for bk in buckets]
+        grp, args = chain_group_args(per, "cuda", frame=(16, 5))
         if m_prev:
             args["m_prev"] = torch.as_tensor(
                 m_prev_inputs(rng, B, "mixed"), device="cuda")
@@ -2964,14 +3006,26 @@ def check_chain(B, buckets, log, m_prev=False):
         torch.cuda.synchronize()
         refs = chain.chain_group_ref(grp, **args)
         err = max(err, compare(outs, refs, f"chain ties={ties}"))
-    # bound as for one launch per bucket: each bucket's inputs read once,
-    # its outputs (S/TF/CTX planes, VAR, 3 exit rows) written once
-    tot_bytes = tot_ops = 0
+    # bound as for one launch per bucket: each bucket's inputs read once
+    # (its senone ids, and the cost row once for all), its outputs (S/TF/
+    # CTX planes, VAR, 3 exit rows) written once; `pre_ms`: the same with
+    # the pre-gathered costs read in place of the ids and the row, as
+    # `benchmark/counts/kernels.py` `chain_bytes` counts
+    tot_bytes = tot_ops = pre_bytes = 0
     for (NST, D, W, *_), p in zip(buckets, per):
-        tot_bytes += nbytes(p, []) + 4 * B * (3 * NST * D * W + NST * W
-                                              + 3 * W)
+        io = nbytes({k: v for k, v in p.items()
+                     if k not in ("pre", "prevd", "costs", "senid",
+                                  "senid_first_d")}, [])
+        io += 4 * B * (3 * NST * D * W + NST * W + 3 * W)
+        tot_bytes += io + nbytes({k: p[k] for k in ("senid", "senid_first_d")
+                                  if p[k] is not None}, [])
+        pre_bytes += io + nbytes({k: p[k] for k in ("pre", "prevd")
+                                  if p[k] is not None}, [])
         tot_ops += 12 * B * NST * D * W
-    bms, by = bound_ms(tot_bytes + (4 * B if m_prev else 0), tot_ops)
+    tot_bytes += costs.nbytes
+    mp = 4 * B if m_prev else 0
+    bms, by = bound_ms(tot_bytes + mp, tot_ops)
+    pre_ms = bound_ms(pre_bytes + mp, tot_ops)[0]
     ms, plain, wms, wplain = timings(
         lambda: chain.chain_group_step(grp, **args),
         lambda: chain.chain_group_ref(grp, **args))
@@ -2979,9 +3033,12 @@ def check_chain(B, buckets, log, m_prev=False):
         f"{' with m_prev' if m_prev else ''} in one launch "
         f"({grp.n_blocks} blocks): bit-equal; device time: "
         f"kernel {ms:.4f} ms, plain {plain:.4f} ms; through Python: kernel "
-        f"{wms:.4f} ms, plain {wplain:.4f} ms; bound {bms:.4f} ms ({by})")
+        f"{wms:.4f} ms, plain {wplain:.4f} ms; bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.3f} of it; counted with pre-gathered costs "
+        f"{pre_ms:.4f} ms, {pre_ms / ms:.3f} of it")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by, wrapper_ms=wms, plain_wrapper_ms=wplain)
+                bound_by=by, pre_bound_ms=pre_ms, wrapper_ms=wms,
+                plain_wrapper_ms=wplain)
 
 
 def transitions_bytes(args, am):
@@ -3273,6 +3330,20 @@ spec = importlib.util.spec_from_file_location("chip_smoke_ab", sys.argv[1])
 ab = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(ab)
 quiet = lambda *a: None
+from pocketsphinx_tpu_torch.ops import chain as tree_chain
+if hasattr(tree_chain.ChainGroup, "row"):
+    # a tree whose chain kernel reads pre-gathered costs: the same inputs
+    # as its group's g row in place of the cost row
+    by_id = ab.chain_group_args
+    def pregathered(per, device, frame=None):
+        grp, args = by_id(per, device)
+        del args["costs"]
+        B = per[0]["S"].shape[0]
+        rows = lambda k: [torch.as_tensor(p[k], device=device).reshape(B, -1)
+                          for p in per if p[k] is not None]
+        args["g"] = grp.row(rows("pre"), rows("prevd"))
+        return grp, args
+    ab.chain_group_args = pregathered
 _build.build(list(getattr(chip_smoke, "KERNELS", ("fan", "chain"))))
 with tempfile.TemporaryDirectory() as w:
     t0 = time.perf_counter()
@@ -3594,6 +3665,12 @@ def main(argv):
         kernels[3], name="fan5_126k", launches=semi["corpus"]["launches"]
         ["fan"], tp_launches=0, nst5_launches=mres["nst5"]["launches"]
         ["fan"], **ref["fan5"]))
+    # the chain kernel at 5 states over phase 9(f)'s buckets, with its
+    # launches there and phase 8(e)'s
+    kernels.append(dict(
+        kernels[4], name="chain5_126k", launches=semi["corpus"]["launches"]
+        ["chain"], tp_launches=0, nst5_launches=mres["nst5"]["launches"]
+        ["chain"], **semi["chain"]))
     # the frontend's gains kernel: its launches on the main path (phase 5)
     # and in `torch_batch.py` (phase 12(b))
     kernels.append(dict(name="denoise", route="cuda",

@@ -13,9 +13,10 @@
 //   * the carry's scores less mprev[b], the previous frame's
 //     renormalization, which the scan defers to this load (zeros for
 //     none);
-//   * senone goodness -pre[b, j, d, w]; on the word's first node (fm)
-//     of a variant bucket the per-variant cost -prevd[b, j, v, fd_idx[w]]
-//     with v = min(VAR[b, j, w], nv[w] - 1) (mpx first phones);
+//   * senone goodness -costs[b, senid[j, d, w]]; on the word's first
+//     node (fm) of a variant bucket the per-variant cost
+//     -costs[b, senid_first_d[j, v, fd_idx[w]]] with
+//     v = min(VAR[b, j, w], nv[w] - 1) (mpx first phones);
 //   * the NST-state Viterbi update with TF/CTX/VAR metadata
 //     (ops/hmm.py hmm_step_sm tie rules);
 //   * the intra-word shift: state 0 of node d > 0 takes out[d-1] + pip
@@ -26,16 +27,19 @@
 //   * carry S/TF/CX and their outputs: one flat buffer each, the buckets'
 //     [B, NST, D, W] blocks end to end (bucket k at B * tab[k][CARRY]);
 //     VAR likewise with [B, NST, W] blocks of the variant buckets;
-//   * g [B, gld]: this frame's senone costs, pre [NST, D, W] of every
-//     bucket at tab[k][PRE] and prevd [NST, RF, NFD] at tab[k][PREVD];
+//   * costs [B, n_sen] with row stride cld: this frame's senone costs
+//     (frame i of the scan's [B, CH, n_sen] chunk, read in place);
+//   * sid: the senone ids, one flat unbatched int32 table, senid
+//     [NST, D, W] of every bucket at tab[k][SID] and senid_first_d
+//     [NST, RF, NFD] of a variant bucket at tab[k][SFD];
 //   * tp [NK, D, W], fm [D, W], nv/fd_idx [W]: flat unbatched tables;
 //   * exits: per group (0: variant buckets, 1: the others) one int32
 //     buffer [3, B, ld] holding score bits, TF and CX, word w of bucket k
 //     at column tab[k][XCOL] + w.
 //
 // What bounds it on an H100: bytes.  A frame reads and writes the S/TF/CX
-// planes and reads pre and the unbatched tp planes; the arithmetic is a
-// few adds and compares per element.
+// planes and reads the unbatched tp planes and senone ids; the arithmetic
+// is a few adds and compares per element.
 //
 // What the design does about it:
 //   * one launch per frame: every block belongs to one bucket (a row of
@@ -45,15 +49,24 @@
 //     deep buckets start first and overlap the wide shallow bucket's
 //     streaming (measured faster than layout order, PERF.md);
 //   * the batch inside the block: a block is WT = 32 words (x) by up to 8
-//     batch elements (y), so the unbatched tables (tp, fm, nv, fd_idx) of
-//     a word tile are fetched from device memory once for all B and read
-//     through L1 by the block's warps (measured faster than staging tp in
-//     shared memory behind a barrier, PERF.md);
+//     batch elements (y), so the unbatched tables (tp, fm, nv, fd_idx and
+//     the senone ids) of a word tile are fetched from device memory once
+//     for all B and read through L1 by the block's warps (measured faster
+//     than staging tp in shared memory behind a barrier, PERF.md);
+//   * the costs by id: a node's cost is read from the frame's cost row
+//     through its senone id, not from a row gathered for it beforehand;
+//     the rows (B x n_sen floats, some 160 KB at B=8) stay in L2, so the
+//     scan writes, copies and reads no per-node cost planes;
 //   * one thread per (b, w) walks d with the states in registers, so the
-//     shift out[d-1] is a register carry; a node's carry, costs and 12
+//     shift out[d-1] is a register carry; a node's carry, senone ids and
 //     transition words are loaded together before its arithmetic, so each
 //     thread keeps many loads in flight; neighbouring threads read and
-//     write neighbouring words (coalesced), each element once;
+//     write neighbouring words (coalesced), each element once; the costs
+//     (scattered, from L2) are read by id where the arithmetic takes them,
+//     so a node holds its ids, not its costs, in registers: 116 at 3
+//     states and 166 at 5, within the 116 and 168 of the kernel that read
+//     pre-gathered costs (loading the costs with the node took 120 and
+//     170, for 1-2% less time, PERF.md);
 //   * no pass over the carry between frames: the renormalization's
 //     subtraction is one add per score as the node is loaded.
 //
@@ -71,15 +84,16 @@ constexpr int BY = 8;         // batch elements per block (more loop)
 
 // Columns of a row of the bucket table (ops/chain.py TAB_COLUMNS).
 enum : int {
-  C_D, C_W, C_VAR, C_RF, C_NFD, C_BLK0, C_CARRY, C_VOFF, C_PRE, C_PREVD,
+  C_D, C_W, C_VAR, C_RF, C_NFD, C_BLK0, C_CARRY, C_VOFF, C_SID, C_SFD,
   C_TP, C_FM, C_WOFF, C_XCOL, N_COL = 16
 };
 
-// One node's inputs for one (b, w): carry, costs, transition row, mask.
+// One node's inputs for one (b, w): carry, senone ids, transition row,
+// mask.
 template <int NST>
 struct Node {
-  float s[NST], pre[NST], tp[NST * (NST + 1)];
-  int32_t tf[NST], cx[NST];
+  float s[NST], tp[NST * (NST + 1)];
+  int32_t id[NST], tf[NST], cx[NST];
   bool first;
 };
 
@@ -90,8 +104,9 @@ __device__ __forceinline__ void bucket_steps(
     const int32_t* __restrict__ row, int B, int b0, int by, int w,
     const float* __restrict__ S, const int32_t* __restrict__ TF,
     const int32_t* __restrict__ CX, const int32_t* __restrict__ VAR,
-    const float* __restrict__ mprev, const float* __restrict__ g,
-    long long gld, const float* __restrict__ tp,
+    const float* __restrict__ mprev, const float* __restrict__ costs,
+    long long cld, const int32_t* __restrict__ sid_all,
+    const float* __restrict__ tp,
     const uint8_t* __restrict__ fm, const int32_t* __restrict__ nv_all,
     const int32_t* __restrict__ fdi_all, float pip,
     float* __restrict__ nS, int32_t* __restrict__ nTF,
@@ -109,12 +124,13 @@ __device__ __forceinline__ void bucket_steps(
   }
   const size_t xplane = (size_t)B * xld;
   const int xcol = __ldg(row + C_XCOL) + w;
+  const int32_t* sid = sid_all + __ldg(row + C_SID) + w;   // [NST, D, W]
+  const int32_t* sfd = sid_all + __ldg(row + C_SFD);       // [NST, RF, NFD]
 
   for (int b = b0; b < B; b += by) {
     const size_t base =
         (size_t)B * __ldg(row + C_CARRY) + (size_t)b * NST * DW + w;
-    const float* pre = g + (size_t)b * gld + __ldg(row + C_PRE) + w;
-    const float* prevd = g + (size_t)b * gld + __ldg(row + C_PREVD);
+    const float* cost = costs + (size_t)b * cld;
     const size_t vbase =
         (size_t)B * __ldg(row + C_VOFF) + (size_t)b * NST * W + w;
     // read unconditionally: a test of the pointer here cost the
@@ -130,7 +146,7 @@ __device__ __forceinline__ void bucket_steps(
       const size_t off = base + (size_t)d * W;
       for (int j = 0; j < NST; ++j) {
         n.s[j] = S[off + j * DW] - mp;
-        n.pre[j] = pre[(size_t)j * DW + (size_t)d * W];
+        n.id[j] = __ldg(sid + (size_t)j * DW + (size_t)d * W);
         n.tf[j] = TF[off + j * DW];
         n.cx[j] = CX[off + j * DW];
       }
@@ -151,11 +167,12 @@ __device__ __forceinline__ void bucket_steps(
       const int32_t* tf = cur.tf;
       const int32_t* cx = cur.cx;
       for (int j = 0; j < NST; ++j) {
-        float sen = -cur.pre[j];
+        float sen = -__ldg(cost + cur.id[j]);
         if (HAS_VAR && first) {
           const int v = var[j] < vsel ? var[j] : vsel;
           sen = (v >= 0 && v < RF)
-                    ? -prevd[((size_t)j * RF + v) * NFD + fdw]
+                    ? -__ldg(cost + __ldg(sfd + ((size_t)j * RF + v) * NFD
+                                          + fdw))
                     : 0.0f;
         }
         s[j] = cur.s[j] + sen;
@@ -235,7 +252,8 @@ chain_group_kernel(const int32_t* __restrict__ tab, int nb, int B,
                    const int32_t* __restrict__ CX,
                    const int32_t* __restrict__ VAR,
                    const float* __restrict__ mprev,
-                   const float* __restrict__ g, long long gld,
+                   const float* __restrict__ costs, long long cld,
+                   const int32_t* __restrict__ sid_all,
                    const float* __restrict__ tp_all,
                    const uint8_t* __restrict__ fm_all,
                    const int32_t* __restrict__ nv_all,
@@ -256,7 +274,8 @@ chain_group_kernel(const int32_t* __restrict__ tab, int nb, int B,
   const uint8_t* fm = fm_all + __ldg(row + C_FM);    // [D, W]
 
 #define BUCKET_ARGS row, B, threadIdx.y, blockDim.y, w, S, TF, CX, VAR, \
-    mprev, g, gld, tp, fm, nv_all, fdi_all, pip, nS, nTF, nCX, nVAR
+    mprev, costs, cld, sid_all, tp, fm, nv_all, fdi_all, pip, nS, nTF, \
+    nCX, nVAR
   if (__ldg(row + C_VAR))
     bucket_steps<NST, true>(BUCKET_ARGS, x0, ld0);
   else
@@ -267,35 +286,38 @@ chain_group_kernel(const int32_t* __restrict__ tab, int nb, int B,
 template <int NST>
 int launch(const int32_t* tab, int nb, int nblk, int B,
            const float* S, const int32_t* TF, const int32_t* CX,
-           const int32_t* VAR, const float* mprev, const float* g,
-           long long gld, const float* tp, const uint8_t* fm,
+           const int32_t* VAR, const float* mprev, const float* costs,
+           long long cld, const int32_t* sid, const float* tp,
+           const uint8_t* fm,
            const int32_t* nv, const int32_t* fdi, float pip, float* nS,
            int32_t* nTF, int32_t* nCX, int32_t* nVAR, int32_t* x0, int ld0,
            int32_t* x1, int ld1, cudaStream_t stream) {
   const dim3 block(WT, B < BY ? B : BY);
   chain_group_kernel<NST><<<nblk, block, 0, stream>>>(
-      tab, nb, B, S, TF, CX, VAR, mprev, g, gld, tp, fm, nv, fdi, pip, nS,
-      nTF, nCX, nVAR, x0, ld0, x1, ld1);
+      tab, nb, B, S, TF, CX, VAR, mprev, costs, cld, sid, tp, fm, nv, fdi,
+      pip, nS, nTF, nCX, nVAR, x0, ld0, x1, ld1);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One launch over the nb buckets of `tab` (nblk blocks in all); mprev:
-// [B] offsets to subtract from S as it is loaded (zeros for none).  Returns
+// [B] offsets to subtract from S as it is loaded (zeros for none); costs:
+// [B, n_sen] at row stride cld, read through the ids of sid.  Returns
 // cudaGetLastError() after the launch; cudaErrorInvalidValue for an NST the
 // kernel is not instantiated for.
 extern "C" int chain_group_launch(
     const void* tab, int nb, int nblk, int NST, int B, const void* S,
     const void* TF, const void* CX, const void* VAR, const void* mprev,
-    const void* g, long long gld, const void* tp, const void* fm,
+    const void* costs, long long cld, const void* sid, const void* tp,
+    const void* fm,
     const void* nv, const void* fdi, float pip, void* nS, void* nTF,
     void* nCX, void* nVAR, void* x0, int ld0, void* x1, int ld1,
     void* stream) {
 #define CHAIN_ARGS (const int32_t*)tab, nb, nblk, B, (const float*)S,        \
     (const int32_t*)TF, (const int32_t*)CX, (const int32_t*)VAR,             \
-    (const float*)mprev, (const float*)g, gld, (const float*)tp,             \
-    (const uint8_t*)fm,                                                      \
+    (const float*)mprev, (const float*)costs, cld, (const int32_t*)sid,      \
+    (const float*)tp, (const uint8_t*)fm,                                    \
     (const int32_t*)nv, (const int32_t*)fdi, pip, (float*)nS,                \
     (int32_t*)nTF, (int32_t*)nCX, (int32_t*)nVAR, (int32_t*)x0, ld0,         \
     (int32_t*)x1, ld1, (cudaStream_t)stream

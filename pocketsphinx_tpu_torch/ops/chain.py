@@ -9,6 +9,10 @@ step of a right-aligned chain bucket [NST, D, W], batched over B:
     costs `prevd[b, j, v, fd_idx[w]]` with v = min(VAR, nv - 1) (the
     gather by `fd_idx` replaces the JAX scan's one-hot expansion of the
     per-first-diphone planes);
+  * the senone costs by id: the grouped step reads `pre` and `prevd`
+    from the frame's cost row [B, n_sen] through each bucket's senone
+    ids (`costs[b, senid[j, d, w]]`), where the JAX scan pre-gathers
+    them per chunk;
   * the NST-state Viterbi update with TF/CTX/VAR metadata
     (`ops.hmm.hmm_step_sm` tie rules);
   * the intra-word shift `out[d-1] + pip` into state 0 of non-first
@@ -21,10 +25,13 @@ A frame's chain block is one grouped call over every bucket,
 `chain_group_step`.  Its carry fields are flat buffers, the buckets'
 [B, NST, D, W] blocks end to end (VAR: the variant buckets' [B, NST, W]
 blocks), and `ChainGroup` holds the static layout: the bucket table the
-kernel reads and the flat unbatched tables.  `chain_group_step` launches
-`csrc/chain.cu` once for CUDA tensors and runs `chain_group_ref`
-(`chain_step_ref` over each bucket's views) only for CPU tensors.  `tp`,
-`fm`, `nv` and `fd_idx` are shared by the batch and must be unbatched.
+kernel reads and the flat unbatched tables, the senone ids among them.
+The step takes the frame's cost row [B, n_sen] as it is, a view with
+any row stride (frame i of a chunk's [B, CH, n_sen] costs).
+`chain_group_step` launches `csrc/chain.cu` once for CUDA tensors and
+runs `chain_group_ref` (`chain_step_ref` over each bucket's views) only
+for CPU tensors.  `tp`, `fm`, `nv`, `fd_idx` and the senone ids are
+shared by the batch and must be unbatched.
 The grouped step takes `m_prev` [B], the previous frame's
 renormalization that the scan defers to this load: every score of the
 carry less `m_prev[b]` before the step (optional; none by default).
@@ -48,7 +55,7 @@ launches = 0
 
 #: columns of a row of the bucket table (`enum` in csrc/chain.cu)
 TAB_COLUMNS = ("D", "W", "has_var", "RF", "NFD", "blk0", "carry", "var",
-               "pre", "prevd", "tp", "fm", "woff", "xcol")
+               "sid", "sfd", "tp", "fm", "woff", "xcol")
 N_COL = 16
 #: words per block of the kernel
 WT = 32
@@ -116,54 +123,57 @@ class ChainGroup:
     """Static layout of a frame's chain buckets for one grouped step.
 
     NST: states per node.  buckets, in layout order: dicts with
-    tp [NST*(NST+1), D, W] f32 and fm [D, W] bool, and for a bucket with
-    variants also nv [W], fd_idx [W] (int32) and RF, NFD (its prevd
-    planes' shape); all on one device.
+    tp [NST*(NST+1), D, W] f32, fm [D, W] bool and senid [NST, D, W]
+    (the nodes' senone ids), and for a bucket with variants also nv [W],
+    fd_idx [W] and senid_first_d [NST, RF, NFD] (the first-diphone
+    variant planes' senone ids); all on one device.
 
     Per batch element, in layout order:
       * carry planes S/TF/CTX: NST*D*W per bucket (`planes`);
       * VAR: NST*W per variant bucket (`var_planes`);
-      * the g row: pre [NST, D, W] of every bucket, then prevd
-        [NST, RF, NFD] of every variant bucket (`g_width` in all);
       * exits: group 0 holds the variant buckets' words, group 1 the
         others' (`n_exit`), each bucket's at its offset `xcol`.
-    `row` lays per-bucket parts out as the g row.  The table `tab`
-    [n_buckets, N_COL] int32 has one row per bucket in launch order, the
-    deepest buckets first (their serial walks then overlap the wide
-    buckets' streaming); column `blk0` is the bucket's first block (WT
-    words each)."""
+    The senone ids are one flat unbatched int32 table `sid`: every
+    bucket's senid, then every variant bucket's senid_first_d (column
+    `sid` and `sfd` of its row); the step reads them into a cost row of
+    at least `n_sen` senones.  The table `tab` [n_buckets, N_COL] int32
+    has one row per bucket in launch order, the deepest buckets first
+    (their serial walks then overlap the wide buckets' streaming);
+    column `blk0` is the bucket's first block (WT words each)."""
 
     def __init__(self, NST: int, buckets):
         self.NST = NST
         rows = []
-        at = dict(carry=0, var=0, pre=0, tp=0, fm=0, woff=0)
+        at = dict(carry=0, var=0, sid=0, tp=0, fm=0, woff=0)
         xcol = [0, 0]
         for b in buckets:
             if b["tp"].dim() != 3 or b["tp"].shape[0] != NST * (NST + 1):
                 raise ValueError(f"tp must be unbatched [{NST * (NST + 1)}, "
                                  f"D, W], got {tuple(b['tp'].shape)}")
             NK, D, W = b["tp"].shape
+            if tuple(b["senid"].shape) != (NST, D, W):
+                raise ValueError(f"senid must be [{NST}, {D}, {W}], got "
+                                 f"{tuple(b['senid'].shape)}")
             has_var = b.get("nv") is not None
-            r = dict(D=D, W=W, has_var=int(has_var),
-                     RF=b["RF"] if has_var else 0,
-                     NFD=b["NFD"] if has_var else 0,
-                     xcol=xcol[not has_var], prevd=0, **at)
+            RF, NFD = b["senid_first_d"].shape[1:] if has_var else (0, 0)
+            r = dict(D=D, W=W, has_var=int(has_var), RF=RF, NFD=NFD,
+                     xcol=xcol[not has_var], sfd=0, **at)
             if not has_var:
                 r["var"] = r["woff"] = 0
             rows.append(r)
             at["carry"] += NST * D * W
-            at["pre"] += NST * D * W
+            at["sid"] += NST * D * W
             at["tp"] += NK * D * W
             at["fm"] += D * W
             if has_var:
                 at["var"] += NST * W
                 at["woff"] += W
             xcol[not has_var] += W
-        width = at["pre"]
+        n_sid = at["sid"]
         for r in rows:
             if r["has_var"]:
-                r["prevd"] = width
-                width += NST * r["RF"] * r["NFD"]
+                r["sfd"] = n_sid
+                n_sid += NST * r["RF"] * r["NFD"]
         order = sorted(range(len(rows)), key=lambda i: -rows[i]["D"])
         blk = 0
         for i in order:
@@ -179,7 +189,6 @@ class ChainGroup:
         self._view_specs = {}
         self.n_blocks = blk
         self.n_carry, self.n_var = at["carry"], at["var"]
-        self.g_width = width
         self.n_exit = tuple(xcol)
         dev = buckets[0]["tp"].device if buckets else torch.device("cpu")
         self.tab = torch.as_tensor(tab.astype(np.int32), device=dev)
@@ -194,6 +203,10 @@ class ChainGroup:
         self.fm = flat("fm", torch.bool, buckets)
         self.nv = flat("nv", torch.int32, var_b)
         self.fd_idx = flat("fd_idx", torch.int32, var_b)
+        self.sid = torch.cat([flat("senid", torch.int32, buckets),
+                              flat("senid_first_d", torch.int32, var_b)])
+        #: the least cost-row width the ids index into
+        self.n_sen = int(self.sid.max()) + 1 if self.sid.numel() else 0
         # per-bucket views of the flat tables, for the plain version
         NK = NST * (NST + 1)
         self.tp_b = [self.tp[r["tp"]:r["tp"] + NK * r["D"] * r["W"]]
@@ -204,20 +217,16 @@ class ChainGroup:
                      if r["has_var"] else None for r in rows]
         self.fd_b = [self.fd_idx[r["woff"]:r["woff"] + r["W"]]
                      if r["has_var"] else None for r in rows]
+        self.sid_b = [self.sid[r["sid"]:r["sid"] + NST * r["D"] * r["W"]]
+                      .view(NST, r["D"], r["W"]) for r in rows]
+        self.sfd_b = [self.sid[r["sfd"]:r["sfd"]
+                               + NST * r["RF"] * r["NFD"]]
+                      .view(NST, r["RF"], r["NFD"])
+                      if r["has_var"] else None for r in rows]
 
     @property
     def n_buckets(self):
         return len(self.rows)
-
-    def row(self, pre, prevd):
-        """The g row [..., g_width] of per-bucket parts: `pre`, one
-        [..., NST*D*W] tensor per bucket, and `prevd`, one
-        [..., NST*RF*NFD] tensor per variant bucket, in layout order."""
-        g = torch.cat(list(pre) + list(prevd), -1)
-        if g.shape[-1] != self.g_width:
-            raise ValueError(f"g row of width {g.shape[-1]}, not the "
-                             f"group's {self.g_width}")
-        return g
 
     def _views(self, B, var):
         """(shape, stride, offset) of each bucket's view of a flat carry
@@ -260,12 +269,13 @@ class ChainGroup:
             VAR=torch.zeros(B * self.n_var, dtype=torch.int32, device=dev))
 
 
-def chain_group_ref(grp, S, TF, CTX, VAR, g, pip, m_prev=None):
-    """Plain torch version of the grouped chain step: `chain_step_ref`
-    over each bucket's views (less `m_prev`, when given).  Same arguments
-    and results as `chain_group_step`."""
-    B, N = g.shape[0], grp.NST
-    dev = g.device
+def chain_group_ref(grp, S, TF, CTX, VAR, costs, pip, m_prev=None):
+    """Plain torch version of the grouped chain step: each bucket's
+    costs gathered from the cost row by its senone ids, then
+    `chain_step_ref` over its views (less `m_prev`, when given).  Same
+    arguments and results as `chain_group_step`."""
+    B = costs.shape[0]
+    dev = costs.device
     sv, tfv, cxv = grp.planes(S, B), grp.planes(TF, B), grp.planes(CTX, B)
     if m_prev is not None:
         sv = [s - m_prev[:, None, None, None] for s in sv]
@@ -273,14 +283,11 @@ def chain_group_ref(grp, S, TF, CTX, VAR, g, pip, m_prev=None):
     flat = ([], [], [], [])
     exits = ([[], [], []], [[], [], []])
     for k, r in enumerate(grp.rows):
-        D, W = r["D"], r["W"]
-        pre = g[:, r["pre"]:r["pre"] + N * D * W].view(B, N, D, W)
+        pre = costs[:, grp.sid_b[k].long()]                # [B, N, D, W]
         var = prevd = None
         if r["has_var"]:
             var = next(varv)
-            n = N * r["RF"] * r["NFD"]
-            prevd = g[:, r["prevd"]:r["prevd"] + n].view(
-                B, N, r["RF"], r["NFD"])
+            prevd = costs[:, grp.sfd_b[k].long()]          # [B, N, RF, NFD]
         o = chain_step_ref(sv[k], tfv[k], cxv[k], var, pre, prevd,
                            grp.fd_b[k], grp.tp_b[k], grp.fm_b[k],
                            grp.nv_b[k], pip)
@@ -303,15 +310,21 @@ def chain_group_ref(grp, S, TF, CTX, VAR, g, pip, m_prev=None):
               for x, dt in zip(grp_x, (f32, i32, i32))))
 
 
-def _check_group(grp, S, TF, CTX, VAR, g, m_prev):
-    if g.dim() != 2:
-        raise ValueError(f"g must be [B, g_width], got {tuple(g.shape)}")
-    B = g.shape[0]
+def _check_group(grp, S, TF, CTX, VAR, costs, m_prev):
+    if costs.dim() != 2:
+        raise ValueError(f"costs must be [B, n_sen], got "
+                         f"{tuple(costs.shape)}")
+    B, n_sen = costs.shape
+    if n_sen < grp.n_sen:
+        raise ValueError(f"costs: {n_sen} senones, the group's ids reach "
+                         f"{grp.n_sen - 1}")
+    if n_sen > 1 and costs.stride(1) != 1:
+        raise ValueError("costs: senones not at unit stride")
     want = {"S": (S, torch.float32, (B * grp.n_carry,)),
             "TF": (TF, torch.int32, (B * grp.n_carry,)),
             "CTX": (CTX, torch.int32, (B * grp.n_carry,)),
             "VAR": (VAR, torch.int32, (B * grp.n_var,)),
-            "g": (g, torch.float32, (B, grp.g_width))}
+            "costs": (costs, torch.float32, (B, n_sen))}
     if m_prev is not None:
         want["m_prev"] = (m_prev, torch.float32, (B,))
     dev = grp.tab.device
@@ -323,33 +336,35 @@ def _check_group(grp, S, TF, CTX, VAR, g, m_prev):
         if x.device != dev:
             raise ValueError(f"{name}: device {x.device} != the group's "
                              f"tables' {dev}")
-        if not x.is_contiguous():
+        if name != "costs" and not x.is_contiguous():
             raise ValueError(f"{name}: not contiguous")
 
 
-def chain_group_step(grp, S, TF, CTX, VAR, g, pip, m_prev=None):
+def chain_group_step(grp, S, TF, CTX, VAR, costs, pip, m_prev=None):
     """The chain step of every bucket of `grp` (a `ChainGroup`) on the
     tensors' device: one launch of the CUDA kernel for CUDA tensors,
     `chain_group_ref` for CPU tensors.
 
     S/TF/CTX [B * grp.n_carry] f32/i32/i32 flat carry; VAR
     [B * grp.n_var] i32 (None when the group has no variant bucket);
-    g [B, grp.g_width] f32 this frame's pre and prevd costs; pip float;
-    m_prev: None, or [B] f32 offsets subtracted from S before the step
-    (the kernel subtracts each as it loads the score).
+    costs [B, n_sen] f32 this frame's senone costs, the senones at unit
+    stride and the rows at any stride (the kernel reads each node's by
+    its id in `grp.sid`); pip float; m_prev: None, or [B] f32 offsets
+    subtracted from S before the step (the kernel subtracts each as it
+    loads the score).
     Returns (newS, newTF, newCTX, newVAR flat,
              exit score, TF, CTX [B, n_exit[0]] of the variant buckets,
              exit score, TF, CTX [B, n_exit[1]] of the others)."""
     global launches
     if VAR is None:
         VAR = torch.zeros(0, dtype=torch.int32, device=S.device)
-    _check_group(grp, S, TF, CTX, VAR, g, m_prev)
+    _check_group(grp, S, TF, CTX, VAR, costs, m_prev)
     if S.device.type == "cpu":
-        return chain_group_ref(grp, S, TF, CTX, VAR, g, pip, m_prev)
+        return chain_group_ref(grp, S, TF, CTX, VAR, costs, pip, m_prev)
     if S.device.type != "cuda":
         raise ValueError(f"chain_group_step: unsupported device {S.device}")
     lib = _lib()
-    B, dev = g.shape[0], S.device
+    B, dev = costs.shape[0], S.device
     nS = torch.empty_like(S)
     nTF = torch.empty_like(TF)
     nCX = torch.empty_like(CTX)
@@ -366,8 +381,8 @@ def chain_group_step(grp, S, TF, CTX, VAR, g, pip, m_prev=None):
             err = lib.chain_group_launch(
                 grp.tab.data_ptr(), grp.n_buckets, grp.n_blocks, grp.NST, B,
                 S.data_ptr(), TF.data_ptr(), CTX.data_ptr(), VAR.data_ptr(),
-                m_prev.data_ptr(), g.data_ptr(), g.stride(0),
-                grp.tp.data_ptr(),
+                m_prev.data_ptr(), costs.data_ptr(), costs.stride(0),
+                grp.sid.data_ptr(), grp.tp.data_ptr(),
                 grp.fm.data_ptr(), grp.nv.data_ptr(), grp.fd_idx.data_ptr(),
                 float(pip), nS.data_ptr(), nTF.data_ptr(), nCX.data_ptr(),
                 nVAR.data_ptr(), x0.data_ptr(), n0, x1.data_ptr(), n1,
@@ -387,7 +402,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.chain_group_launch.argtypes = (
-            [p] + [i] * 4 + [p] * 6 + [ctypes.c_longlong] + [p] * 4
+            [p] + [i] * 4 + [p] * 6 + [ctypes.c_longlong] + [p] * 5
             + [ctypes.c_float] + [p] * 4 + [p, i, p, i, p])
         lib.chain_group_launch.restype = ctypes.c_int
         lib.chain_error_string.argtypes = [ctypes.c_int]

@@ -5,7 +5,10 @@ build (`_build`, `_lm_tables`, `_guard_tables` and the table assembly of
 the JAX `_make_scan`) is a NumPy copy; the per-frame scan step, its
 chunked senone pre-gather, `init_carry`, the records and the 1-best
 backtraces are torch, with the batch axis written out ([B, ...]) where
-the JAX package used `jax.vmap`.
+the JAX package used `jax.vmap`.  The pre-gather takes the finals' and
+the single-phone columns' costs; the chain kernel reads its nodes'
+costs by id from the frame's cost row (the JAX scan pre-gathers those
+too).
 
 The network (see the JAX module's docstring for the design):
   * right-aligned chain buckets [NST, D, Wb] for the first and interior
@@ -55,7 +58,8 @@ JAX scan keeps it.  Counters, counted on the host:
 offset in the kernels' load), "scan.renorm_passes" (those folds at a
 carry's exit), and "scan.finals_kernel" / "scan.finals_plain" (frames
 whose word-final block the fan step, the kernel on the card, or the
-torch block `_finals_step` stepped).
+torch block `_finals_step` stepped); "scan.pregather_bytes" (the bytes
+each chunk's pre-gather writes).
 
 The scan runs in chunks of CHUNK frames, each with its senone
 pre-gather (`_steps`).  On a CUDA decoder one chunk is captured once per
@@ -400,10 +404,12 @@ class NgramFusedDecoder:
         """Scan tables on `device` (`convert.scan_tables`) from this
         decoder's `host_tables`, or from the JAX decoder's `_dev_tables`
         as NumPy, which hold the same keys.  The chain buckets' tables
-        become one `ops.chain.ChainGroup` (`chain`), and `senid_all`, cut
-        by `seg_shapes`, becomes the per-chunk pre-gather's index lists
-        (`gather`: name -> (ids, per-utterance shape of the result)): the
-        chain group's g row, the finals' and the single-phone columns'.
+        become one `ops.chain.ChainGroup` (`chain`) with their senone ids
+        from `senid_all`, cut by `seg_shapes` (the chain kernel reads
+        each node's cost by its id from the frame's cost row); the rest
+        of `senid_all` becomes the per-chunk pre-gather's index lists
+        (`gather`: name -> (ids, per-utterance shape of the result)):
+        the finals' and the single-phone columns'.
         With a "model" group `model_devices` (lead first) the
         word-transition block's tables are split by entry columns
         (`convert.split_scan_tables`): `columns` lists each device's
@@ -418,12 +424,17 @@ class NgramFusedDecoder:
             out, out["columns"] = split_scan_tables(
                 tables, device, [(d, e0, e1) for d, (e0, e1)
                                  in zip(model_devices, ranges)])
+        sizes = [int(np.prod(s)) for s in self.seg_shapes.values()]
+        seg = {name: ids.view(shape) for (name, shape), ids in zip(
+            self.seg_shapes.items(),
+            torch.split(out.pop("senid_all"), sizes))}
         buckets = [dict(tp=out.pop(f"ch_tp{k}"), fm=out[f"ch_fm{k}"],
                         nv=out.pop(f"ch_nv{k}"), fd_idx=out.pop(f"fd_idx{k}"),
-                        RF=ch.senid_first_d.shape[1],
-                        NFD=ch.senid_first_d.shape[2])
-                   for k, ch in enumerate(self.chains)]
-        buckets += [dict(tp=out.pop(f"ci_tp{k}"), fm=out[f"ci_fm{k}"])
+                        senid=seg["pre", k], senid_first_d=seg["prevd", k])
+                   for k in range(len(self.chains))]
+        # (the CI chains' segments follow the chain buckets' in k)
+        buckets += [dict(tp=out.pop(f"ci_tp{k}"), fm=out[f"ci_fm{k}"],
+                         senid=seg["pre", len(self.chains) + k])
                     for k in range(len(self.ci_chains))]
         if "tp_fin_rows" in out:
             # the fan kernel's per-word tables, padded like its carry
@@ -431,16 +442,10 @@ class NgramFusedDecoder:
             out["lp_idx"] = torch.nn.functional.pad(out["lp_idx"], (0, pad))
             out["tp_fin_rows"] = torch.nn.functional.pad(
                 out["tp_fin_rows"], (0, pad), value=NEG_INF)
-        grp = out["chain"] = ChainGroup(self.NST, buckets)
-        sizes = [int(np.prod(s)) for s in self.seg_shapes.values()]
-        seg = dict(zip(self.seg_shapes,
-                       torch.split(out.pop("senid_all").long(), sizes)))
-        row = grp.row([seg["pre", k] for k in range(grp.n_buckets)],
-                      [seg["prevd", k] for k in range(len(self.chains))])
-        out["gather"] = {"chain": (row, (grp.g_width,))}
-        for name in ("fin", "sp"):
-            if name in seg:
-                out["gather"][name] = (seg[name], self.seg_shapes[name])
+        out["chain"] = ChainGroup(self.NST, buckets)
+        out["gather"] = {name: (seg[name].reshape(-1).long(),
+                                self.seg_shapes[name])
+                         for name in ("fin", "sp") if name in seg}
         return out
 
     # -- static structure ----------------------------------------------------
@@ -576,8 +581,8 @@ class NgramFusedDecoder:
             ch.senid_first, ch.n_var, ch.RF = senid_first, nvar, RF
             # Shared per-first-diphone variant planes: the variant ssid
             # set is a function of (p0, p1) alone (ldiph_lc[p0][p1],
-            # src/dict2pid.c), so the per-frame senone pre-gather only
-            # needs one plane per DISTINCT first diphone; expansion to
+            # src/dict2pid.c), so the variant costs need only one plane
+            # of senone ids per DISTINCT first diphone; expansion to
             # words is a gather by fd_idx in the chain kernel.
             bpairs = [(prons[ch.w_lo + k][0], prons[ch.w_lo + k][1])
                       for k in range(Wb)]
@@ -1106,9 +1111,10 @@ class NgramFusedDecoder:
         tabs["etgt0"] = self.etgt0.astype(np.int32)
         tabs["fb_ci"] = self.fb_ci.astype(np.float32)
 
-        # flat senone-id list for the per-chunk pre-gather, in named
-        # segments, in the JAX package's order: the nodes of chain bucket
-        # k ("pre", k), their first-diphone variant planes ("prevd", k),
+        # flat senone-id list in named segments, in the JAX package's
+        # order (`device_tables` gives the chain segments to the
+        # ChainGroup and the rest to the pre-gather): the nodes of chain
+        # bucket k ("pre", k), their first-diphone variant planes ("prevd", k),
         # the finals fan, the single-phone columns, the nodes of the CI
         # chains (their k follows the chain buckets', as in the ChainGroup)
         segs = {}
@@ -1351,9 +1357,11 @@ class NgramFusedDecoder:
         return transitions(tb, self.lm_layout, kv, ki, ctx_k, fb_k, svk,
                            wpen, out=out)
 
-    def _step(self, carry, g, t, valid, minimal, mask=False):
-        """One frame for B utterances.  g: this frame's senone costs by
-        gather name (see `device_tables`); t: frame index, an int or a 0-d
+    def _step(self, carry, cost, g, t, valid, minimal, mask=False):
+        """One frame for B utterances.  cost: this frame's senone costs
+        [B, n_sen] (a view of the chunk's; the chain step reads its
+        nodes' costs from it by id); g: its costs pre-gathered by gather
+        name (see `device_tables`); t: frame index, an int or a 0-d
         int32 tensor on the step's device (the graph's, so that a replay
         reads it); valid [B] bool; `mask`: frames whose valid is false
         leave the carry unchanged.  Returns (new carry, records)."""
@@ -1372,8 +1380,8 @@ class NgramFusedDecoder:
         cc, m_prev = carry["chain"], carry["m_prev"]
         (nS, nTF, nCX, nVAR, cl_s, cl_tf, cl_cx,
          esc_c, etf_c, ecx_c) = chain_group_step(
-            tb["chain"], cc["S"], cc["TF"], cc["CTX"], cc["VAR"], g["chain"],
-            pip, m_prev=m_prev)
+            tb["chain"], cc["S"], cc["TF"], cc["CTX"], cc["VAR"], cost, pip,
+            m_prev=m_prev)
         newc = {"chain": dict(S=nS, TF=nTF, CTX=nCX, VAR=nVAR)}
         newc["ch"], newc["ci"] = self._chain_views(newc["chain"], B)
         # the right-context exit planes of every word [B, n_rc, W]: the
@@ -1627,22 +1635,25 @@ class NgramFusedDecoder:
         """The CHUNK frames of costs cch [B, CH, n_sen] and valid vch
         [B, CH] from `carry`, `t_base` the first frame's index (an int,
         or a 0-d int32 tensor on the device): the chunk's senone
-        pre-gather, then `_step` per frame.  Yields (frame in the chunk,
-        carry after it, its records); a caller that rebinds its carry to
-        each one holds no other.  A split decoder's full records of a
-        frame hold its joined block outputs (entry, erw1, erw2), which
-        the next frame overwrites: copy them before taking the next."""
+        pre-gather of the finals and single-phone columns, then `_step`
+        per frame on its cost row and gathered costs.  Yields (frame in
+        the chunk, carry after it, its records); a caller that rebinds
+        its carry to each one holds no other.  A split decoder's full
+        records of a frame hold its joined block outputs (entry, erw1,
+        erw2), which the next frame overwrites: copy them before taking
+        the next."""
         B, CH = vch.shape
         gather = self.tables["gather"]
-        # chunked pre-gather: this chunk's costs of every node's senones,
-        # one contiguous [CH, B, n] block per gather
+        # chunked pre-gather: this chunk's costs of the finals' and the
+        # single-phone columns' senones, one contiguous [CH, B, n] block
+        # per gather (the chain kernel reads its own from cch by id)
         gs = {name: cch[:, :, ids].transpose(0, 1).contiguous()
               for name, (ids, _) in gather.items()}
         for i in range(CH):
             g = {name: x[i].view((B,) + gather[name][1])
                  for name, x in gs.items()}
-            carry, rec = self._step(carry, g, t_base + i, vch[:, i],
-                                    minimal, mask)
+            carry, rec = self._step(carry, cch[:, i], g, t_base + i,
+                                    vch[:, i], minimal, mask)
             yield i, carry, rec
 
     def _scan(self, costs, valid, minimal, carry=None, t0=0, mask=False,
@@ -1665,7 +1676,7 @@ class NgramFusedDecoder:
             carry = self.init_carry(B)
         recs = None
         for c0 in range(0, Tp, CH):
-            self._count_chunk()
+            self._count_chunk(B)
             for i, carry, rec in self._steps(
                     carry, costs[:, c0:c0 + CH], valid[:, c0:c0 + CH],
                     t0 + c0, minimal, mask):
@@ -1678,11 +1689,15 @@ class NgramFusedDecoder:
         self._fold_renorm(carry, B)
         return recs, carry
 
-    def _count_chunk(self):
+    def _count_chunk(self, B):
         """Count a chunk's frames in "scan.renorm_folded" when every
         carry a kernel reads takes the renormalization in its load, and
         in "scan.finals_kernel" or "scan.finals_plain" by what steps the
-        word-final block: the fan step, or `_finals_step`."""
+        word-final block: the fan step, or `_finals_step`; and in
+        "scan.pregather_bytes" the bytes its pre-gather writes (B rows
+        of every gather's costs for each frame)."""
+        profile.count("scan.pregather_bytes", 4 * B * self.CHUNK * sum(
+            ids.numel() for ids, _ in self.tables["gather"].values()))
         if self._fan_folds or not self.n_multi:
             profile.count("scan.renorm_folded", self.CHUNK)
         if self.n_multi:
@@ -1702,7 +1717,7 @@ class NgramFusedDecoder:
             self._copy_carry(run.io.carry, carry)
         recs = None
         for c0 in range(0, Tp, CH):
-            self._count_chunk()
+            self._count_chunk(B)
             with profile.span("ps.scan.chunk"):
                 rc = run.run(self, costs[:, c0:c0 + CH],
                              valid[:, c0:c0 + CH], t0 + c0)

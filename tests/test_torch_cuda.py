@@ -64,20 +64,28 @@ def test_chain_kernel_bit_equal(cuda, NST, has_var):
     chip_smoke.compare(outs, chain.chain_group_ref(grp, **args), "chain")
 
 
-@pytest.mark.parametrize("B", [3, 11])
+@pytest.mark.parametrize("frame", [None, (16, 5)], ids=["row", "chunk_view"])
+@pytest.mark.parametrize("B", [3, 8, 11])
 @pytest.mark.parametrize("NST,with_ci", [(3, True), (3, False), (5, True),
                                          (5, False)])
-def test_chain_group_kernel_bit_equal(cuda, NST, with_ci, B):
+def test_chain_group_kernel_bit_equal(cuda, NST, with_ci, B, frame):
     """One launch over variant buckets of several depths (and a CI
-    bucket) equals the grouped plain version; B=11 runs the kernel's loop
-    over batch rows past a block's 8."""
+    bucket) equals the grouped plain version, the kernel reading each
+    node's cost by its senone id from one cost row of en-us's 5,126
+    senones (as it is, or frame 5 of a [B, 16, n_sen] chunk: a strided
+    view, the other frames NaN); B=11 runs the kernel's loop over batch
+    rows past a block's 8."""
     buckets = [(NST, 5, 70, 4, 9, True), (NST, 16, 40, 3, 7, True),
                (NST, 2, 300, 2, 5, True)]
     if with_ci:
         buckets.append((NST, 4, 9, 0, 0, False))
     rng = np.random.default_rng(3)
-    per = [chip_smoke.chain_inputs(rng, B, *bk, True) for bk in buckets]
-    grp, args = chip_smoke.chain_group_args(per, cuda)
+    costs = chip_smoke.chain_costs(rng, B)
+    per = [chip_smoke.chain_inputs(rng, B, *bk, True, costs)
+           for bk in buckets]
+    grp, args = chip_smoke.chain_group_args(per, cuda, frame=frame)
+    if frame is not None:
+        assert args["costs"].stride() == (16 * chip_smoke.N_SEN, 1)
     n = chain.launches
     outs = chain.chain_group_step(grp, **args)
     assert chain.launches == n + 1
@@ -127,11 +135,13 @@ def test_chain_group_kernel_m_prev_bit_equal(cuda, kinds, NST, offsets):
     if kinds != "variants":
         buckets.append((NST, 4, 9, 0, 0, False))
     rng = np.random.default_rng(5)
-    per = [chip_smoke.chain_inputs(rng, 11, *bk, True) for bk in buckets]
+    costs = chip_smoke.chain_costs(rng, 11)
+    per = [chip_smoke.chain_inputs(rng, 11, *bk, True, costs)
+           for bk in buckets]
     for p in per:
         p["S"][:, :, 0, ::3] = chip_smoke.NEG_INF
     per[-1]["S"][:, 0, 1, 2] = 0.0
-    grp, args = chip_smoke.chain_group_args(per, cuda)
+    grp, args = chip_smoke.chain_group_args(per, cuda, frame=(16, 9))
     args["m_prev"] = torch.as_tensor(
         chip_smoke.m_prev_inputs(rng, 11, offsets), device=cuda)
     n = chain.launches

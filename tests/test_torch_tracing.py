@@ -12,7 +12,10 @@ on the CPU, at a small synthetic task:
   * results and stage timers do not depend on the profiler or on the
     `timings` dict, and without either a span opens no profiler range;
   * the scan counts the frames whose renormalization the kernels took in
-    their load, and the folds of a carry that leaves it.
+    their load, and the folds of a carry that leaves it;
+  * the scan counts the bytes its per-chunk pre-gather writes: the
+    finals' and single-phone columns' costs alone, since the chain
+    kernel reads its costs by id.
 
 No JAX: the port against itself."""
 
@@ -192,6 +195,32 @@ def test_corpus_folds_every_frame(task):
         del search.decode_batch
     assert len(seen) == 3
     assert got == [sum(-(-T // CHUNK) * CHUNK for T in seen), 0]
+
+
+@pytest.mark.parametrize("graph", [True, False], ids=["graph", "eager"])
+@pytest.mark.parametrize("B", [1, 3])
+def test_pregather_bytes_count_fin_and_sp(task, B, graph):
+    """"scan.pregather_bytes" adds, per chunk, 4 bytes for each of the
+    chunk's B x CHUNK frames and each senone id of the finals' and the
+    single-phone columns' segments, and nothing for the chain buckets'
+    nodes and variant planes, whose costs the chain kernel reads by id;
+    a streaming call counts the same."""
+    search = task[0].replicas[0]
+    assert set(search.tables["gather"]) == {"fin", "sp"}
+    shapes = search.seg_shapes
+    per_frame = sum(int(np.prod(shapes[k])) for k in ("fin", "sp"))
+    chain_ids = sum(int(np.prod(v)) for k, v in shapes.items()
+                    if k not in ("fin", "sp"))
+    assert chain_ids > 0
+    T = 37
+    n_chunks = -(-T // CHUNK)
+    costs = torch.as_tensor(np.random.default_rng(B).uniform(
+        0, 400, (B, T, search.am.n_sen)).astype(np.float32))
+    valid = torch.ones((B, T), dtype=torch.bool)
+    want = [4 * B * CHUNK * per_frame * n_chunks]
+    for fn in (lambda: search.scan(costs, valid, True, graph=graph),
+               lambda: search.with_carry(costs, valid, graph=graph)):
+        assert _counts(fn, ("scan.pregather_bytes",)) == want
 
 
 def _counts(fn, keys):
