@@ -4,7 +4,10 @@
     python3 chip_smoke.py --tp [--profile]
     python3 chip_smoke.py --ab TREE [TREE ...]
 
-Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA:
+Drives `pocketsphinx_tpu_torch` (never the JAX package) on CUDA.  Every
+scan runs through its search's chunk runner (`search.base.ChunkGraph`);
+"eager" below means `graph=False`: the same chunks called without
+capture.
 
 1. device: the card's name and power limit; builds the CUDA kernels
    (`pocketsphinx_tpu_torch/csrc/*.cu`, one nvcc per source, in
@@ -395,31 +398,25 @@ def chain_group_args(per, device, frame=None):
     return grp, args
 
 
-#: the n-gram scan's kernels, by their module in
-#: `pocketsphinx_tpu_torch.ops`: each launches once per frame stepped
+#: the n-gram scan's kernels, by name (`ops._build.launches`): each
+#: launches once per frame stepped
 KERNELS = ("fan", "chain", "transitions")
 #: every kernel of the port: the scan's and the frontend's gains
 #: recurrence (once per batch with noise removal)
 ALL_KERNELS = KERNELS + ("denoise",)
 
 
-def _kernel_modules():
-    from pocketsphinx_tpu_torch.ops import chain, denoise, fan, transitions
-    return dict(fan=fan, chain=chain, transitions=transitions,
-                denoise=denoise)
-
-
 def reset_counts():
     """Set every kernel's launch count to 0."""
-    for m in _kernel_modules().values():
-        m.reset_launches()
+    from pocketsphinx_tpu_torch.ops import _build
+    _build.launches.clear()
 
 
 def counts(names=KERNELS):
     """The launches of the kernels `names` (default the scan's) since
     `reset_counts`, by name."""
-    mods = _kernel_modules()
-    return {k: mods[k].launches for k in names}
+    from pocketsphinx_tpu_torch.ops import _build
+    return {k: _build.launches.get(k, 0) for k in names}
 
 
 def denoise_inputs(rng, B, T, nfilt):
@@ -468,9 +465,9 @@ def check_denoise(log, shapes=((8, 499, 25), (3, 37, 40))):
     err = 0.0
     for shape in shapes:
         x = torch.as_tensor(denoise_inputs(rng, *shape), device="cuda")
-        n = denoise.launches
+        n = counts(("denoise",))["denoise"]
         got = denoise.gains(x)
-        if denoise.launches != n + 1:
+        if counts(("denoise",))["denoise"] != n + 1:
             raise AssertionError("denoise: the wrapper did not count its "
                                  "launch")
         torch.cuda.synchronize()
@@ -1521,9 +1518,9 @@ def modes_graph_vs_eager(dec, kept, log=print,
         if results["graph"] != results["eager"]:
             raise AssertionError(f"{mode}: graph vs eager result differs")
         g = searches["graph"].chunk_graph
-        if g is None or g.graph is None:
+        if g is None or not g.graphs:
             raise AssertionError(f"{mode}: no captured graph")
-        if searches["eager"].chunk_graph is not None:
+        if searches["eager"].chunk_graph.graphs:
             raise AssertionError(f"{mode}: the eager twin has a graph")
         n = T if mode == "align" else EAGER_PROFILE_FRAMES
         host = dict(
@@ -2135,7 +2132,7 @@ def flat_graph_vs_eager(flat, costs, nf, log=print,
                 raise AssertionError(f"flat: carry {i}: graph != eager")
     del kept, rg, re_, cg, ce
     run = flat.chunk_graph
-    if run is None or run.graph is None:
+    if run is None or not run.graphs:
         raise AssertionError("flat: no captured graph")
     n = EAGER_PROFILE_FRAMES
     host = dict(
@@ -2507,18 +2504,17 @@ def tensor_parallel(dec, fe, mesh, pcms, ref, ref_guard, log=print, batch=8,
 
 def graph_bytes(dec):
     """Bytes of the buffers `dec` keeps for its scan's CUDA graphs: the
-    static inputs and carry, each graph's records and a split decoder's
-    block buffers on every card (not the free blocks of their private
-    pool)."""
-    cache = dec.__dict__.get("_graphs")
-    if not cache:
+    runner's static inputs and carry, each record kind's records and a
+    split decoder's block buffers on every card (not the free blocks of
+    their private pool)."""
+    run = dec.chunk_graph
+    if run is None:
         return 0
-    io = cache["inputs"]
-    ts = [io.costs, io.valid, io.t_base]
-    ts += [x for _, x in dec._carry_fields(io.carry)]
-    for run in cache["runs"].values():
-        ts += list(run.recs or ())
-    split = cache.get("split")
+    ts = list(run.xs or ()) + [run.t_base]
+    ts += [x for _, x in dec._carry_fields(run.carry)]
+    for recs in run.recs.values():
+        ts += list(recs)
+    split = run.held
     if split is not None:
         ts += list(split.joined)
         for p in split.parts:
@@ -3103,10 +3099,10 @@ def hold_transitions(cases, what):
     for name, args in cases.items():
         ref = tr.transitions_ref(*args)
         for c, k in [(None, None)] + transition_options():
-            n = tr.launches
+            n = counts(("transitions",))["transitions"]
             outs = tr.transitions(*args, cols_per_thread=c, k_split=k)
             _sync(args[2].device)
-            if tr.launches != n + 1:
+            if counts(("transitions",))["transitions"] != n + 1:
                 raise AssertionError("transitions did not count its launch")
             err = max(err, compare(outs, ref, f"transitions {what} {name} "
                                    f"cols={c} k_split={k}"))
@@ -3214,13 +3210,14 @@ def check_phones(work, log, n_extra=28, frames=50, device="cuda"):
         dec = phones_decoder(work, device, mode, n_extra)
         costs = np.random.default_rng(6).uniform(
             0, 400, (frames, dec.am.n_sen)).astype(np.float32)
-        n = tr.launches
+        n = counts(("transitions",))["transitions"]
         hyp, _ = dec.decode(None, costs=costs)
-        res["launches"] += tr.launches - n
-        if dec.device.type == "cuda" and tr.launches - n != \
+        n = counts(("transitions",))["transitions"] - n
+        res["launches"] += n
+        if dec.device.type == "cuda" and n != \
                 -(-frames // dec.CHUNK) * dec.CHUNK:
-            raise AssertionError(f"transitions launched {tr.launches - n} "
-                                 f"times for {frames} frames")
+            raise AssertionError(f"transitions launched {n} times for "
+                                 f"{frames} frames")
         cpu = dec.to("cpu")
         hyp_c, _ = cpu.decode(None, costs=costs)
         for i, (a, b) in enumerate(zip(dec.raw_records, cpu.raw_records)):

@@ -18,8 +18,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.fan import NSTS
-
 
 def _ranges(n: int, parts: int) -> list:
     """`parts` contiguous, near-equal [lo, hi) ranges covering range(n),
@@ -234,10 +232,9 @@ def _host_forms(tables: dict) -> dict:
         tabs["fd_idx" + k[5:]] = np.argmax(tabs.pop(k), axis=0)
     if "lp_oh" in tabs:
         tabs["lp_idx"] = np.argmax(tabs.pop("lp_oh"), axis=0)
-        W, NST = tabs["tp_fin"].shape[:2]
-        if NST in NSTS:                       # the fan kernel's layout
-            tabs["tp_fin_rows"] = tabs.pop("tp_fin").transpose(
-                1, 2, 0).reshape(NST * (NST + 1), W)
+        W, NST = tabs["tp_fin"].shape[:2]     # the fan step's layout
+        tabs["tp_fin_rows"] = tabs.pop("tp_fin").transpose(
+            1, 2, 0).reshape(NST * (NST + 1), W)
     if "f0_onehot" in tabs:
         tabs["f0p_E"] = np.argmax(tabs.pop("f0_onehot"), axis=1)
     if "rows" in tabs:
@@ -292,8 +289,7 @@ def scan_tables(tables: dict, device) -> dict:
     `bg_ctx`) and with `PS_GUARD_TOPM`'s `guard_bmax`, `col_lm_W` and
     `isfill_W` (one-hot expansion tables are turned into the
     index form the port gathers with: `fd_oh{b}` -> `fd_idx{b}`,
-    `lp_oh`/`tp_fin` -> `lp_idx`/`tp_fin_rows` (the topologies of
-    `ops.fan.NSTS`; other topologies keep `tp_fin`), `f0_onehot` ->
+    `lp_oh`/`tp_fin` -> `lp_idx`/`tp_fin_rows`, `f0_onehot` ->
     `f0p_E`; index columns become int64; mode rows' [R, E + 2] `rows`
     becomes `rows` [R, E] and its (h1, h2) columns `rows_h` [R, 2]; `accept_T` is `accept_E`
     transposed, and `accept_bits` [NW, E] its rows packed one bit per CI

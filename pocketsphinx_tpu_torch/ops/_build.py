@@ -37,6 +37,11 @@ _lock = threading.Lock()
 logs: dict[str, str] = {}
 #: the open `tally` of each thread
 _tallies = threading.local()
+#: the launches of each kernel in this process (kernel name -> count):
+#: the wrappers' own (`launched`) and what CUDA-graph replays add
+#: (`add_launches`)
+launches: dict[str, int] = {}
+_count_lock = threading.Lock()
 #: the wall seconds of this process's kernel builds
 seconds = 0.0
 
@@ -114,10 +119,10 @@ def load(name: str) -> ctypes.CDLL:
 @contextlib.contextmanager
 def tally():
     """Count the kernel launches this thread makes inside the block in
-    the dict it yields (kernel name -> launches) instead of the kernels'
-    `launches` counters: what a CUDA-graph capture records (its replays
-    add it to the counters) and its warm-up, apart from the launches any
-    other thread makes meanwhile."""
+    the dict it yields (kernel name -> launches) instead of `launches`:
+    what a CUDA-graph capture records (each replay adds it to `launches`)
+    and its warm-up, apart from the launches any other thread makes
+    meanwhile."""
     prev = getattr(_tallies, "counts", None)
     counts = _tallies.counts = {}
     try:
@@ -126,11 +131,19 @@ def tally():
         _tallies.counts = prev
 
 
-def tallied(name: str) -> bool:
-    """One launch of kernel `name` into this thread's open `tally`
-    (True); False when none is open, and the wrapper counts it."""
+def launched(name: str):
+    """Count one launch of kernel `name`: in this thread's open `tally`,
+    else in `launches`."""
     counts = getattr(_tallies, "counts", None)
-    if counts is None:
-        return False
-    counts[name] = counts.get(name, 0) + 1
-    return True
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
+    else:
+        add_launches({name: 1})
+
+
+def add_launches(made):
+    """Add launches by kernel name (a capture's `tally`: what one replay
+    of its graph launched) to `launches`."""
+    with _count_lock:
+        for name, n in made.items():
+            launches[name] = launches.get(name, 0) + n

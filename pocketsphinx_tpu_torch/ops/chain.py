@@ -47,23 +47,12 @@ import torch
 from . import _build
 from .hmm import NEG_INF, hmm_step_sm
 
-#: launches of the CUDA kernel since the last reset (plain int); a
-#: replay of the scan's CUDA graph adds the launches its capture made,
-#: which counted in the capturing thread's `_build.tally` instead
-#: (`search.ngram_fused._ScanGraph`)
-launches = 0
-
 #: columns of a row of the bucket table (`enum` in csrc/chain.cu)
 TAB_COLUMNS = ("D", "W", "has_var", "RF", "NFD", "blk0", "carry", "var",
                "sid", "sfd", "tp", "fm", "woff", "xcol")
 N_COL = 16
 #: words per block of the kernel
 WT = 32
-
-
-def reset_launches():
-    global launches
-    launches = 0
 
 
 def chain_step_ref(S, TF, CTX, VAR, pre, prevd, fd_idx, tp, fm, nv, pip):
@@ -355,7 +344,6 @@ def chain_group_step(grp, S, TF, CTX, VAR, costs, pip, m_prev=None):
     Returns (newS, newTF, newCTX, newVAR flat,
              exit score, TF, CTX [B, n_exit[0]] of the variant buckets,
              exit score, TF, CTX [B, n_exit[1]] of the others)."""
-    global launches
     if VAR is None:
         VAR = torch.zeros(0, dtype=torch.int32, device=S.device)
     _check_group(grp, S, TF, CTX, VAR, costs, m_prev)
@@ -390,8 +378,7 @@ def chain_group_step(grp, S, TF, CTX, VAR, costs, pip, m_prev=None):
         if err:
             raise RuntimeError("chain_group_launch: "
                                + lib.chain_error_string(err).decode())
-        if not _build.tallied("chain"):
-            launches += 1
+        _build.launched("chain")
     (es0, tf0, cx0), (es1, tf1, cx1) = x0.unbind(0), x1.unbind(0)
     return (nS, nTF, nCX, nVAR, es0.view(torch.float32), tf0, cx0,
             es1.view(torch.float32), tf1, cx1)

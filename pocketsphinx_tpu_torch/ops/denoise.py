@@ -43,14 +43,6 @@ CONSTS = np.array([LAMBDA_POWER, 1 - LAMBDA_POWER, LAMBDA_A, 1 - LAMBDA_A,
                    LAMBDA_B, 1 - LAMBDA_B, LAMBDA_T, MU_T, MAX_GAIN,
                    1.0 / MAX_GAIN, TINY], np.float32)
 
-#: launches of the CUDA kernel since the last reset (plain int)
-launches = 0
-
-
-def reset_launches():
-    global launches
-    launches = 0
-
 
 def gains_ref(mfspec):
     """Plain torch version: the gains [B, T, nfilt] of mfspec [B, T,
@@ -99,7 +91,6 @@ def gains(mfspec):
     """The gains [B, T, nfilt] of mfspec [B, T, nfilt] float32 on its
     device: one launch of the CUDA kernel for a CUDA tensor, `gains_ref`
     for a CPU tensor."""
-    global launches
     _check(mfspec)
     if mfspec.device.type == "cpu":
         return gains_ref(mfspec)
@@ -118,8 +109,7 @@ def gains(mfspec):
         if err:
             raise RuntimeError("denoise_launch: "
                                + lib.denoise_error_string(err).decode())
-        if not _build.tallied("denoise"):
-            launches += 1
+        _build.launched("denoise")
     return out
 
 

@@ -3,8 +3,9 @@
 Port of `pocketsphinx_tpu.ops.pallas_fan` (the Pallas `_kernel` reached
 through `fan_step`) and of the JAX scan's XLA finals block, which the
 JAX package runs for 5-state models.  One step of the fused n-gram
-scan's finals block for HMMs of NST (`NSTS`: 3 or 5) emitting states,
-batched over B utterances:
+scan's finals block for HMMs of NST emitting states (the kernel is built
+for `NSTS`: 3 and 5; the plain version takes any), batched over B
+utterances:
 
   * subtract `m_prev [B]`, the previous frame's renormalization that the
     scan defers to this load, from every score of the carry it reads
@@ -29,8 +30,8 @@ pads them once, in its device tables).  Only the Wm real words are
 computed: the new carry's pads are NEG_INF scores and 0 payloads, and no
 pad reaches the exits, the exit plane or the maxima.
 
-`fan_step` launches `csrc/fan.cu` for CUDA tensors and runs
-`fan_step_ref` only for CPU tensors.  `lp` and `tp` are shared by the
+`fan_step` launches `csrc/fan.cu` for CUDA tensors (NST in `NSTS`) and
+runs `fan_step_ref` only for CPU tensors.  `lp` and `tp` are shared by the
 batch and must be unbatched.
 """
 
@@ -43,12 +44,6 @@ import torch
 from . import _build
 from .hmm import NEG_INF, hmm_step_sm
 
-#: launches of the CUDA kernel since the last reset (plain int); a
-#: replay of the scan's CUDA graph adds the launches its capture made,
-#: which counted in the capturing thread's `_build.tally` instead
-#: (`search.ngram_fused._ScanGraph`)
-launches = 0
-
 #: the fan carry's width is a multiple of PAD columns (16 bytes)
 PAD = 4
 #: the HMM topologies (emitting states) the kernel is built for
@@ -60,11 +55,6 @@ GROUPS = (1, 2, 4)
 _TPB = 256
 #: the most dynamic shared memory a block may take on an H100
 _SMEM_BYTES = 232448 - 4 * _TPB // 32
-
-
-def reset_launches():
-    global launches
-    launches = 0
 
 
 def padded_width(w: int) -> int:
@@ -122,9 +112,12 @@ def fan_step_ref(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
 
 
 def _check(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f, m_prev):
-    if S.dim() != 4 or S.shape[1] not in NSTS or S.shape[2] < 1:
-        raise ValueError(f"S must be [B, NST, NRC, Wp] with NST in {NSTS}, "
-                         f"got {tuple(S.shape)}")
+    if S.dim() != 4 or S.shape[1] < 2 or S.shape[2] < 1:
+        raise ValueError(f"S must be [B, NST, NRC, Wp], got "
+                         f"{tuple(S.shape)}")
+    if S.is_cuda and S.shape[1] not in NSTS:
+        raise ValueError(f"fan_step: the kernel takes NST in {NSTS}, got "
+                         f"{S.shape[1]}")
     if pred.dim() != 2:
         raise ValueError(f"pred must be [B, Wm], got {tuple(pred.shape)}")
     B, NST, NRC, Wp = S.shape
@@ -196,7 +189,6 @@ def fan_step(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
     it loads it), except that on CUDA mx holds one partial maximum
     per block of the kernel, and `groups` (one of `GROUPS`; default:
     chosen from the shapes) sets the kernel's plane groups per block."""
-    global launches
     _check(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f, m_prev)
     if groups is not None and groups not in GROUPS:
         raise ValueError(f"fan_step: groups {groups} not in {GROUPS}")
@@ -242,8 +234,7 @@ def fan_step(S, TF, CX, pred, ptf, pcx, pre, lp, tp, out_f=None,
         if err:
             raise RuntimeError("fan_step_launch: "
                                + lib.fan_error_string(err).decode())
-        if not _build.tallied("fan"):
-            launches += 1
+        _build.launched("fan")
     return nS, nTF, nCX, out_f, esc, etf, ecx, mx
 
 

@@ -47,12 +47,6 @@ import torch
 from . import _build
 from .hmm import NEG_INF
 
-#: launches of the CUDA kernel since the last reset (plain int); a
-#: replay of the scan's CUDA graph adds the launches its capture made,
-#: which counted in the capturing thread's `_build.tally` instead
-#: (`search.ngram_fused._ScanGraph`)
-launches = 0
-
 #: the kernel's choices of entry columns per thread (`cols_per_thread`,
 #: consecutive columns)
 COLS_PER_THREAD = (1, 2, 4)
@@ -79,11 +73,6 @@ _DENSE = {"rows": "rows", "sparse": "bg", "csr": "fat_rows"}
 #: the dtypes of the outputs (entry, am, prw_e, ctx_new, erw1, erw2, fb_e)
 _OUT_DTYPES = (torch.float32, torch.int64, torch.int64, torch.int32,
                torch.int32, torch.int32, torch.int64)
-
-
-def reset_launches():
-    global launches
-    launches = 0
 
 
 class LMLayout(NamedTuple):
@@ -334,7 +323,6 @@ def transitions(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen,
     the kernel writes into its seven tensors and the call allocates
     nothing on the card, as a CUDA-graph capture on a card other than
     the capturing one needs."""
-    global launches
     _check_exits(kv, ki, ctx_k, fb_k, svk)
     dev = kv.device
     if dev.type == "cpu":
@@ -388,8 +376,7 @@ def transitions(tb, lm, kv, ki, ctx_k, fb_k, svk, wpen,
     if err:
         raise RuntimeError("transitions_launch: "
                            + lib.transitions_error_string(err).decode())
-    if not _build.tallied("transitions"):
-        launches += 1
+    _build.launched("transitions")
     return outs
 
 

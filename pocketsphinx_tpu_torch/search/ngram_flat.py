@@ -8,9 +8,9 @@ decoder's device over `ops.hmm.hmm_step_sm`, with the batch axis written
 out ([B, ...]) where the JAX package used `jax.vmap`, and the 1-best
 backtrace is the JAX module's Python walk.  The scan (the JAX
 `_make_scan`'s `jax.jit`) runs as 16-frame chunks captured once per
-batch size as a CUDA graph and replayed (`base.ChunkGraph`; on the CPU
-the same chunk on the same buffers); `graph=False` steps it eagerly,
-frame by frame.
+batch size as a CUDA graph and replayed (`base.ChunkGraph`; on the CPU,
+and with `graph=False`, the same chunk on the same buffers without
+capture).
 
 Every dictionary word keeps a dense HMM chain and all words are evaluated
 every frame (no pruning).  Exact language-model application at every word
@@ -57,7 +57,7 @@ from ..lm.ngram import NgramModel
 from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..models.dict2pid import Dict2Pid
 from ..ops.hmm import hmm_step_sm
-from .base import CHUNK, ChunkGraph, clone_tree
+from .base import CHUNK, ChunkGraph, clone_tree, frames
 
 NEG_INF = -1e30
 SHIFT = 1 << 10
@@ -81,8 +81,8 @@ class NgramFlatDecoder:
                  pip: float = 1.0, nwpen: float = 1.0, device=None,
                  graph: bool = True):
         self.device = resolve_device(device)
-        #: scan through a `ChunkGraph` (default) or, with False, eagerly
-        #: frame by frame (`with_carry(..., graph=)` overrides it)
+        #: replay the scan's captured chunks (default) or, with False,
+        #: call them uncaptured (`with_carry(..., graph=)` overrides it)
         self.graph = graph
         self.am = am
         self.d2p = d2p
@@ -502,34 +502,15 @@ class NgramFlatDecoder:
         """Scan costs [B, T, n_sen] (on the decoder's device) with valid
         [B, T] bool from `carry` (None: `init_carry`), frames numbered from
         `t0`; a frame whose `valid` is false leaves that row's carry as it
-        was.  `graph` (None: the decoder's): through the chunk's graph or
-        eagerly.  Returns (records, each [B, T, W], the carry after the
-        last frame)."""
-        B, T = costs.shape[:2]
+        was.  The frames run through the `base.ChunkGraph` of this (B,
+        n_sen), T padded to whole chunks with valid=False frames; `graph`
+        (None: the decoder's): replay the chunk's captured graph or call
+        it uncaptured.  The decoder keeps one runner, of its tables and
+        last (B, n_sen).  Returns (records, each [B, T, W], the carry after
+        the last frame)."""
+        B, T, n_sen = costs.shape
         if carry is None:
             carry = self.init_carry(B)
-        if self.graph if graph is None else graph:
-            return self._with_carry_graph(costs, valid, carry, t0)
-        times = torch.arange(t0, t0 + T, dtype=torch.int32,
-                             device=costs.device)
-        recs = None
-        for i in range(T):
-            carry, rec = self._step(carry, costs[:, i], times[i],
-                                    valid[:, i])
-            if recs is None:
-                recs = tuple(torch.empty((B, T) + r.shape[1:],
-                                         dtype=r.dtype, device=r.device)
-                             for r in rec)
-            for buf, r in zip(recs, rec):
-                buf[:, i] = r
-        return recs, carry
-
-    def _with_carry_graph(self, costs, valid, carry, t0):
-        """`with_carry` through the `ChunkGraph` of this batch size: T
-        padded to whole chunks with valid=False frames (which leave the
-        carry as it was), the records cut back to T frames.  The decoder
-        keeps one runner, of its tables and last (B, n_sen)."""
-        B, T, n_sen = costs.shape
         Tp = -(-T // CHUNK) * CHUNK
         costs = torch.nn.functional.pad(costs, (0, 0, 0, Tp - T))
         valid = torch.nn.functional.pad(valid, (0, Tp - T))
@@ -538,12 +519,12 @@ class NgramFlatDecoder:
         if run is None or not run.fits(tables, (B, n_sen)):
             self.chunk_graph = None       # its buffers go first
             run = self.chunk_graph = ChunkGraph(self.device, tables,
-                                                 (B, n_sen))
+                                                 (B, n_sen), axis=1)
         recs, carry = run.run(
-            lambda c, cost_t, v, t: self._step(c, cost_t, t, v), carry,
-            (costs.transpose(0, 1), valid.transpose(0, 1)), Tp, t0)
-        return (tuple(r[:T].transpose(0, 1).contiguous() for r in recs),
-                clone_tree(carry))
+            frames(lambda c, cost_t, v, t: self._step(c, cost_t, t, v), 1),
+            carry, (costs, valid), Tp, t0,
+            capture=self.graph if graph is None else graph)
+        return tuple(r[:, :T] for r in recs), clone_tree(carry)
 
     def scan(self, costs, valid, graph=None):
         """The records [B, T, W] of costs [B, T, n_sen] with valid [B, T]

@@ -17,16 +17,13 @@ The network (see the JAX module's docstring for the design):
     of the chain kernel per frame (`ops/chain.py`, CUDA on the card) on a
     flat carry (the buckets' [B, NST, D, Wb] blocks end to end);
   * the word-final right-context fan [NST, n_rc, n_multi] -- stepped by
-    the fan kernel (`ops/fan.py`, CUDA on the card) for the topologies it
-    is built for (3- and 5-state models, `fan.NSTS`), on a carry padded
-    to `fan.padded_width(n_multi)` columns (as the JAX scan pads its fan
-    carry to the Pallas tile), which writes its exit plane into the
-    step's [B, n_rc, W] exit planes and reduces the renormalization's
-    max over its planes; for other topologies by the JAX scan's XLA
-    finals block as torch ops on an unpadded carry (`_finals_step`: the
-    `lp` gather of the per-final-diphone costs, `hmm_step_sm`, the strict
-    '>' chain-last entry, first-max exits; the JAX package runs its
-    Pallas fan only at 3 states and that block at 5);
+    the fan step (`ops/fan.py`: the fan kernel on the card, built for
+    3- and 5-state models; its plain version on the CPU, at any number
+    of states) on a carry padded to `fan.padded_width(n_multi)` columns
+    (as the JAX scan pads its fan carry to the Pallas tile), which writes
+    its exit plane into the step's [B, n_rc, W] exit planes and reduces
+    the renormalization's max over its planes (the JAX package runs its
+    Pallas fan only at 3 states and its XLA finals block otherwise);
   * single-phone words as explicit left-context columns, CI/filler words
     as chains without variants (in the same chain launch);
   * top-K word exits per frame, exact trigram successor rows (LM mode
@@ -44,35 +41,33 @@ JAX package's (tests/test_torch_ngram_fused.py).
 
 The renormalization (each frame's best score `m`, subtracted from every
 score of the carry) is deferred for the carries the kernels read: the
-chain carry, and the fan carry where the fan step takes it.  The step
-leaves `m` pending in the carry (`carry["m_prev"]` [B]) and the next
-frame's chain and fan kernels subtract it from each score as they load
-it: the same float32 subtraction before the same additions, so every
-score is bit-equal to subtracting it in a pass over the carry, which
-the step then no longer makes.  The single-phone columns, and the fan
-carry of a topology `_finals_step` steps, still take the subtraction in
-the step.  A carry that leaves the scan (`with_carry`) has its pending
-offset subtracted, one pass per call, so callers see the carry as the
-JAX scan keeps it.  Counters, counted on the host:
-"scan.renorm_folded" (frames whose chain and fan carries took the
-offset in the kernels' load), "scan.renorm_passes" (those folds at a
-carry's exit), and "scan.finals_kernel" / "scan.finals_plain" (frames
-whose word-final block the fan step, the kernel on the card, or the
-torch block `_finals_step` stepped); "scan.pregather_bytes" (the bytes
-each chunk's pre-gather writes).
+chain carry and the fan carry.  The step leaves `m` pending in the carry
+(`carry["m_prev"]` [B]) and the next frame's chain and fan steps
+subtract it from each score as they load it: the same float32
+subtraction before the same additions, so every score is bit-equal to
+subtracting it in a pass over the carry, which the step then no longer
+makes.  The single-phone columns still take the subtraction in the step.
+A carry that leaves the scan (`with_carry`) has its pending offset
+subtracted, one pass per call, so callers see the carry as the JAX scan
+keeps it.  Counters, counted on the host: "scan.renorm_folded" (frames
+whose chain and fan carries took the offset in the steps' load),
+"scan.renorm_passes" (those folds at a carry's exit),
+"scan.finals_kernel" (frames whose word-final block the fan step
+stepped) and "scan.pregather_bytes" (the bytes each chunk's pre-gather
+writes).
 
 The scan runs in chunks of CHUNK frames, each with its senone
-pre-gather (`_steps`).  On a CUDA decoder one chunk is captured once per
-(B, records, mask) as a CUDA graph over static buffers and replayed for
-every chunk (`_ScanGraph`), as the JAX package compiles its scan once
-with `jax.jit`; the frame index is then a device value.  A decoder split
-over a "model" group (`shard`) captures the same chunk with every part's
+pre-gather (`_steps`), through the decoder's `base.ChunkGraph` of its
+(B, n_sen): on a CUDA decoder one chunk is captured once per (records,
+mask) as a CUDA graph over the runner's static buffers and replayed for
+every chunk, as the JAX package compiles its scan once with `jax.jit`;
+the frame index is then a device value.  A decoder split over a "model"
+group (`shard`) captures the same chunk with every part's
 word-transition block in it, on static buffers of each part
 (`_SplitBuffers`): one graph over the group's cards, as the JAX package
-compiles its scan over a "model" mesh.  On the CPU the same chunk runs
-on the same buffers without capture.  `graph=False` (a constructor or
-method argument) runs the step eagerly, issued from Python frame by
-frame.
+compiles its scan over a "model" mesh.  On the CPU, and with
+`graph=False` (a constructor or method argument), the same chunk runs on
+the same buffers without capture.
 
 Streaming: `with_carry` runs the scan from a carry and a frame offset
 and returns the carry (the JAX `_make_scan(mask_carry=True).with_carry`);
@@ -102,10 +97,10 @@ from ..models.acoustic import AcousticModel, UNIT_NATS, senone_scores
 from ..lm.ngram import NgramModel
 from ..ops import transitions as transitions_ops
 from ..ops.chain import ChainGroup, chain_group_step
-from ..ops.fan import NSTS, fan_step, padded_width
+from ..ops.fan import fan_step, padded_width
 from ..ops.hmm import hmm_step_sm
 from ..ops.transitions import LMLayout, transitions
-from .base import add_launches, capture_chunk
+from .base import CHUNK, ChunkGraph, clone_tree
 
 NEG_INF = -1e30
 SHIFT = 1 << 10
@@ -124,30 +119,6 @@ def _eascr(escore, tf, entv_at_entry, Mcp, t):
     corr = Mcp[t] - np.where(has, Mcp[tfi], 0.0)
     return (escore - np.where(has, entv_at_entry, 0.0) + corr).astype(
         np.float32)
-
-
-def _records_like(rec, T):
-    """Empty [B, T, ...] record buffers for one frame's records `rec`
-    [B, ...]."""
-    return tuple(torch.empty((r.shape[0], T) + r.shape[1:], dtype=r.dtype,
-                             device=r.device) for r in rec)
-
-
-class _ScanInputs:
-    """The static inputs of a decoder's chunk graphs at one batch size B,
-    shared by its graphs of either record kind and mask (a scan replays
-    one graph at a time, and the decoder keeps the graphs of one B): the
-    chunk's costs [B, CH, n_sen], valid [B, CH], the index of its first
-    frame `t_base` (a 0-d int32 tensor) and the input carry, which a
-    chunk's graph overwrites with the carry after it."""
-
-    def __init__(self, dec, B, n_sen):
-        dev, CH = dec.device, dec.CHUNK
-        self.costs = torch.zeros((B, CH, n_sen), dtype=torch.float32,
-                                 device=dev)
-        self.valid = torch.zeros((B, CH), dtype=torch.bool, device=dev)
-        self.t_base = torch.zeros((), dtype=torch.int32, device=dev)
-        self.carry = dec.init_carry(B)
 
 
 class _Part:
@@ -195,74 +166,6 @@ class _SplitBuffers:
         self.tables, self.B = dec.tables, B
         self.parts = [_Part(dec, d, tb, B) for d, tb in dec.tables["columns"]]
         self.joined = transitions_ops.outputs(B, dec.nE, dec.device)
-
-
-class _ScanGraph:
-    """One CHUNK of the scan step over the static inputs `io` (a
-    `_ScanInputs`) and the chunk's records [B, CH, ...] (`recs`): `run`
-    steps a chunk from `io.carry` and writes the carry after it back
-    into `io.carry`.
-
-    On a CUDA decoder the chunk runs once eagerly on a side stream (each
-    kernel's first launch sets its shared-memory opt-in) and is then
-    captured as a CUDA graph in the memory pool `pool`; `run` replays it.
-    The kernels' launch counters would count at capture, not at replay:
-    the warm-up's and the capture's launches count in the capturing
-    thread's `_build.tally` instead (they step no frame of a scan, and
-    another replica's thread may launch meanwhile), and `run` adds the
-    capture's to the counters on every replay.  On the CPU `run` calls
-    the same chunk on the same buffers.  The decoder that owns it is
-    passed in, not kept: the decoder keeps its graphs, and a graph that
-    kept it would tie both into a cycle that only the garbage collector
-    frees.
-
-    A split decoder's chunk holds every part's block: the warm-up runs
-    each part once on its card (each card's kernels set their
-    shared-memory opt-in there; the lead's stream waits for the parts,
-    so the capture's sync of the lead's card finds them done), and the
-    capture takes in the streams of the parts on other cards
-    (`_transitions`), so that a replay steps the whole group, counting
-    `CHUNK` transition launches per part.  Nothing here syncs a card
-    outside the capture lock: another replica's thread may be capturing
-    on the same card, and a device-wide sync invalidates its capture."""
-
-    def __init__(self, dec, io, minimal, mask, pool=None, stream=None):
-        self.io, self.minimal, self.mask = io, minimal, mask
-        self.recs = None
-        self.graph = None
-        self.launches = None
-        if dec.device.type == "cuda":
-            self._capture(dec, pool, stream)
-
-    def _chunk(self, dec):
-        io = self.io
-        for i, carry, rec in dec._steps(io.carry, io.costs, io.valid,
-                                        io.t_base, self.minimal, self.mask):
-            if self.recs is None:
-                self.recs = _records_like(rec, io.valid.shape[1])
-            for buf, r in zip(self.recs, rec):
-                buf[:, i] = r
-        dec._copy_carry(io.carry, carry)
-
-    def _capture(self, dec, pool, stream):
-        def fresh_recs():
-            self.recs = tuple(torch.empty_like(r) for r in self.recs)
-        self.graph, self.launches, _ = capture_chunk(
-            dec.device, lambda: self._chunk(dec), pool, stream, fresh_recs)
-
-    def run(self, dec, costs, valid, t_base):
-        """One chunk of `dec`'s scan: costs [B, CH, n_sen] and valid
-        [B, CH] into the static inputs, frames numbered from `t_base`.
-        Returns `recs`."""
-        self.io.costs.copy_(costs)
-        self.io.valid.copy_(valid)
-        self.io.t_base.fill_(t_base)
-        if self.graph is None:
-            self._chunk(dec)
-            return self.recs
-        self.graph.replay()
-        add_launches(self.launches)
-        return self.recs
 
 
 @dataclass
@@ -325,8 +228,10 @@ class NgramFusedDecoder:
     """Exact-trigram full-vocabulary Viterbi with a fused per-frame step."""
 
     LM_TABLE_BUDGET = None   # default: env PS_LM_TABLE_BYTES or 2 GiB
-    #: senone pre-gather chunk (frames)
-    CHUNK = 16
+    #: frames per chunk of the scan and its senone pre-gather
+    CHUNK = CHUNK
+    #: the scan's `base.ChunkGraph` (None before its first scan)
+    chunk_graph = None
 
     def __init__(self, am: AcousticModel, d2p: Dict2Pid, lm: NgramModel,
                  silprob: float = 0.005, fillprob: float = 1e-8,
@@ -334,8 +239,8 @@ class NgramFusedDecoder:
                  topk: int = 96, depth_buckets: tuple = (), device=None,
                  graph: bool = True):
         self.device = resolve_device(device)
-        #: step the scan through `_ScanGraph` (default) or, with False,
-        #: eagerly frame by frame (`scan(..., graph=)` overrides it)
+        #: replay the scan's captured chunks (default) or, with False,
+        #: call them uncaptured (`scan(..., graph=)` overrides it)
         self.graph = graph
         self.am = am
         self.d2p = d2p
@@ -979,10 +884,10 @@ class NgramFusedDecoder:
         with every key it shares equal to the JAX `_dev_tables`, except
         that one-hot expansion tables are kept as indices (`fd_idx{b}`
         for `fd_oh{b}`, `lp_idx` for `lp_oh`, `f0p_E` for `f0_onehot`)
-        and the finals of a topology the fan kernel is built for use its
-        layout (`tp_fin_rows` [NST (NST+1), W]; other topologies keep
-        `tp_fin` [W, NST, NST+1]).  Also fixes the scan's
-        static layout (K, LM mode, senone segments)."""
+        and the finals' transitions take the fan step's layout
+        (`tp_fin_rows` [NST (NST+1), W] for `tp_fin` [W, NST, NST+1]).
+        Also fixes the scan's static layout (K, LM mode, senone
+        segments)."""
         NST = self.NST
         W, n_multi, SP = self.W, self.n_multi, self.SP
         n_rc = self.n_rcp
@@ -1143,12 +1048,9 @@ class NgramFusedDecoder:
             tabs[f"ci_fm{bi}"] = ch.firstmask
         if n_multi:
             tabs["lp_idx"] = self.lp_idx
-            if NST in NSTS:
-                tabs["tp_fin_rows"] = np.ascontiguousarray(
-                    self.tp_fin[:n_multi].transpose(1, 2, 0).reshape(
-                        NST * (NST + 1), n_multi))
-            else:
-                tabs["tp_fin"] = self.tp_fin[:n_multi]
+            tabs["tp_fin_rows"] = np.ascontiguousarray(
+                self.tp_fin[:n_multi].transpose(1, 2, 0).reshape(
+                    NST * (NST + 1), n_multi))
         if SP:
             tabs["tp_sp"] = self.tp_sp[:SP]
         return tabs
@@ -1158,8 +1060,9 @@ class NgramFusedDecoder:
     def init_carry(self, B: int) -> dict:
         """The scan carry for B utterances at frame 0: every token dead
         except <s> entered at its first node (JAX `init_carry`).  The
-        fan carry of a topology the fan kernel is built for is padded to
-        its width (`fan.padded_width`)."""
+        fan carry is padded to the fan step's width
+        (`fan.padded_width`).  The chain carry is flat; `_chain_views`
+        gives its buckets."""
         dev, NST, n_rc = self.device, self.NST, self.n_rcp
 
         def planes(*shape):
@@ -1172,9 +1075,8 @@ class NgramFusedDecoder:
                                 device=dev))
 
         c = {"chain": self.tables["chain"].init_carry(B)}
-        c["ch"], c["ci"] = self._chain_views(c["chain"], B)
-        Wf = padded_width(self.n_multi) if self._fan_folds else self.n_multi
-        c["fin"] = planes(n_rc, Wf) if self.n_multi else None
+        c["fin"] = (planes(n_rc, padded_width(self.n_multi)) if self.n_multi
+                    else None)
         c["sp"] = planes(n_rc, self.SP) if self.SP else None
         # the renormalization not yet subtracted from the chain and fan S
         c["m_prev"] = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -1185,13 +1087,14 @@ class NgramFusedDecoder:
         """<s> entered at its first node of carry `c` (in place)."""
         if self.start_idx is not None:
             s_lm = self.lm.wid("<s>")
+            ci = self._chain_views(c["chain"], c["m_prev"].shape[0])[1]
             for bi, ch in enumerate(self.ci_chains):
                 if ch.w_lo <= self.start_idx < ch.w_hi:
                     k = self.start_idx - ch.w_lo
                     dep = int(ch.fd[k])
-                    c["ci"][bi]["S"][:, 0, dep, k] = 0.0
+                    ci[bi]["S"][:, 0, dep, k] = 0.0
                     if s_lm >= 0:
-                        c["ci"][bi]["CTX"][:, 0, dep, k] = 1 + s_lm
+                        ci[bi]["CTX"][:, 0, dep, k] = 1 + s_lm
 
     @staticmethod
     def _carry_fields(c):
@@ -1210,39 +1113,15 @@ class NgramFusedDecoder:
             x.fill_(NEG_INF if key == "S" else 0)
         self._enter_start(c)
 
-    def _copy_carry(self, dst, src):
-        """Every field of carry `src` copied into carry `dst`'s."""
-        for (_, a), (_, b) in zip(self._carry_fields(dst),
-                                  self._carry_fields(src)):
-            a.copy_(b)
-
-    def _clone_carry(self, c, B):
-        """A copy of the B-utterance carry `c` in new buffers."""
-        out = {"chain": {k: v.clone() for k, v in c["chain"].items()}}
-        out["ch"], out["ci"] = self._chain_views(out["chain"], B)
-        for name in ("fin", "sp"):
-            out[name] = (None if c[name] is None else
-                         {k: v.clone() for k, v in c[name].items()})
-        out["m_prev"] = c["m_prev"].clone()
-        return out
-
-    @property
-    def _fan_folds(self):
-        """Whether the fan step (`fan_step`: the kernel on the card)
-        steps the fan carry, as it does at every topology the kernel is
-        built for, and so takes the pending renormalization in its
-        load."""
-        return self.NST in NSTS
-
     def _fold_renorm(self, c, B):
         """The pending renormalization of the B-utterance carry `c`
-        subtracted from the scores that defer it (the chain carry, and
-        the fan carry where the fan kernel steps it), in place, and reset
-        to 0: one pass, for a carry that leaves the scan."""
+        subtracted from the scores that defer it (the chain and fan
+        carries), in place, and reset to 0: one pass, for a carry that
+        leaves the scan."""
         m = c["m_prev"][:, None, None, None]
         for v in self.tables["chain"].planes(c["chain"]["S"], B):
             v.sub_(m)
-        if c["fin"] is not None and self._fan_folds:
+        if c["fin"] is not None:
             c["fin"]["S"].sub_(m)
         c["m_prev"] = torch.zeros_like(c["m_prev"])
         profile.count("scan.renorm_passes")
@@ -1329,9 +1208,9 @@ class NgramFusedDecoder:
 
     def _split_buffers(self, B):
         """The static buffers of the split block at batch size B
-        (`_SplitBuffers`), kept for the eager step and the captures,
-        replaced when B or the tables change (the graphs hold on to those
-        they were captured with: `_graph_for`)."""
+        (`_SplitBuffers`), kept for the uncaptured chunks and the
+        captures, replaced when B or the tables change (the runner holds
+        on to those its graphs were captured with: `_runner`)."""
         held = self.__dict__.get("_split")
         if held is None or held.tables is not self.tables or held.B != B:
             self._split = None
@@ -1383,13 +1262,13 @@ class NgramFusedDecoder:
             tb["chain"], cc["S"], cc["TF"], cc["CTX"], cc["VAR"], cost, pip,
             m_prev=m_prev)
         newc = {"chain": dict(S=nS, TF=nTF, CTX=nCX, VAR=nVAR)}
-        newc["ch"], newc["ci"] = self._chain_views(newc["chain"], B)
+        new_ch, new_ci = self._chain_views(newc["chain"], B)
         # the right-context exit planes of every word [B, n_rc, W]: the
         # fan's, the single-phone words' and the CI chains' columns
         sv = torch.empty((B, n_rc, W), device=dev)
         # ---------- finals fan ----------
         fin_mx = None           # the fan's partial maxima of its new S
-        if n_multi and self._fan_folds:
+        if n_multi:
             e = carry["fin"]
             pred = cl_s + pip                                  # [B, Wm]
             nSf, nTFf, nCXf, _, esc_m, etf_m, ecx_m, fin_mx = fan_step(
@@ -1397,10 +1276,6 @@ class NgramFusedDecoder:
                 tb["lp_idx"], tb["tp_fin_rows"], out_f=sv[:, :, :n_multi],
                 m_prev=m_prev)
             fin_new = dict(S=nSf, TF=nTFf, CTX=nCXf)
-        elif n_multi:
-            fin_new, sv_m, esc_m, etf_m, ecx_m = self._finals_step(
-                carry["fin"], g_fin, cl_s + pip, cl_tf, cl_cx)
-            sv[:, :, :n_multi] = sv_m
         else:
             fin_new = None
             esc_m = torch.zeros((B, 0), device=dev)
@@ -1459,8 +1334,7 @@ class NgramFusedDecoder:
         inc_segs = []           # pre-entry first-state incumbents
         off = 0
         for bi, ch in enumerate(self.chains):
-            e = newc["ch"][bi]
-            self._enter_chain(e, entry, ctx_new, tf_new, off, ch.Wb,
+            self._enter_chain(new_ch[bi], entry, ctx_new, tf_new, off, ch.Wb,
                               tb[f"ch_fm{bi}"], tb[f"ch_fd{bi}"], inc_segs,
                               var_new=var_new[:, off:off + ch.Wb])
             off += ch.Wb
@@ -1476,7 +1350,7 @@ class NgramFusedDecoder:
                 sp_new["CTX"][:, 0])
         off = n_multi + SP
         for bi, ch in enumerate(self.ci_chains):
-            self._enter_chain(newc["ci"][bi], entry, ctx_new, tf_new, off,
+            self._enter_chain(new_ci[bi], entry, ctx_new, tf_new, off,
                               ch.Wb, tb[f"ci_fm{bi}"], tb[f"ci_fd{bi}"],
                               inc_segs)
             off += ch.Wb
@@ -1528,20 +1402,16 @@ class NgramFusedDecoder:
             nviol = torch.zeros(B, dtype=torch.int32, device=dev)
 
         # ---------- renormalize ----------
-        groups = newc["ch"] + newc["ci"] + [x for x in (fin_new, sp_new)
-                                            if x is not None]
-        # the fan kernel reduced its planes' maxima (fin_mx [B, P])
-        cols = [x["S"].amax(dim=(1, 2, 3))[:, None] for x in groups
-                if fin_mx is None or x is not fin_new]
-        m = torch.cat(cols + ([fin_mx] if fin_mx is not None else []),
-                      1).amax(dim=1)
+        groups = new_ch + new_ci + ([sp_new] if SP else [])
+        cols = [x["S"].amax(dim=(1, 2, 3))[:, None] for x in groups]
+        # the fan step reduced its planes' maxima (fin_mx [B, P])
+        m = torch.cat(cols + ([fin_mx] if n_multi else []), 1).amax(dim=1)
         m = torch.clamp(m, min=NEG_INF)
-        # the chain kernel and the fan kernel subtract m from the carries
-        # they read as they load them on the next frame; the single-phone
-        # columns and a fan carry of `_finals_step` take it here
-        for x in (sp_new, None if self._fan_folds else fin_new):
-            if x is not None:
-                x["S"].sub_(m[:, None, None, None])
+        # the chain and fan steps subtract m from the carries they read as
+        # they load them on the next frame; the single-phone columns take
+        # it here
+        if SP:
+            sp_new["S"].sub_(m[:, None, None, None])
         newc["m_prev"] = m
         if mask:
             newc = self._mask_carry(newc, carry, valid)
@@ -1564,31 +1434,6 @@ class NgramFusedDecoder:
             rec = (escore, etf_w, etgt_w, ecx_w, entry,
                    prw_e.to(torch.int32), erw1, erw2, m, nviol)
         return newc, rec
-
-    def _finals_step(self, e, g_fin, pred, ptf, pcx):
-        """The finals block for topologies the fan kernel does not take
-        (the JAX scan's XLA block): e the fan carry [B, NST, n_rc, Wm],
-        g_fin [B, NST, n_rc, n_lp] this frame's per-final-diphone costs,
-        pred/ptf/pcx [B, Wm] the chain-last exits (+ pip) with their
-        payloads.  Returns (new carry, exit plane [B, n_rc, Wm], per-word
-        exit score, TF, CTX [B, Wm]: the first maximal rc's)."""
-        tb = self.tables
-        sen = -g_fin[..., tb["lp_idx"]]                    # [B,NST,n_rc,Wm]
-        newS, (nTF, nCX), out, _, (oTF, oCX) = hmm_step_sm(
-            tuple(e["S"].unbind(1)), tuple(sen.unbind(1)), tb["tp_fin"],
-            metas=(tuple(e["TF"].unbind(1)), tuple(e["CTX"].unbind(1))))
-        win = pred[:, None, :] > newS[0]
-        fin = dict(
-            S=torch.stack((torch.where(win, pred[:, None, :], newS[0]),)
-                          + newS[1:], 1),
-            TF=torch.stack((torch.where(win, ptf[:, None, :], nTF[0]),)
-                           + nTF[1:], 1),
-            CTX=torch.stack((torch.where(win, pcx[:, None, :], nCX[0]),)
-                            + nCX[1:], 1))
-        esc, am = torch.max(out, dim=1)
-        etf = torch.gather(oTF, 1, am[:, None])[:, 0]
-        ecx = torch.gather(oCX, 1, am[:, None])[:, 0]
-        return fin, out, esc, etf, ecx
 
     @staticmethod
     def _enter_chain(e, entry, ctx_new, tf_new, off, Wb, fm, fd, inc_segs,
@@ -1616,8 +1461,8 @@ class NgramFusedDecoder:
         CHUNK; returns the per-frame records stacked to [B, Tp, ...]:
         full (escore, etf, etgt, ecx, entry, eprw, erw1, erw2, m, nviol)
         or minimal (kv, ki, etf, etgt, rank, m, nviol).  `graph`: replay
-        the chunk's graph (True) or step eagerly (False); None: the
-        decoder's `graph`."""
+        the chunk's captured graph (True) or call the chunk uncaptured
+        (False); None: the decoder's `graph`."""
         return self._scan(costs, valid, minimal, graph=graph,
                           keep_carry=False)[0]
 
@@ -1632,16 +1477,15 @@ class NgramFusedDecoder:
                           graph=graph)
 
     def _steps(self, carry, cch, vch, t_base, minimal, mask):
-        """The CHUNK frames of costs cch [B, CH, n_sen] and valid vch
-        [B, CH] from `carry`, `t_base` the first frame's index (an int,
-        or a 0-d int32 tensor on the device): the chunk's senone
-        pre-gather of the finals and single-phone columns, then `_step`
-        per frame on its cost row and gathered costs.  Yields (frame in
-        the chunk, carry after it, its records); a caller that rebinds
-        its carry to each one holds no other.  A split decoder's full
-        records of a frame hold its joined block outputs (entry, erw1,
-        erw2), which the next frame overwrites: copy them before taking
-        the next."""
+        """The frames of costs cch [B, CH, n_sen] and valid vch [B, CH]
+        from `carry`, `t_base` the first frame's index (an int, or a 0-d
+        int32 tensor on the device): the chunk's senone pre-gather of the
+        finals and single-phone columns, then `_step` per frame on its
+        cost row and gathered costs.  Yields (frame in the chunk, carry
+        after it, its records); a caller that rebinds its carry to each
+        one holds no other.  A split decoder's full records of a frame
+        hold its joined block outputs (entry, erw1, erw2), which the next
+        frame overwrites: copy them before taking the next."""
         B, CH = vch.shape
         gather = self.tables["gather"]
         # chunked pre-gather: this chunk's costs of the finals' and the
@@ -1658,111 +1502,56 @@ class NgramFusedDecoder:
 
     def _scan(self, costs, valid, minimal, carry=None, t0=0, mask=False,
               graph=None, keep_carry=True):
-        """The scan in chunks: through the chunk's graph (`graph`, None:
-        the decoder's) or eagerly.  Returns (records [B, Tp, ...], the
-        carry after the last frame with its pending renormalization
-        folded in, or None when not `keep_carry`)."""
+        """The scan of costs and valid padded to whole chunks through the
+        decoder's runner (`_runner`): each chunk replays the graph of its
+        records and mask (`graph`, None: the decoder's) or is called.
+        Returns (records [B, Tp, ...], the carry after the last frame
+        with its pending renormalization folded in, in buffers of the
+        caller's own, or None when not `keep_carry`)."""
         B, T, n_sen = costs.shape
-        CH = self.CHUNK
-        Tp = -(-T // CH) * CH
+        Tp = -(-T // CHUNK) * CHUNK
         costs = torch.nn.functional.pad(costs, (0, 0, 0, Tp - T))
         valid = torch.nn.functional.pad(valid, (0, Tp - T))
-        if graph is None:
-            graph = self.graph
-        if graph:
-            return self._scan_graph(costs, valid, minimal, carry, t0, mask,
-                                    keep_carry)
-        if carry is None:
-            carry = self.init_carry(B)
-        recs = None
-        for c0 in range(0, Tp, CH):
-            self._count_chunk(B)
-            for i, carry, rec in self._steps(
-                    carry, costs[:, c0:c0 + CH], valid[:, c0:c0 + CH],
-                    t0 + c0, minimal, mask):
-                if recs is None:
-                    recs = _records_like(rec, Tp)
-                for buf, r in zip(recs, rec):
-                    buf[:, c0 + i] = r
+        self._count_chunks(B, Tp // CHUNK)
+        recs, carry = self._runner(B, n_sen).run(
+            lambda c, xs, t: self._steps(c, *xs, t, minimal, mask), carry,
+            (costs, valid), Tp, t0, (minimal, mask),
+            self.graph if graph is None else graph, reset=self._reset_carry)
         if not keep_carry:
             return recs, None
+        carry = clone_tree(carry)
         self._fold_renorm(carry, B)
         return recs, carry
 
-    def _count_chunk(self, B):
-        """Count a chunk's frames in "scan.renorm_folded" when every
-        carry a kernel reads takes the renormalization in its load, and
-        in "scan.finals_kernel" or "scan.finals_plain" by what steps the
-        word-final block: the fan step, or `_finals_step`; and in
-        "scan.pregather_bytes" the bytes its pre-gather writes (B rows
-        of every gather's costs for each frame)."""
-        profile.count("scan.pregather_bytes", 4 * B * self.CHUNK * sum(
+    def _count_chunks(self, B, n):
+        """Count n chunks of B utterances: their frames in
+        "scan.renorm_folded" (the chain and fan steps take the
+        renormalization in their load) and, with multi-phone words, in
+        "scan.finals_kernel" (the fan step steps the word-final block);
+        in "scan.pregather_bytes" the bytes their pre-gathers write (B
+        rows of every gather's costs for each frame)."""
+        profile.count("scan.pregather_bytes", 4 * B * CHUNK * n * sum(
             ids.numel() for ids, _ in self.tables["gather"].values()))
-        if self._fan_folds or not self.n_multi:
-            profile.count("scan.renorm_folded", self.CHUNK)
+        profile.count("scan.renorm_folded", CHUNK * n)
         if self.n_multi:
-            profile.count("scan.finals_kernel" if self._fan_folds
-                          else "scan.finals_plain", self.CHUNK)
+            profile.count("scan.finals_kernel", CHUNK * n)
 
-    def _scan_graph(self, costs, valid, minimal, carry, t0, mask,
-                    keep_carry):
-        """`_scan` through the `_ScanGraph` of its shapes (costs and valid
-        padded to whole chunks): each chunk's inputs into its static
-        buffers, a replay (on the CPU: a call), its records copied out."""
-        (B, Tp, n_sen), CH = costs.shape, self.CHUNK
-        run = self._graph_for(B, n_sen, minimal, mask)
-        if carry is None:
-            self._reset_carry(run.io.carry)
-        else:
-            self._copy_carry(run.io.carry, carry)
-        recs = None
-        for c0 in range(0, Tp, CH):
-            self._count_chunk(B)
-            with profile.span("ps.scan.chunk"):
-                rc = run.run(self, costs[:, c0:c0 + CH],
-                             valid[:, c0:c0 + CH], t0 + c0)
-                if recs is None:
-                    recs = _records_like([r[:, 0] for r in rc], Tp)
-                for buf, r in zip(recs, rc):
-                    buf[:, c0:c0 + CH] = r
-        if not keep_carry:
-            return recs, None
-        carry = self._clone_carry(run.io.carry, B)
-        self._fold_renorm(carry, B)
-        return recs, carry
-
-    def _graph_for(self, B, n_sen, minimal, mask):
-        """The `_ScanGraph` of these shapes on this decoder's tables,
-        made on first use.  The decoder keeps the graphs of one (B,
-        n_sen) and its tables: their static inputs (`_ScanInputs`, shared,
-        as their replays never overlap: one stream, one at a time), a
-        split decoder's block buffers (`_SplitBuffers`), one memory pool
-        and the stream they are captured on.  A scan of another shape
-        drops them all first, so a decoder holds at most one static
-        carry."""
-        cache = self.__dict__.get("_graphs")
-        if (cache is None or cache["tables"] is not self.tables
-                or cache["shape"] != (B, n_sen)):
-            self._graphs = cache = None
-            pool = stream = None
-            if self.device.type == "cuda":
-                with torch.cuda.device(self.device):
-                    pool = torch.cuda.graph_pool_handle()
-                    stream = torch.cuda.Stream()
-            split = (None if self.tables["columns"] is None
-                     else self._split_buffers(B))
-            cache = self._graphs = dict(
-                tables=self.tables, shape=(B, n_sen), pool=pool,
-                stream=stream, inputs=_ScanInputs(self, B, n_sen),
-                split=split, runs={})
-        run = cache["runs"].get((minimal, mask))
-        if run is None:
-            if cache["split"] is not None:
-                # an eager step at another B may have replaced them
-                self._split = cache["split"]
-            run = cache["runs"][minimal, mask] = _ScanGraph(
-                self, cache["inputs"], minimal, mask, cache["pool"],
-                cache["stream"])
+    def _runner(self, B, n_sen):
+        """The decoder's `ChunkGraph` at (B, n_sen) on its tables, kept
+        across scans of that shape, with its static carry and a split
+        decoder's block buffers of that B (`held`, which the runner's
+        graphs write).  A scan of another shape drops it first, so a
+        decoder holds at most one static carry."""
+        run = self.chunk_graph
+        if run is None or not run.fits(self.tables, (B, n_sen)):
+            self.chunk_graph = None       # its buffers go first
+            run = self.chunk_graph = ChunkGraph(
+                self.device, self.tables, (B, n_sen), self.init_carry(B), 1)
+            if self.tables["columns"] is not None:
+                run.held = self._split_buffers(B)
+        if run.held is not None:
+            # a step outside the runner at another B may have replaced them
+            self._split = run.held
         return run
 
     # -- 1-best backtrace (device) -------------------------------------------
@@ -1900,7 +1689,7 @@ class NgramFusedDecoder:
                 n_frames = n_frames.cpu().numpy()
             nf = np.asarray(n_frames).astype(np.int64)
         profile.count("scan.batches")
-        profile.count("scan.lane_frames", B * -(-T // self.CHUNK) * self.CHUNK)
+        profile.count("scan.lane_frames", B * -(-T // CHUNK) * CHUNK)
         profile.count("scan.real_frames", int(nf.sum()))
         with profile.span("ps.scan", timings, "scan", dev):
             valid = (torch.arange(T, device=dev)[None, :]

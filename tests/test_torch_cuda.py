@@ -11,10 +11,17 @@ import pytest
 import torch
 
 import chip_smoke
-from pocketsphinx_tpu_torch.ops import chain, fan, transitions
+from pocketsphinx_tpu_torch.ops import _build, chain, fan, transitions
 from pocketsphinx_tpu_torch.testing import synth
 
 pytestmark = pytest.mark.cuda
+#: the n-gram scan's kernels
+KERNELS = ("fan", "chain", "transitions")
+
+
+def _launches(name):
+    """The launches of kernel `name` counted in this process so far."""
+    return _build.launches.get(name, 0)
 
 
 @pytest.fixture
@@ -42,9 +49,9 @@ def test_fan_kernel_bit_equal(cuda, shape, ties, NST):
     refs = fan.fan_step_ref(**a, out_f=bufs[1][:, :, 2:W + 2])
     for groups in (None,) + fan.GROUPS:
         bufs[0].fill_(7.0)
-        n = fan.launches
+        n = _launches("fan")
         outs = fan.fan_step(**a, out_f=bufs[0][:, :, 2:W + 2], groups=groups)
-        assert fan.launches == n + 1
+        assert _launches("fan") == n + 1
         torch.cuda.synchronize()
         assert bool((outs[0][..., W:] == chip_smoke.NEG_INF).all())
         chip_smoke.compare(outs[:7] + (outs[7].amax(1), bufs[0]),
@@ -57,9 +64,9 @@ def test_chain_kernel_bit_equal(cuda, NST, has_var):
     a = chip_smoke.chain_inputs(np.random.default_rng(2), 3, NST, 6, 200,
                                 4, 37, has_var, True)
     grp, args = chip_smoke.chain_group_args([a], cuda)
-    n = chain.launches
+    n = _launches("chain")
     outs = chain.chain_group_step(grp, **args)
-    assert chain.launches == n + 1
+    assert _launches("chain") == n + 1
     torch.cuda.synchronize()
     chip_smoke.compare(outs, chain.chain_group_ref(grp, **args), "chain")
 
@@ -86,9 +93,9 @@ def test_chain_group_kernel_bit_equal(cuda, NST, with_ci, B, frame):
     grp, args = chip_smoke.chain_group_args(per, cuda, frame=frame)
     if frame is not None:
         assert args["costs"].stride() == (16 * chip_smoke.N_SEN, 1)
-    n = chain.launches
+    n = _launches("chain")
     outs = chain.chain_group_step(grp, **args)
-    assert chain.launches == n + 1
+    assert _launches("chain") == n + 1
     torch.cuda.synchronize()
     chip_smoke.compare(outs, chain.chain_group_ref(grp, **args),
                        "chain group")
@@ -144,9 +151,9 @@ def test_chain_group_kernel_m_prev_bit_equal(cuda, kinds, NST, offsets):
     grp, args = chip_smoke.chain_group_args(per, cuda, frame=(16, 9))
     args["m_prev"] = torch.as_tensor(
         chip_smoke.m_prev_inputs(rng, 11, offsets), device=cuda)
-    n = chain.launches
+    n = _launches("chain")
     outs = chain.chain_group_step(grp, **args)
-    assert chain.launches == n + 1
+    assert _launches("chain") == n + 1
     torch.cuda.synchronize()
     chip_smoke.compare(outs, chain.chain_group_ref(grp, **args),
                        f"chain group m_prev={offsets}")
@@ -217,10 +224,10 @@ def test_transitions_kernel_bit_equal(cuda, tmp_path, monkeypatch, case,
     for args in cases:
         ref = transitions.transitions_ref(*args)
         for cols, ks in options:
-            n = transitions.launches
+            n = _launches("transitions")
             outs = transitions.transitions(*args, cols_per_thread=cols,
                                            k_split=ks)
-            assert transitions.launches == n + 1
+            assert _launches("transitions") == n + 1
             torch.cuda.synchronize()
             chip_smoke.compare(outs, ref, f"transitions {case} cols={cols} "
                                           f"ks={ks}")
@@ -242,9 +249,9 @@ def test_decode_phones_cuda_equals_cpu(cuda, tmp_path, monkeypatch):
         assert dec.tables["accept_bits"].shape[0] == 2
         costs = np.random.default_rng(5).uniform(0, 400, (50, dec.am.n_sen))
         costs = costs.astype(np.float32)
-        n = transitions.launches
+        n = _launches("transitions")
         hyp, segs = dec.decode(None, costs=costs)
-        assert transitions.launches > n
+        assert _launches("transitions") > n
         cpu = dec.to("cpu")
         hyp_c, segs_c = cpu.decode(None, costs=costs)
         for a, b in zip(dec.raw_records, cpu.raw_records):
@@ -321,12 +328,12 @@ def test_decode_corpus_cuda(cuda, tmp_path):
                               device=cuda)
     fe = chip_smoke.en_us_frontend()
     pcms = [synth.make_pcm(60 + i, s) for i, s in enumerate((1.2, 0.9, 1.1))]
-    n = fan.launches
+    n = _launches("fan")
     got = chip_smoke._results(BatchDecodePipeline(
         dec, fe, mesh=make_mesh(n_data=1)).decode_corpus(pcms, batch_size=4))
     pcm, ns = chip_smoke.pcm_batch([60, 61, 62], [1.2, 0.9, 1.1])
     T = fe.n_frames(int(ns.max()))
-    assert fan.launches - n == -(-T // dec.CHUNK) * dec.CHUNK
+    assert _launches("fan") - n == -(-T // dec.CHUNK) * dec.CHUNK
     feats, nf = chip_smoke.features(fe, pcm, ns, cuda)
     want = chip_smoke._results(dec.decode_batch(feats, nf,
                                                 keep_records=False))
@@ -364,14 +371,14 @@ def test_decode_corpus_semi5_cuda_equals_cpu(cuda, tmp_path):
                                              hmm + "/noisedict")),
             read_lm(lmf, lw=6.5, wip=0.65), topk=16, device=device)
         assert dec.NST == 5 and dec.am.model_type == "semi"
-        n = fan.launches
+        n = _launches("fan")
         out.append(chip_smoke._results(BatchDecodePipeline(
             dec, fe, mesh=make_mesh(n_data=1, device=device)).decode_corpus(
                 pcms, batch_size=4)))
         scores.append(list(dec.hyp_scores))
         if device.type == "cuda":
             T = fe.n_frames(max(len(p) for p in pcms))
-            assert fan.launches - n == -(-T // dec.CHUNK) * dec.CHUNK
+            assert _launches("fan") - n == -(-T // dec.CHUNK) * dec.CHUNK
     assert out[0] == out[1] and any(h for h, _ in out[0])
     np.testing.assert_allclose(scores[0], scores[1], rtol=1e-5)
 
@@ -468,10 +475,10 @@ def _tp_equal(dec, group):
     valid = torch.as_tensor(np.arange(50)[None, :] < nf[:, None],
                             device=dec.device)
     for minimal in (False, True):
-        n = (fan.launches, chain.launches, transitions.launches)
+        n = [_launches(k) for k in KERNELS]
         got = sp.scan(costs, valid, minimal)
-        assert (fan.launches - n[0], chain.launches - n[1],
-                transitions.launches - n[2]) == (64, 64, 128)
+        assert [_launches(k) - b for k, b in zip(KERNELS, n)] == [64, 64,
+                                                                  128]
         for a, b in zip(got, dec.scan(costs, valid, minimal)):
             assert a.device == dec.device and torch.equal(a, b)
     want = chip_smoke._results(dec.decode_batch(None, nf, False, costs))
@@ -530,7 +537,7 @@ def test_tp_two_cards(cuda, tmp_path, monkeypatch):
 def _tp_graph_equal(dec, group):
     """`dec.shard(group)` on one B=8 cost matrix of unequal lengths,
     minimal and full records: through its CUDA graph (the default, one
-    graph over the group's cards), stepped eagerly and unsplit, records
+    graph over the group's cards), called uncaptured and unsplit, records
     and carries equal; each run launches the fan and the chain once per
     frame and the transition kernel once per frame and part."""
     sp = dec.shard(group)
@@ -542,15 +549,13 @@ def _tp_graph_equal(dec, group):
     for minimal in (True, False):
         runs = []
         for d, graph in ((sp, None), (sp, True), (sp, False), (dec, None)):
-            before = [m.launches for m in (fan, chain, transitions)]
+            before = [_launches(k) for k in KERNELS]
             runs.append(d._scan(c, v, minimal, graph=graph))
             for k in group:
                 torch.cuda.synchronize(k)
-            assert [m.launches - n for m, n in zip(
-                (fan, chain, transitions), before)] == [
+            assert [_launches(k) - n for k, n in zip(KERNELS, before)] == [
                     frames, frames, frames * (tp if d is sp else 1)]
-        run = sp._graphs["runs"][minimal, False]
-        assert run.graph is not None and run.launches == dict(
+        assert sp.chunk_graph.graphs[minimal, False][1] == dict(
             fan=dec.CHUNK, chain=dec.CHUNK, transitions=dec.CHUNK * tp)
         (rg, cg) = runs[0]
         for r, k in runs[1:]:
@@ -566,7 +571,7 @@ def _tp_graph_equal(dec, group):
 @pytest.mark.parametrize("tp", [2, 3])
 def test_tp_graph_one_card(cuda, tmp_path, monkeypatch, tp):
     """`tp` model parts on one card (LM modes B and C) through the graph
-    equal their eager step and the unsplit decoder."""
+    equal their uncaptured chunk and the unsplit decoder."""
     for dec in _tp_decoders(tmp_path, monkeypatch, cuda).values():
         _tp_graph_equal(dec, ["cuda:0"] * tp)
 
@@ -574,7 +579,8 @@ def test_tp_graph_one_card(cuda, tmp_path, monkeypatch, tp):
 def test_tp_graph_two_cards(cuda, tmp_path, monkeypatch):
     """With two or more cards: the parts on cards 0 and 1, and three parts
     on cards 0, 1 and 0 (LM modes B and C), through one graph over both
-    cards equal their eager step and the unsplit decoder on card 0."""
+    cards equal their uncaptured chunk and the unsplit decoder on card
+    0."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA cards")
     for dec in _tp_decoders(tmp_path, monkeypatch, "cuda:0").values():
@@ -603,16 +609,16 @@ def test_tp_replicas_one_card(cuda, tmp_path):
         dec, fe, mesh=Mesh([[cuda, cuda]])).decode_corpus(pcms,
                                                          batch_size=3))
     pipe = BatchDecodePipeline(dec, fe, mesh=Mesh([[cuda, cuda]] * 2))
-    before = [m.launches for m in (fan, chain, transitions)]
+    before = [_launches(k) for k in KERNELS]
     got = chip_smoke._results(pipe.decode_corpus(pcms, batch_size=6))
     torch.cuda.synchronize()
-    assert [m.launches - n for m, n in zip(
-        (fan, chain, transitions), before)] == [frames, frames, 2 * frames]
+    assert [_launches(k) - n for k, n in zip(KERNELS, before)] == [
+        frames, frames, 2 * frames]
     assert got == one and any(h for h, _ in one)
     assert pipe.replicas[0] is not pipe.replicas[1]
     for r in pipe.replicas:
         assert len(r.tables["columns"]) == 2
-        assert r._graphs["runs"][True, False].launches == dict(
+        assert r.chunk_graph.graphs[True, False][1] == dict(
             fan=dec.CHUNK, chain=dec.CHUNK, transitions=2 * dec.CHUNK)
 
 
@@ -655,10 +661,10 @@ def test_cli_single_cuda_equals_cpu(cuda, tmp_path, capsys):
     argv = ["-hmm", hmm, "-dict", dic, "-lm", lmf, "single", wav]
     out = []
     for device in ("cpu", None, cuda):
-        n = fan.launches
+        n = _launches("fan")
         assert cli.main(argv, device=device) == 0
         out.append(capsys.readouterr().out)
-        assert (fan.launches > n) == (device != "cpu")
+        assert (_launches("fan") > n) == (device != "cpu")
     assert out[0] == out[1] == out[2] and '"t": ' in out[0]
 
 
@@ -735,10 +741,10 @@ def test_decoder_cuda_equals_cpu(cuda, tmp_path):
     dec, cpu = _facade(cuda, tmp_path)
     costs = np.random.default_rng(11).uniform(
         0, 400, (96, dec.am.n_sen)).astype(np.float32)
-    n = fan.launches
+    n = _launches("fan")
     for d in (dec, cpu):
         d.decode_senscr(costs)
-    assert fan.launches == n + 96
+    assert _launches("fan") == n + 96
     for a, b in zip(dec._searches["_default"].raw_records,
                     cpu._searches["_default"].raw_records):
         np.testing.assert_array_equal(a, b)
@@ -799,12 +805,12 @@ def test_nst5_decode_cuda(cuda, tmp_path):
     dec = Decoder(hmm=hmm, dict=dic, lm=lmf, device=cuda)
     costs = np.random.default_rng(27).uniform(
         0, 400, (70, dec.am.n_sen)).astype(np.float32)
-    nf, nc = fan.launches, chain.launches
+    nf, nc = _launches("fan"), _launches("chain")
     dec.decode_senscr(costs)
     search = dec._searches["_default"]
     assert search.NST == 5
     frames = -(-70 // search.CHUNK) * search.CHUNK
-    assert (fan.launches - nf, chain.launches - nc) == (frames, frames)
+    assert (_launches("fan") - nf, _launches("chain") - nc) == (frames, frames)
     cpu = dec._to("cpu")
     cpu.decode_senscr(costs)
     for a, b in zip(search.raw_records, cpu._searches["_default"].raw_records):
@@ -812,7 +818,7 @@ def test_nst5_decode_cuda(cuda, tmp_path):
     assert _result(dec) == _result(cpu)
 
 
-# -- the scan's CUDA graph (`_ScanGraph`) ------------------------------------
+# -- the n-gram scan's CUDA graph (`base.ChunkGraph`) -----------------------
 
 def _graph_decoder(tmp_path, cuda, seed=1):
     tmp_path.mkdir(parents=True, exist_ok=True)
@@ -840,9 +846,9 @@ def _carry_equal(dec, a, b):
 
 def test_decode_batch_graph_equals_eager_and_cpu(cuda, tmp_path):
     """B=8 with unequal lengths, minimal and full records: the scan
-    through the graph (the default) equals the eager step on the card and
-    the CPU, records and carry; `decode_batch`'s hypotheses, segments,
-    scores and guard counts too."""
+    through the graph (the default) equals the uncaptured chunk on the
+    card and the CPU, records and carry; `decode_batch`'s hypotheses,
+    segments, scores and guard counts too."""
     dec = _graph_decoder(tmp_path, cuda)
     cpu = dec.to("cpu")
     costs, nf = _graph_costs(dec, [50, 33, 17, 50, 41, 9, 26, 48], 21)
@@ -850,7 +856,7 @@ def test_decode_batch_graph_equals_eager_and_cpu(cuda, tmp_path):
     c, v = (torch.as_tensor(x, device=cuda) for x in (costs, valid))
     for minimal in (True, False):
         rg, cg = dec._scan(c, v, minimal)
-        assert dec._graphs["runs"][minimal, False].graph is not None
+        assert (minimal, False) in dec.chunk_graph.graphs
         re, ce = dec._scan(c, v, minimal, graph=False)
         rc, cc = cpu._scan(torch.as_tensor(costs), torch.as_tensor(valid),
                            minimal)
@@ -871,7 +877,7 @@ def test_decode_batch_graph_equals_eager_and_cpu(cuda, tmp_path):
 
 def test_stream_graph_equals_eager(cuda, tmp_path):
     """The `Decoder` stream (0.1 s chunks, a padded and masked last block)
-    through the graph equals the same stream stepped eagerly
+    through the graph equals the same stream with its chunks uncaptured
     (`Decoder._to(..., graph=False)`); `with_carry` resumed at t0 = 37 from
     a carry gives the same records and carry either way, and a carry it
     returned stays as it was through later calls."""
@@ -915,27 +921,26 @@ def test_stream_graph_equals_eager(cuda, tmp_path):
 def test_graph_launch_counts(cuda, tmp_path):
     """Each kernel's counter adds one launch per frame stepped through
     graph replays: the first scan (which captures) and the later ones,
-    as through the eager step."""
+    as through the uncaptured chunk."""
     dec = _graph_decoder(tmp_path, cuda, seed=3)
     costs, nf = _graph_costs(dec, [40, 21, 7], 23)
     valid = np.arange(costs.shape[1])[None, :] < nf[:, None]
     c, v = (torch.as_tensor(x, device=cuda) for x in (costs, valid))
     frames = -(-costs.shape[1] // dec.CHUNK) * dec.CHUNK
     for graph in (True, True, False):
-        before = [m.launches for m in (fan, chain, transitions)]
+        before = [_launches(k) for k in KERNELS]
         dec.scan(c, v, True, graph=graph)
         torch.cuda.synchronize()
-        assert [m.launches - n for m, n in zip(
-            (fan, chain, transitions), before)] == [frames] * 3
-    run = dec._graphs["runs"][True, False]
-    assert run.launches == dict.fromkeys(("chain", "fan", "transitions"),
-                                         dec.CHUNK)
+        assert [_launches(k) - n for k, n in zip(KERNELS, before)] == [
+            frames] * 3
+    assert dec.chunk_graph.graphs[True, False][1] == dict.fromkeys(
+        KERNELS, dec.CHUNK)
 
 
 def test_graph_two_batch_sizes(cuda, tmp_path):
-    """Two batch sizes on one decoder, interleaved, each get a graph of
-    their own and stay equal to the eager step; the decoder keeps the
-    graphs of the last one only (one static carry)."""
+    """Two batch sizes on one decoder, interleaved, each get a runner and
+    graph of their own and stay equal to the uncaptured chunk; the
+    decoder keeps the runner of the last one only (one static carry)."""
     dec = _graph_decoder(tmp_path, cuda, seed=5)
     inputs = {}
     for B, lens in ((3, [40, 21, 33]), (5, [19, 40, 8, 27, 36])):
@@ -947,10 +952,10 @@ def test_graph_two_batch_sizes(cuda, tmp_path):
     for B in (3, 5, 3, 5):
         for a, b in zip(dec.scan(*inputs[B], True), want[B], strict=True):
             assert torch.equal(a, b)
-        assert dec._graphs["shape"] == (B, dec.am.n_sen)
-        assert set(dec._graphs["runs"]) == {(True, False)}
-        run = dec._graphs["runs"][True, False]
-        assert run.graph is not None and run.io.costs.shape[0] == B
+        run = dec.chunk_graph
+        assert run.shape == (B, dec.am.n_sen)
+        assert set(run.graphs) == {(True, False)}
+        assert run.xs[0].shape[0] == B
         seen.append(run)
     assert len({id(r) for r in seen}) == 4
 
@@ -977,16 +982,16 @@ def test_decode_corpus_two_replicas_one_card(cuda, tmp_path):
     for search, mesh, B in ((dec.to(cuda), make_mesh(n_data=1), 3),
                             (dec, Mesh([[cuda], [cuda]]), 6)):
         pipe = BatchDecodePipeline(search, fe, mesh=mesh)
-        before = [m.launches for m in (fan, chain, transitions)]
+        before = [_launches(k) for k in KERNELS]
         got = chip_smoke._results(pipe.decode_corpus(pcms, batch_size=B))
         torch.cuda.synchronize()
-        assert [m.launches - n for m, n in zip(
-            (fan, chain, transitions), before)] == [frames] * 3
+        assert [_launches(k) - n for k, n in zip(KERNELS, before)] == [
+            frames] * 3
         runs.append(got)
     assert pipe.replicas[0] is not pipe.replicas[1]
     assert runs[0] == runs[1] and any(h for h, _ in runs[0])
     for r in pipe.replicas:
-        assert r._graphs["runs"][True, False].graph is not None
+        assert (True, False) in r.chunk_graph.graphs
 
 
 def test_graph_capture_with_garbage(cuda, tmp_path):
@@ -994,14 +999,14 @@ def test_graph_capture_with_garbage(cuda, tmp_path):
     an unreachable cycle holds another decoder and its captured graph:
     collecting it during the capture would destroy that graph, a call
     that invalidates the capture. The capture must succeed and replay
-    equal to the eager step."""
+    equal to the uncaptured chunk."""
     import gc
     old = _graph_decoder(tmp_path / "old", cuda, seed=7)
     costs, nf = _graph_costs(old, [40, 21, 33], 28)
     valid = np.arange(costs.shape[1])[None, :] < nf[:, None]
     c, v = (torch.as_tensor(x, device=cuda) for x in (costs, valid))
     old.scan(c, v, True)
-    assert old._graphs["runs"][True, False].graph is not None
+    assert (True, False) in old.chunk_graph.graphs
     old.cycle = old
     del old
     dec = _graph_decoder(tmp_path / "new", cuda, seed=7)
@@ -1024,9 +1029,9 @@ def test_denoise_kernel_bit_equal(cuda, shape):
     from pocketsphinx_tpu_torch.ops import denoise
     x = chip_smoke.denoise_inputs(np.random.default_rng(5), *shape)
     x = torch.as_tensor(x, device=cuda)
-    n = denoise.launches
+    n = _launches("denoise")
     got = denoise.gains(x)
-    assert denoise.launches == n + 1
+    assert _launches("denoise") == n + 1
     torch.cuda.synchronize()
     chip_smoke.compare((got,), (denoise.gains_ref(x),), "denoise")
 
@@ -1037,9 +1042,9 @@ def test_frontend_denoise_launches(cuda):
     from pocketsphinx_tpu_torch.ops import denoise
     fe = chip_smoke.en_us_frontend()
     pcm, ns = chip_smoke.pcm_batch([1, 2, 3], [1.0, 0.6, 0.8])
-    n = denoise.launches
+    n = _launches("denoise")
     cep, nf = fe.process_batch(torch.as_tensor(pcm, device=cuda), ns)
-    assert denoise.launches == n + 1
+    assert _launches("denoise") == n + 1
     cep_c, nf_c = fe.process_batch(pcm, ns, device="cpu")
     assert torch.equal(nf.cpu(), nf_c)
     for b, k in enumerate(nf_c.tolist()):
@@ -1053,7 +1058,8 @@ def test_mode_graph_equals_eager(cuda, tmp_path, mode):
     """Each grammar / keyword / allphone / align search on the card steps
     its whole chunks through a captured CUDA graph, kept across
     utterances (the aligner's per `align`), and gives the records and
-    results of its eager twin (`Decoder._to(..., graph=False)`)."""
+    results of its twin that calls the chunks uncaptured
+    (`Decoder._to(..., graph=False)`)."""
     dec = chip_smoke.mode_decoder(str(tmp_path), cuda)
     name = chip_smoke.add_mode(dec, mode, str(tmp_path))
     eager = dec._to(cuda, graph=False)
@@ -1069,17 +1075,18 @@ def test_mode_graph_equals_eager(cuda, tmp_path, mode):
         chip_smoke.check_records(dec._searches[name], eager._searches[name],
                                  mode)
         g = dec._searches[name].chunk_graph
-        assert eager._searches[name].chunk_graph is None
+        assert not eager._searches[name].chunk_graph.graphs
         if T >= 16:
-            assert g.graph is not None and g.capture_s > 0
+            assert g.graphs and g.capture_s > 0
         if mode != "align" and runner is not None and T >= 16:
             assert g is runner
         runner = g if T >= 16 else runner
 
 
 def test_flat_graph_equals_eager_cuda(cuda, tmp_path):
-    """The flat search's scan through its captured graph equals the eager
-    step on the card, records and carry, at B=4 with unequal lengths."""
+    """The flat search's scan through its captured graph equals the
+    uncaptured chunk on the card, records and carry, at B=4 with unequal
+    lengths."""
     from pocketsphinx_tpu_torch import Decoder
     from pocketsphinx_tpu_torch.lm.ngram import read_lm
     from pocketsphinx_tpu_torch.search.ngram_flat import NgramFlatDecoder
@@ -1093,7 +1100,7 @@ def test_flat_graph_equals_eager_cuda(cuda, tmp_path):
                             dtype=torch.float32, device=cuda)
     valid = torch.arange(45, device=cuda)[None] < lens[:, None]
     rg, cg = flat.with_carry(costs, valid)
-    assert flat.chunk_graph.graph is not None
+    assert flat.chunk_graph.graphs
     re_, ce = flat.with_carry(costs, valid, graph=False)
     for a, b in zip(rg, re_):
         assert torch.equal(a, b)
@@ -1110,7 +1117,7 @@ def test_capture_seconds_and_spans_on_the_card(cuda):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     from pocketsphinx_tpu_torch import profile
-    from pocketsphinx_tpu_torch.search.base import CHUNK, ChunkGraph
+    from pocketsphinx_tpu_torch.search.base import CHUNK, ChunkGraph, frames
     T = 2 * CHUNK + 5
     xs = (torch.arange(T, dtype=torch.float32, device=cuda)[:, None]
           .repeat(1, 3),)
@@ -1120,13 +1127,13 @@ def test_capture_seconds_and_spans_on_the_card(cuda):
         return carry, (carry,)
     run = ChunkGraph(cuda, key=None)
     before = profile.counters().get("capture_s", 0.0)
-    first, _ = run.run(step, torch.zeros(3, device=cuda), xs, T)
-    assert run.graph is not None and run.capture_s > 0
+    first, _ = run.run(frames(step), torch.zeros(3, device=cuda), xs, T)
+    assert run.graphs and run.capture_s > 0
     assert profile.counters()["capture_s"] - before == pytest.approx(
         run.capture_s)
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
-        again, _ = run.run(step, torch.zeros(3, device=cuda), xs, T)
+        again, _ = run.run(frames(step), torch.zeros(3, device=cuda), xs, T)
         torch.cuda.synchronize()
     assert profile.counters()["capture_s"] - before == pytest.approx(
         run.capture_s)                    # a replay captures nothing

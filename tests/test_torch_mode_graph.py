@@ -2,8 +2,8 @@
 through their chunked runner (`search.base.ChunkGraph`: 16-frame chunks
 over static buffers, the last T mod 16 frames stepped eagerly; on the
 CPU the chunk runs without capture) against the JAX searches' `lax.scan`
-records, bit for bit with dtypes, and against the same search stepped
-eagerly frame by frame (`graph=False`), at T = 37 (two chunks and a
+records, bit for bit with dtypes, and against the same search with its
+chunks called uncaptured (`graph=False`), at T = 37 (two chunks and a
 tail), T = 11 (no whole chunk) and T = 32 (no tail).  A search keeps its
 runner across utterances, and a rebuilt search (`Decoder.add_word`)
 drops it; `Decoder._to(device, graph=False)` passes `graph` to every
@@ -27,7 +27,7 @@ from pocketsphinx_tpu_torch.lm.jsgf import Jsgf
 from pocketsphinx_tpu_torch.lm.ngram import read_lm
 from pocketsphinx_tpu_torch.search.align import Aligner
 from pocketsphinx_tpu_torch.search.allphone import AllphoneDecoder
-from pocketsphinx_tpu_torch.search.base import CHUNK, ChunkGraph
+from pocketsphinx_tpu_torch.search.base import CHUNK, ChunkGraph, frames
 from pocketsphinx_tpu_torch.search.fsg import FsgDecoder
 from pocketsphinx_tpu_torch.search.kws import KwsDecoder, parse_kws_file
 from pocketsphinx_tpu_torch.testing import synth
@@ -104,12 +104,12 @@ def test_runner_equals_jax_scan_and_eager(task, mode, T, monkeypatch):
     jax_recs = seen[-1][1]
     out_p = run(pt, costs)
     runner = pt.chunk_graph
-    assert isinstance(runner, ChunkGraph) and runner.graph is None
+    assert isinstance(runner, ChunkGraph) and not runner.graphs
     assert_records_equal(pt.records, jax_recs, NAMES[mode])
     eager = pt.to("cpu", graph=False)
     assert eager.chunk_graph is None and not eager.graph
     out_e = run(eager, costs)
-    assert eager.chunk_graph is None
+    assert eager.chunk_graph is not runner and not eager.chunk_graph.graphs
     assert_records_equal(eager.records, jax_recs, NAMES[mode])
     assert out_p == out_e == out_j
     # the frame index reaches the records as int32 on both paths
@@ -190,8 +190,8 @@ def test_runner_frame_index_is_int32_tensor():
 
     run = ChunkGraph("cpu", key=None)
     xs = (torch.ones(CHUNK + 3, dtype=torch.int32),)
-    recs, carry = run.run(step, torch.zeros((), dtype=torch.int32), xs,
-                          CHUNK + 3, t0=5)
+    recs, carry = run.run(frames(step), torch.zeros((), dtype=torch.int32),
+                          xs, CHUNK + 3, t0=5)
     assert {(d, n) for d, n, _ in seen} == {(torch.int32, 0)}
     assert [v for *_, v in seen] == list(range(5, 5 + CHUNK + 3))
     assert recs[0].dtype == torch.int32

@@ -6,7 +6,11 @@ place of the JAX `tp_fin` [W, 5, 6]) equal, the 10 full-record arrays
 and the hypothesis bit-equal through a frame of forced ties, and the 7
 minimal-record arrays at B=4 with unequal lengths.  The finals block is
 the fan step (`fan_step_ref` on the CPU, the kernel on the card) on a
-padded fan carry, where the JAX scan runs its XLA block."""
+padded fan carry, where the JAX scan runs its XLA block.
+
+A 4-state model, a topology the fan kernel is not built for, goes the
+same way on the CPU (the fan step's plain version takes any number of
+states): its minimal and full records at B=3 equal the JAX scan's."""
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 import pocketsphinx_tpu_torch.search.ngram_fused as port_fused
+from pocketsphinx_tpu_torch.ops.fan import padded_width
 from pocketsphinx_tpu_torch.testing import synth
 from _torch_jax_helpers import (  # noqa: F401
     assert_records_equal, jax_decoder, tie_costs, torch_one_thread)
@@ -102,7 +107,7 @@ def test_step_subtracts_the_fan_carry(decoders, monkeypatch):
     (`m_prev`), which subtract it as they load the scores; only a carry
     leaving the scan is folded."""
     _, pt = decoders
-    assert pt._fan_folds
+    assert pt.NST == 5
     fans, chains, args = [], [], []
     for name, out in (("fan_step", fans), ("chain_group_step", chains)):
         fn = getattr(port_fused, name)
@@ -163,3 +168,43 @@ def test_with_carry_resumed_equals_jax(decoders):
             b = np.stack([np.asarray(x) for x in b])
         np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                       err_msg=str(i))
+
+
+@pytest.fixture(scope="module")
+def four_states(tmp_path_factory):
+    d = tmp_path_factory.mktemp("nst4")
+    dic = str(d / "small.dic")
+    words = synth.small_dictionary(dic, n_words=30, n_single=3, seed=16)
+    lmf = synth.write_arpa(words, str(d / "small.arpa"), seed=17)
+    spec = synth.make_model([dic], seed=18, n_sen=168 + 400, n_density=8,
+                            n_state=4)
+    assert spec.tmat.shape == (42, 4, 5)
+    return (jax_decoder(spec, str(d), dic, lmf, topk=TOPK),
+            synth.build_decoder(spec, str(d), dic, lmf, topk=TOPK,
+                                device="cpu"))
+
+
+@pytest.mark.parametrize("minimal", [True, False], ids=["minimal", "full"])
+def test_four_states_scan_equals_jax(four_states, minimal, monkeypatch):
+    """A 4-state model's scan at B=3 with unequal lengths and a frame of
+    forced ties: the fan step (its plain version) steps every frame's
+    word-final block on the padded fan carry, and the records equal the
+    JAX scan's (its XLA finals block)."""
+    jx, pt = four_states
+    assert jx.NST == pt.NST == 4 and pt.n_multi
+    assert pt.init_carry(1)["fin"]["S"].shape[-1] == padded_width(pt.n_multi)
+    fan, calls = port_fused.fan_step, []
+    monkeypatch.setattr(port_fused, "fan_step",
+                        lambda *a, **k: (calls.append(a[0].shape[1]),
+                                         fan(*a, **k))[1])
+    lens = np.array([40, 17, 33])
+    T = int(lens.max())
+    costs = np.stack([tie_costs(pt.am.n_sen, T, seed=30 + b)
+                      for b in range(len(lens))])
+    valid = np.arange(T)[None, :] < lens[:, None]
+    rj = jax.vmap(jx._make_scan(minimal=minimal))(jnp.asarray(costs),
+                                                  jnp.asarray(valid))
+    rp = pt.scan(torch.as_tensor(costs), torch.as_tensor(valid),
+                 minimal=minimal)
+    assert calls == [4] * 48
+    assert_records_equal(rp, rj, MINIMAL if minimal else FULL)

@@ -1,6 +1,6 @@
-"""The scan's chunk runner (`_ScanGraph`): one CHUNK of the n-gram step
-over static buffers, which a CUDA decoder captures as a CUDA graph and
-replays, and the CPU runs without capture.
+"""The n-gram scan through its chunk runner (`base.ChunkGraph`): one CHUNK
+of the n-gram step over static buffers, which a CUDA decoder captures as
+a CUDA graph and replays, and the CPU runs without capture.
 
   * The runner's records (B=8, unequal lengths, minimal and full) are
     bit-equal to the JAX `_make_scan`'s, and records and carry to the
@@ -12,14 +12,17 @@ replays, and the CPU runs without capture.
     as it was.
   * The frame index given as a 0-d int32 tensor (the graph's) gives the
     records and carry it gives as an int.
-  * Each (records, mask) gets a runner of its own at one B, sharing its
-    static inputs; a scan at another B drops them and makes its own; a
-    decoder moved with `to` gets its own runners, and
+  * Each (records, mask) gets records of its own in the decoder's runner
+    at one B, sharing its static inputs; a scan at another B drops the
+    runner and makes its own; a decoder moved with `to` gets its own
+    runner, and
     `Decoder._to(device, graph=False)` passes the choice to its n-gram
     search.
   * Captures run one at a time with the garbage collector stopped, and a
     thread's `tally` counts its own launches only (the replicas of
-    `decode_corpus` capture in threads of their own)."""
+    `decode_corpus` capture in threads of their own), the others'
+    counting in the process's `launches`, which loses no update of
+    threads counting at once."""
 
 import jax
 import jax.numpy as jnp
@@ -77,9 +80,10 @@ def test_runner_equals_jax_scan(decoders, minimal):
                                                   jnp.asarray(valid))
     rp = pt.scan(torch.as_tensor(costs), torch.as_tensor(valid),
                  minimal=minimal, graph=True)
-    run = pt._graphs["runs"][minimal, False]
-    assert pt._graphs["shape"] == (8, pt.am.n_sen) and run.graph is None and run.io.costs.shape == (8, pt.CHUNK,
-                                                        pt.am.n_sen)
+    run = pt.chunk_graph
+    assert run.shape == (8, pt.am.n_sen) and not run.graphs
+    assert (minimal, False) in run.recs
+    assert run.xs[0].shape == (8, pt.CHUNK, pt.am.n_sen)
     assert len(rj) == len(rp) == (7 if minimal else 10)
     for i, (a, b) in enumerate(zip(rj, rp)):
         a = np.asarray(a)
@@ -228,7 +232,7 @@ def test_step_leaves_the_renormalization_pending(decoders, monkeypatch):
     score, where it is the frame's, reads 0)."""
     from pocketsphinx_tpu_torch.search import ngram_fused
     _, pt = decoders
-    assert pt.NST == 3 and pt._fan_folds
+    assert pt.NST == 3
     costs = torch.as_tensor(_costs(pt.am.n_sen, 2 * pt.CHUNK, seed=46))
     valid = torch.ones((1, pt.CHUNK), dtype=torch.bool)
     fans = _capture(monkeypatch, ngram_fused, "fan_step")
@@ -289,8 +293,8 @@ def test_with_carry_returns_the_callers_carry(decoders):
     valid = torch.ones((1, 40), dtype=torch.bool)
     _, carry = pt.with_carry(costs, valid)
     kept = [x.clone() for x in _fields(pt, carry)]
-    run = pt._graphs["runs"][False, True]
-    ptrs = {x.data_ptr() for x in _fields(pt, run.io.carry) if x.numel()}
+    ptrs = {x.data_ptr() for x in _fields(pt, pt.chunk_graph.carry)
+            if x.numel()}
     assert not ptrs & {x.data_ptr() for x in _fields(pt, carry)}
     pt.with_carry(other, valid)
     _, nxt = pt.with_carry(other, valid, carry, 40)
@@ -325,9 +329,9 @@ def test_frame_index_tensor_equals_int(decoders, mask):
 
 def test_runners_per_shape_and_decoder(decoders):
     """Two batch sizes on one decoder, in turn, get runners of their own
-    and stay equal to the eager step; the decoder keeps the runners of
-    the last one only, whose record kinds share one static input; `to`
-    gives a decoder runners of its own."""
+    and stay equal to the uncaptured chunk; the decoder keeps the runner
+    of the last one only, whose record kinds share its static inputs;
+    `to` gives a decoder a runner of its own."""
     _, pt = decoders
     seen = []
     for lens in ([30, 12, 25], [19], [30, 12, 25]):
@@ -337,19 +341,19 @@ def test_runners_per_shape_and_decoder(decoders):
                         pt.scan(costs, valid, True, graph=False),
                         strict=True):
             assert torch.equal(a, b)
-        assert pt._graphs["shape"] == (len(lens), pt.am.n_sen)
-        assert set(pt._graphs["runs"]) == {(True, False)}
-        seen.append(pt._graphs["runs"][True, False])
+        run = pt.chunk_graph
+        assert run.shape == (len(lens), pt.am.n_sen)
+        assert set(run.recs) == {(True, False)}
+        seen.append(run)
     assert len({id(r) for r in seen}) == 3
-    assert seen[0].io is not seen[2].io
+    assert seen[0].xs[0] is not seen[2].xs[0]
     pt.scan(costs, valid, False)
-    runs = pt._graphs["runs"]
-    assert runs[False, False] is not runs[True, False]
-    assert runs[False, False].io is runs[True, False].io
+    assert pt.chunk_graph is run and set(run.recs) == {(True, False),
+                                                       (False, False)}
+    assert run.recs[False, False] is not run.recs[True, False]
     other = pt.to("cpu")
     other.scan(costs, valid, True)
-    assert other._graphs is not pt._graphs
-    assert other._graphs["runs"][True, False] is not runs[True, False]
+    assert other.chunk_graph is not run and pt.chunk_graph is run
 
 
 def test_decoder_graph_argument(tmp_path):
@@ -377,29 +381,63 @@ def test_decoder_graph_argument(tmp_path):
 def test_tally_counts_its_own_thread():
     """A launch counts in the open `tally` of the thread that makes it,
     nested tallies restore the outer one, and a thread without one
-    leaves the count to the wrapper."""
+    counts in the process's `launches`, as a replay's `add_launches`
+    does."""
     import threading
     from pocketsphinx_tpu_torch.ops import _build
     inside, outside = threading.Event(), threading.Event()
-    got = {}
+    before = dict(_build.launches)
 
     def other():
         inside.wait()
-        got["other"] = _build.tallied("fan")
+        _build.launched("fan")
         outside.set()
+
+    def grown():
+        return {k: v - before.get(k, 0) for k, v in _build.launches.items()
+                if v != before.get(k, 0)}
 
     t = threading.Thread(target=other)
     t.start()
     with _build.tally() as outer:
-        assert _build.tallied("fan")
+        _build.launched("fan")
         inside.set()
         outside.wait()
         with _build.tally() as inner:
-            assert _build.tallied("chain") and _build.tallied("chain")
-        assert _build.tallied("fan")
+            _build.launched("chain")
+            _build.launched("chain")
+        _build.launched("fan")
     t.join()
-    assert got["other"] is False and not _build.tallied("fan")
+    assert grown() == {"fan": 1}
+    _build.launched("fan")
+    _build.add_launches(inner)
     assert outer == {"fan": 2} and inner == {"chain": 2}
+    assert grown() == {"fan": 2, "chain": 2}
+
+
+def test_launch_counter_across_threads():
+    """Launches counted from many threads at once, one at a time
+    (`launched`, no tally open) and a replay's at once (`add_launches`),
+    lose no update."""
+    import sys
+    import threading
+    from pocketsphinx_tpu_torch.ops import _build
+    name = "test.threads"
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=lambda: [
+            (_build.launched(name), _build.add_launches({name: 2}))
+            for _ in range(2000)]) for _ in range(8)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(interval)
+        got = _build.launches.pop(name, 0)
+    assert got == 8 * 2000 * 3
 
 
 def test_graph_capture_one_at_a_time(monkeypatch):

@@ -1,9 +1,9 @@
 """The Sphinx-II semi-continuous 5-state model on the port's batch path:
 
   * the plain fan step at 5 states (`fan_step_ref`, which the fan kernel
-    is held to on the card) equals the scan's torch finals block
-    (`_finals_step`, the JAX scan's XLA block) after the subtraction of
-    `m_prev`, with forced ties, pad columns and a strided exit plane;
+    is held to on the card) equals the JAX scan's XLA finals block (its
+    `hmm_step_sm` step as that block applies it) after the subtraction
+    of `m_prev`, with forced ties, pad columns and a strided exit plane;
   * the batched s2_4x features (`compute_feats_s2_4x`) at B=3 with
     unequal lengths equal the benchmark reference's bit for bit, and the
     JAX package's per-utterance `compute_feats_typed(feat_type="s2_4x")`
@@ -17,14 +17,15 @@
 
 import importlib.util
 import pathlib
-import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from pocketsphinx_tpu.frontend.feat import compute_feats_typed as jax_feats
+from pocketsphinx_tpu.ops.hmm import hmm_step_sm as jax_hmm_step_sm
 from pocketsphinx_tpu_torch.frontend import feat as port_feat
 from pocketsphinx_tpu_torch.ops import fan
 from pocketsphinx_tpu_torch.search.ngram_fused import NgramFusedDecoder
@@ -45,13 +46,39 @@ def _reference_s2_4x():
     return mod
 
 
+def _jax_finals(S, TF, CX, pre, lp, tp_fin, pred, ptf, pcx):
+    """The JAX scan's XLA finals block, batched: the costs of each final
+    diphone `pre` [B, NST, NRC, LP] spread to the words by `lp` [W], its
+    `hmm_step_sm` step of the carry S/TF/CX [B, NST, NRC, W] under
+    `tp_fin` [W, NST, NST+1], the chain-last entry pred/ptf/pcx [B, W]
+    into state 0 on a strict '>', and each word's first maximal exit.
+    Returns (new S, TF, CTX [B, NST, NRC, W], the exit plane [B, NRC, W],
+    exit score, TF, CTX [B, W]) as NumPy."""
+    def states(x):
+        return tuple(jnp.moveaxis(jnp.asarray(x.numpy()), 1, 0))
+    sen = tuple(-x for x in states(pre[..., lp.long()]))
+    newS, (nTF, nCX), out, _, (oTF, oCX) = jax_hmm_step_sm(
+        states(S), sen, jnp.asarray(tp_fin.numpy()),
+        metas=(states(TF), states(CX)))
+    win = jnp.asarray(pred.numpy())[:, None] > newS[0]
+    firsts = [jnp.where(win, jnp.asarray(x.numpy())[:, None], n[0])
+              for x, n in ((pred, newS), (ptf, nTF), (pcx, nCX))]
+    new = [np.stack([f] + [np.asarray(x) for x in n[1:]], 1)
+           for f, n in zip(firsts, (newS, nTF, nCX))]
+    am = jnp.argmax(out, axis=1)[:, None]            # the first maximal rc
+    exits = [jnp.max(out, axis=1)] + [jnp.take_along_axis(x, am, 1)[:, 0]
+                                      for x in (oTF, oCX)]
+    return new, np.asarray(out), [np.asarray(x) for x in exits]
+
+
 @pytest.mark.parametrize("offsets", ["zero", "mixed"])
 @pytest.mark.parametrize("shape", [(11, 257, 37), (3, 7, 5)])
 def test_fan_step_ref_5_states_equals_finals_block(shape, offsets):
     """At 5 states the plain fan step on a padded carry with offsets
-    equals `_finals_step` on the carry's real columns less the offsets:
-    new carry, exit plane (written into a strided view), exits; its pads
-    are dead, and its partial maxima give the max of the new scores."""
+    equals the JAX scan's XLA finals block on the carry's real columns
+    less the offsets: new carry, exit plane (written into a strided
+    view), exits; its pads are dead, and its partial maxima give the max
+    of the new scores."""
     NRC, W, LP = shape
     rng = np.random.default_rng(31)
     a = {k: torch.as_tensor(v) for k, v in chip_smoke.fan_inputs(
@@ -62,24 +89,23 @@ def test_fan_step_ref_5_states_equals_finals_block(shape, offsets):
     buf = torch.full((3, NRC, W + 6), 2.5)
     got = fan.fan_step(**a, out_f=buf[:, :, 4:4 + W], m_prev=m)
 
-    tables = dict(lp_idx=a["lp"][:W].long(),
-                  tp_fin=a["tp"][:, :W].T.reshape(W, 5, 6))
-    e = {k: a[src][..., :W] for k, src in (("S", "S"), ("TF", "TF"),
-                                           ("CTX", "CX"))}
-    e["S"] = e["S"] - m[:, None, None, None]
-    fin, out, esc, etf, ecx = NgramFusedDecoder._finals_step(
-        types.SimpleNamespace(tables=tables), e, a["pre"], a["pred"],
-        a["ptf"], a["pcx"])
+    fin, out, exits = _jax_finals(
+        a["S"][..., :W] - m[:, None, None, None], a["TF"][..., :W],
+        a["CX"][..., :W], a["pre"], a["lp"][:W],
+        a["tp"][:, :W].T.reshape(W, 5, 6), a["pred"], a["ptf"], a["pcx"])
     for i, k in enumerate(("S", "TF", "CTX")):
-        assert torch.equal(got[i][..., :W], fin[k]), k
+        np.testing.assert_array_equal(got[i][..., :W].numpy(), fin[i],
+                                      err_msg=k)
+        assert got[i].numpy().dtype == fin[i].dtype, k
     assert bool((got[0][..., W:] == fan.NEG_INF).all())
     assert not got[1][..., W:].any() and not got[2][..., W:].any()
-    assert torch.equal(buf[:, :, 4:4 + W], out)
+    np.testing.assert_array_equal(buf[:, :, 4:4 + W].numpy(), out)
     assert bool((buf[:, :, :4] == 2.5).all())
     assert bool((buf[:, :, 4 + W:] == 2.5).all())
-    for x, y in zip(got[4:7], (esc, etf, ecx), strict=True):
-        assert torch.equal(x, y)
-    assert torch.equal(got[7].amax(1), fin["S"].amax(dim=(1, 2, 3)))
+    for x, y in zip(got[4:7], exits, strict=True):
+        np.testing.assert_array_equal(x.numpy(), y)
+        assert x.numpy().dtype == y.dtype
+    assert torch.equal(got[7].amax(1), got[0][..., :W].amax(dim=(1, 2, 3)))
 
 
 def _ceps(lens, seed):
@@ -161,7 +187,8 @@ def test_semi5_model_directory(semi_task):
     assert (am.gauden.n_mgau, am.gauden.n_density) == (1, 16)
     assert list(am.gauden.featlen) == list(synth.S2_4X)
     assert am.feat_params == dict(feat="s2_4x", svspec=None, cmn="live")
-    assert pt._fan_folds
+    assert pt.init_carry(1)["fin"]["S"].shape[-1] == fan.padded_width(
+        pt.n_multi)
 
 
 def test_decode_corpus_semi5_equals_jax_per_utterance(semi_task):
@@ -186,10 +213,7 @@ def test_decode_corpus_semi5_equals_jax_per_utterance(semi_task):
     before = profile.counters()
     got = _key(pipe.decode_corpus(pcms, batch_size=3))
     after = profile.counters()
-    frames = {k: after.get(k, 0) - before.get(k, 0)
-              for k in ("scan.finals_kernel", "scan.finals_plain")}
-    assert frames["scan.finals_plain"] == 0
-    assert frames["scan.finals_kernel"] > 0
+    assert after["scan.finals_kernel"] > before.get("scan.finals_kernel", 0)
 
     jam = JaxAM.load(hmm)
     jx = JaxFused(jam, JD2P(jam.mdef, JDict(jam.mdef, dic,

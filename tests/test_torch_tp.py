@@ -311,14 +311,15 @@ def _carry_equal(dec, a, b):
 @pytest.mark.parametrize("minimal", [False, True], ids=["full", "minimal"])
 @pytest.mark.parametrize("tp", [2, 3])
 def test_split_runner_equals_eager(decoders, scans, tp, minimal):
-    """Through the chunk runner and stepped eagerly: records and carry
-    equal, and the records equal the unsplit scan's and the JAX scan's."""
+    """Through the chunk runner, replayed and called uncaptured: records
+    and carry equal, and the records equal the unsplit scan's and the JAX
+    scan's."""
     _, pt = decoders
     costs, valid, rj, rp = scans[minimal]
     sp = pt.shard(["cpu"] * tp)
     rg, cg = sp._scan(costs, valid, minimal, graph=True)
-    run = sp._graphs["runs"][minimal, False]
-    assert run.graph is None and run.io.costs.shape[0] == len(LENS)
+    run = sp.chunk_graph
+    assert not run.graphs and run.xs[0].shape[0] == len(LENS)
     re, ce = sp._scan(costs, valid, minimal, graph=False)
     names = MINIMAL if minimal else FULL
     assert_records_equal(rg, re, names)
@@ -356,12 +357,12 @@ def test_split_with_carry_resumed(decoders, tp):
 
 def test_split_buffers_once_per_batch_size(decoders, scans, monkeypatch):
     """The block buffers of a split decoder: one set per batch size,
-    shared by the runners and the eager step (made once), each part's
-    outputs over its column range and the joined [B, E] on the lead; an
-    eager step at another B makes its own while the runners keep theirs,
-    which a later capture at their B writes again; a scan at another B
-    makes new ones with its runners and drops the old; a decoder moved
-    with `shard` gets its own."""
+    shared by the runner's record kinds, replayed or called (made once),
+    each part's outputs over its column range and the joined [B, E] on
+    the lead; a step at another B outside the runner makes its own while
+    the runner keeps its set, which its next scan takes back; a scan at
+    another B makes new ones with its runner and drops the old; a
+    decoder moved with `shard` gets its own."""
     import weakref
     from pocketsphinx_tpu_torch.search import ngram_fused as nf
     _, pt = decoders
@@ -381,7 +382,7 @@ def test_split_buffers_once_per_batch_size(decoders, scans, monkeypatch):
     sp.scan(costs, valid, True)
     sp.scan(costs, valid, False)
     sp.scan(costs, valid, False, graph=False)
-    buf = sp._graphs["split"]
+    buf = sp.chunk_graph.held
     assert made == [B] and buf is first and sp._split_buffers(B) is buf
     widths = [b - a for a, b in column_ranges(pt.nE, 3)]
     for p, w in zip(buf.parts, widths, strict=True):
@@ -389,20 +390,22 @@ def test_split_buffers_once_per_batch_size(decoders, scans, monkeypatch):
         assert p.lead_outs is p.outs
         assert [tuple(o.shape) for o in p.outs] == [(B, w)] * 7
     assert [tuple(o.shape) for o in buf.joined] == [(B, pt.nE)] * 7
-    # an eager step at another B replaces the eager set; the graphs keep
-    # theirs, and a later capture at B writes those again
-    sp.scan(costs[:2], valid[:2], True, graph=False)
-    assert made == [B, 2] and sp._split.B == 2 and sp._graphs["split"] is buf
+    # a step at another B outside the runner replaces the decoder's set;
+    # the runner keeps its own, and its next scan writes those again
+    CH = sp.CHUNK
+    list(sp._steps(sp.init_carry(2), costs[:2, :CH], valid[:2, :CH], 0,
+                   True, False))
+    assert made == [B, 2] and sp._split.B == 2 and sp.chunk_graph.held is buf
     sp.with_carry(costs, valid)
     assert made == [B, 2] and sp._split is buf
     old = weakref.ref(buf)
     del buf, first
     sp.scan(costs[:2], valid[:2], True)
     assert made == [B, 2, 2] and old() is None
-    assert sp._graphs["split"].B == 2 and sp._graphs["shape"][0] == 2
-    assert sp._split is sp._graphs["split"]
+    assert sp.chunk_graph.held.B == 2 and sp.chunk_graph.shape[0] == 2
+    assert sp._split is sp.chunk_graph.held
     twin = sp.shard(["cpu"] * 3)
     twin.scan(costs[:2], valid[:2], True)
     assert made == [B, 2, 2, 2]
-    assert twin._graphs["split"] is not sp._graphs["split"]
+    assert twin.chunk_graph.held is not sp.chunk_graph.held
     assert pt.__dict__.get("_split") is None

@@ -28,8 +28,7 @@ from torch.profiler import profile as torch_profile
 from pocketsphinx_tpu_torch import profile
 from pocketsphinx_tpu_torch.frontend.mfcc import MelFrontend
 from pocketsphinx_tpu_torch.parallel import BatchDecodePipeline
-from pocketsphinx_tpu_torch.search import ngram_fused
-from pocketsphinx_tpu_torch.search.base import CHUNK, ChunkGraph
+from pocketsphinx_tpu_torch.search.base import CHUNK, ChunkGraph, frames
 from pocketsphinx_tpu_torch.testing import synth
 
 CFG = dict(nfilt=25, lowerf=130, upperf=6800, transform="dct",
@@ -96,12 +95,12 @@ def _decode(task, timings=None, traced=False):
 
 def test_spans_nest_as_the_path(task, plain, monkeypatch):
     chunks = []
-    run = ngram_fused._ScanGraph.run
+    run = ChunkGraph._chunk
 
     def counted(self, *a):
         chunks.append(1)
         return run(self, *a)
-    monkeypatch.setattr(ngram_fused._ScanGraph, "run", counted)
+    monkeypatch.setattr(ChunkGraph, "_chunk", counted)
     out, spans = _decode(task, traced=True)
     assert out == plain
     names = [s[0] for s in spans]
@@ -231,13 +230,15 @@ def _counts(fn, keys):
     return [after.get(k, 0) - before.get(k, 0) for k in keys]
 
 
-def _five_states(tmp_path):
+def _n_states(tmp_path, n_state=5):
+    """A decoder of an `n_state`-state model, B=2 costs of 20 frames and
+    their valid."""
     tmp_path.mkdir(parents=True, exist_ok=True)
     dic = str(tmp_path / "small.dic")
     words = synth.small_dictionary(dic, n_words=30, n_single=3, seed=16)
     lmf = synth.write_arpa(words, str(tmp_path / "small.arpa"), seed=17)
-    spec = synth.make_model([dic], seed=18, n_sen=210 + 400, n_density=8,
-                            n_state=5)
+    spec = synth.make_model([dic], seed=18, n_sen=42 * n_state + 400,
+                            n_density=8, n_state=n_state)
     dec = synth.build_decoder(spec, str(tmp_path), dic, lmf, topk=8,
                               device="cpu")
     costs = torch.as_tensor(np.random.default_rng(7).uniform(
@@ -250,33 +251,22 @@ def test_renorm_counters_five_states(tmp_path):
     takes the renormalization in its load as the chain kernel does:
     every frame, padded to whole chunks, counts as folded, and a carry
     leaving the scan counts one pass."""
-    dec, costs, valid = _five_states(tmp_path)
-    assert dec.NST == 5 and dec.n_multi and dec._fan_folds
+    dec, costs, valid = _n_states(tmp_path)
+    assert dec.NST == 5 and dec.n_multi
     assert _renorm_counts(lambda: dec.scan(costs, valid)) == [32, 0]
     assert _renorm_counts(lambda: dec.with_carry(costs, valid)) == [32, 1]
 
 
-@pytest.mark.parametrize("kernel", [True, False],
-                         ids=["fan_step", "finals_block"])
-def test_finals_counters(tmp_path, monkeypatch, kernel):
+@pytest.mark.parametrize("n_state", [5, 4], ids=["fan_step", "four_states"])
+def test_finals_counters(tmp_path, n_state):
     """"scan.finals_kernel" counts the frames (padded to whole chunks)
-    whose word-final block the fan step stepped, "scan.finals_plain"
-    those of the torch block `_finals_step`, which a topology the
-    kernel is not built for takes (here a 5-state decoder built as if
-    the kernel took 3 states alone: an unpadded fan carry renormalized
-    in the step, no frame folded); both give the same records."""
-    if not kernel:
-        monkeypatch.setattr(ngram_fused, "NSTS", (3,))
-    dec, costs, valid = _five_states(tmp_path)
-    assert dec._fan_folds == kernel
-    keys = ("scan.finals_kernel", "scan.finals_plain", "scan.renorm_folded")
-    recs = []
-    got = _counts(lambda: recs.append(dec.scan(costs, valid)), keys)
-    assert got == ([32, 0, 32] if kernel else [0, 32, 0])
-    monkeypatch.undo()
-    want = _five_states(tmp_path / "other")[0].scan(costs, valid)
-    for a, b in zip(recs[0], want, strict=True):
-        assert torch.equal(a, b)
+    whose word-final block the fan step stepped: every frame, at a
+    topology the kernel is built for (5 states) and at one it is not (4
+    states, the fan step's plain version on the CPU), each frame folded."""
+    dec, costs, valid = _n_states(tmp_path, n_state)
+    assert dec.NST == n_state and dec.n_multi
+    keys = ("scan.finals_kernel", "scan.renorm_folded")
+    assert _counts(lambda: dec.scan(costs, valid), keys) == [32, 32]
 
 
 @pytest.mark.parametrize("traced", [False, True], ids=["off", "profiled"])
@@ -330,7 +320,7 @@ def test_counters_across_threads():
 
 
 def test_chunk_graph_marks_chunks_and_tail():
-    """`ChunkGraph.run` (the mode and flat searches' runner) marks each
+    """`ChunkGraph.run` (every search's runner) marks each
     whole chunk and the eager tail, and steps what an eager loop does."""
     T = 2 * CHUNK + 5
     xs = (torch.arange(T, dtype=torch.float32)[:, None].repeat(1, 3),)
@@ -340,7 +330,7 @@ def test_chunk_graph_marks_chunks_and_tail():
         return carry, (carry, t + torch.zeros((), dtype=torch.int32))
     run = ChunkGraph("cpu", key=None)
     with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
-        recs, carry = run.run(step, torch.zeros(3), xs, T, t0=7)
+        recs, carry = run.run(frames(step), torch.zeros(3), xs, T, t0=7)
     names = [s[0] for s in _spans(prof)]
     assert names.count("ps.scan.chunk") == 2
     assert names.count("ps.scan.tail") == 1

@@ -371,9 +371,10 @@ def test_cpu_call_loads_no_library(decoders, monkeypatch):
     monkeypatch.setattr(_build, "build", no_build)
     costs = torch.as_tensor(tie_costs(pt.am.n_sen, 8, seed=2))[None]
     args = chip_smoke.frame_exits(pt, costs)[0]
-    n = tr.launches
+    n = _build.launches.get("transitions", 0)
     outs = tr.transitions(*args)
-    assert tr.launches == n and "transitions" not in _build._libs
+    assert _build.launches.get("transitions", 0) == n
+    assert "transitions" not in _build._libs
     want = tr.transitions_ref(*args)
     for o, w in zip(outs, want):
         assert torch.equal(o, w)
